@@ -1,7 +1,8 @@
 """One rank of a multi-process gloo test of the PyTorch port.
 
-Run by ``tests/test_torch_comm.py`` and ``tests/test_torch_transformer.py``
-as ``python _torch_dist_worker.py MODE RANK WORLD DIR``: it joins a gloo
+Run by ``tests/test_torch_comm.py``, ``tests/test_torch_transformer.py`` and
+``tests/test_torch_train.py`` as ``python _torch_dist_worker.py MODE RANK
+WORLD DIR``: it joins a gloo
 group through a ``FileStore`` in DIR, does MODE, and writes
 ``DIR/out<RANK>.npz``.  Imports the port, never jax.
 """
@@ -53,6 +54,39 @@ def _transformer(comm, rank, world, out, workdir):
                                              tp_comm=comm))
 
 
+def _train(rank, world, out, workdir):
+    """One ``make_train_step`` step at dp x tp = (world // 2) x 2: tp
+    groups are consecutive rank pairs, dp groups the ranks of one tp
+    index; each dp rank takes its slice of the batch."""
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.models import transformer as tfm
+
+    tp = 2
+    dp = world // tp
+    tp_groups = [dist.new_group([d * tp + t for t in range(tp)]) for d in range(dp)]
+    dp_groups = [dist.new_group([d * tp + t for d in range(dp)]) for t in range(tp)]
+    dp_rank, tp_rank = rank // tp, rank % tp
+    tp_comm = zmpi.Communicator(tp_groups[dp_rank], name="tp")
+    dp_comm = zmpi.Communicator(dp_groups[tp_rank], name="dp")
+
+    data = np.load(os.path.join(workdir, "inputs.npz"))
+    cfg = tfm.Config(vocab=int(data["vocab"]), d_model=int(data["d_model"]),
+                     n_heads=int(data["n_heads"]), d_ff=int(data["d_ff"]),
+                     n_layers=int(data["n_layers"]), seq=int(data["seq"]),
+                     dtype=torch.float32, flash=True, fused_ln=True,
+                     ce_chunk=int(data["ce_chunk"]))
+    np_params = {k[2:]: data[k] for k in data.files if k.startswith("p_")}
+    params = tfm.params_from_numpy(np_params, cfg, device="cpu",
+                                   tp_rank=tp_rank, tp=tp)
+    b = data["tokens"].shape[0] // dp
+    rows = slice(dp_rank * b, (dp_rank + 1) * b)
+    step, specs = tfm.make_train_step(cfg, dp_comm, tp_comm, lr=float(data["lr"]))
+    new_params, loss = step(params, data["tokens"][rows], data["targets"][rows])
+    out.update({f"p_{k}": v.numpy() for k, v in new_params.items()})
+    out["loss"] = loss.numpy()
+    out["dp_tp"] = np.array([dp_rank, tp_rank, dp_comm.size, tp_comm.size])
+
+
 def run_ranks(mode: str, world: int, workdir, env=None, timeout: float = 120):
     """Start ``world`` ranks of this script in ``workdir`` and wait for them
     (each join bounded by ``timeout``).  Returns ``[(rc, output), ...]``
@@ -100,6 +134,8 @@ def main() -> int:
             _allreduce(comm, rank, out)
         elif mode == "transformer":
             _transformer(comm, rank, world, out, workdir)
+        elif mode == "train":
+            _train(rank, world, out, workdir)
         elif mode == "select":
             out["coll_components"] = np.array(
                 sorted({c for _, c in comm.coll.values()}))

@@ -1,10 +1,12 @@
-"""The PyTorch port's flash-attention forward against the JAX package's.
+"""The PyTorch port's flash attention, forward and backward, against the
+JAX package's.
 
-The same numpy q, k, v go through ``zhpe_ompi_tpu.ops.flash_attention``
-(``_flash_fwd`` in Pallas interpret mode, and ``attn_reference``) and
-through ``zhpe_ompi_tpu_torch.ops.flash_attention`` on the CPU (the
-kernel's plain version ``flash_fwd``, and ``attn_reference``).  The CUDA
-kernel is held against its plain version in
+The same numpy q, k, v (and dO) go through
+``zhpe_ompi_tpu.ops.flash_attention`` (``_flash_fwd`` and ``_flash_bwd`` in
+Pallas interpret mode, and ``attn_reference``) and through
+``zhpe_ompi_tpu_torch.ops.flash_attention`` on the CPU (the kernels' plain
+versions behind ``flash_fwd`` and ``flash_bwd``, and ``attn_reference``).
+The CUDA kernels are held against their plain versions in
 ``tests/test_torch_cuda_kernels.py``.
 
 Tolerances: float32 differs by summation order only (1e-5 on outputs of
@@ -13,11 +15,16 @@ plain version upcast to f32 and round the output once, so outputs may
 differ by one bf16 ulp (1e-2 on |out| < 1); lse stays f32 (1e-4).  The two
 ``attn_reference`` bodies round scores and weights to bf16 at the same
 places but in different libraries, so their bf16 bound is looser (3e-2).
+Gradients: float32 by summation order only (1e-5 on gradients of order 1;
+the JAX kernels scale f32 q before Q K^T, the port scales the scores after
+it); bfloat16 gradients are computed in f32 by both and rounded once, one
+bf16 ulp of the largest |gradient| (2^-7 relative).
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -86,9 +93,54 @@ def test_force_selects_the_kernel_path_on_cpu():
                        tfa.attn_reference(q, k, v, True))
 
 
-def test_backward_is_not_computed_silently():
-    q, k, v = (torch.tensor(a, requires_grad=True) for a in _qkv())
-    out = tfa.flash_attention(q, k, v, causal=True, force=True)
-    with pytest.raises(NotImplementedError, match="flash backward: port slice 2"):
-        out.sum().backward()
+def _grad_tol(jdt, want):
+    return 1e-5 if jdt == jnp.float32 else 2.0 ** -7 * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("causal", CAUSAL)
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_plain_bwd_matches_pallas_interpret(jdt, tdt, causal):
+    """flash_bwd (its plain version on the CPU) against the Pallas dq and
+    dk/dv kernels, interpreted, from the same forward o and lse."""
+    q, k, v = _qkv()
+    do = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    jout, jlse = jfa._flash_fwd(jq, jk, jv, causal, 32, 32, interpret=True)
+    want = jfa._flash_bwd(jq, jk, jv, jout, jlse, jdo, causal, 32, 32,
+                          interpret=True)
+    got = tfa.flash_bwd(*(torch.tensor(a, dtype=tdt) for a in (q, k, v)),
+                        torch.tensor(np.asarray(jout, np.float32), dtype=tdt),
+                        torch.tensor(np.asarray(jlse)[..., 0]),
+                        torch.tensor(do, dtype=tdt), causal)
+    for name, t, w in zip(("dq", "dk", "dv"), got, want):
+        assert t.dtype == tdt and tuple(t.shape) == q.shape
+        np.testing.assert_allclose(_np(t), _np(w), rtol=0,
+                                   atol=_grad_tol(jdt, _np(w)), err_msg=name)
+
+
+@pytest.mark.parametrize("causal", CAUSAL)
+def test_kernel_path_gradients_mask_ragged_sequence(causal):
+    """S = 50: autograd through the port's forced kernel path (plain
+    versions) against jax.grad of attn_reference, for the loss
+    sum(out * w)."""
+    q, k, v = _qkv((1, 50, 2, 16), seed=5)
+    w = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    want = jax.grad(
+        lambda a, b, c: (jfa.attn_reference(a, b, c, causal) * w).sum(),
+        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    (tfa.flash_attention(*ts, causal=causal, force=True)
+     * torch.tensor(w)).sum().backward()
+    for name, t, g in zip(("dq", "dk", "dv"), ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_backward_wrappers_reject_a_device_without_kernel():
+    q = torch.empty((1, 64, 2, 32), device="meta")
+    lse = torch.empty((2, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_bwd(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_bwd_dkv(q, q, q, lse, lse, q)
 

@@ -1,20 +1,24 @@
-"""The PyTorch port's layernorm forward against the JAX package's.
+"""The PyTorch port's layernorm, forward and backward, against the JAX
+package's.
 
 The same numpy inputs go through ``zhpe_ompi_tpu.ops.fused_norm`` (the
-Pallas kernel in interpret mode, and ``ln_reference``) and through
-``zhpe_ompi_tpu_torch.ops.fused_norm`` on the CPU (the kernel's plain
-version, and ``ln_reference``).  The CUDA kernel itself is held against its
-plain version in ``tests/test_torch_cuda_kernels.py``.
+Pallas kernels in interpret mode, and ``ln_reference``) and through
+``zhpe_ompi_tpu_torch.ops.fused_norm`` on the CPU (the kernels' plain
+versions, and ``ln_reference``).  The CUDA kernels themselves are held
+against their plain versions in ``tests/test_torch_cuda_kernels.py``.
 
 Tolerances: float32 differs only by summation order (1e-5 absolute on
 outputs of order 1); bfloat16 outputs are computed in f32 by both packages
 and rounded once, so they may differ by one bf16 ulp (2^-7 relative to the
-largest |y|).  The f32 statistics differ by summation order only (1e-5).
+largest |y| or |dx|).  The f32 statistics differ by summation order only
+(1e-5).  dg is an f32 sum over the rows in another order: 1e-5 relative to
+the largest |dg|.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -92,16 +96,59 @@ def test_cpu_default_is_the_reference():
     assert torch.equal(tfn.layer_norm(xt, gt), tfn.ln_reference(xt, gt))
 
 
-def test_backward_is_not_computed_silently():
+def _dg_tol(dg):
+    return 1e-5 * float(np.abs(dg).max())
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_plain_bwd_matches_pallas_ln_bwd(jdt, tdt):
+    """ln_bwd (its plain version on the CPU) against the Pallas backward
+    kernel, interpreted, on the same x, g, dy and forward statistics."""
+    x, g = _inputs((64, 128))
+    dy = np.random.default_rng(1).standard_normal((64, 128)).astype(np.float32)
+    jx, jdy = jnp.asarray(x, jdt), jnp.asarray(dy, jdt)
+    _, jm, jr = jfn._ln_fwd(jx, jnp.asarray(g), 32, True)
+    jdx, jdg = jfn._ln_bwd(jx, jnp.asarray(g), jdy, jm, jr, 32, True)
+    dx, dg = tfn.ln_bwd(torch.tensor(x, dtype=tdt), torch.tensor(g),
+                        torch.tensor(dy, dtype=tdt),
+                        torch.tensor(np.asarray(jm)[:, 0]),
+                        torch.tensor(np.asarray(jr)[:, 0]))
+    assert dx.dtype == tdt and dg.dtype == torch.float32 and dg.shape == (128,)
+    want_dg = np.asarray(jdg)[0]
+    np.testing.assert_allclose(_np(dx), _np(jdx), rtol=0,
+                               atol=_tol(jdt, _np(jdx)))
+    np.testing.assert_allclose(dg.numpy(), want_dg, rtol=0, atol=_dg_tol(want_dg))
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES)
+def test_kernel_path_gradients_match_jax_grad(jdt, tdt):
+    """Autograd through the port's layer_norm(force=True) against jax.grad
+    through the JAX package's forced (interpreted) Pallas path, for the
+    loss sum(y * w) with a random w."""
     x, g = _inputs()
-    xt = torch.tensor(x, requires_grad=True)
-    y = tfn.layer_norm(xt, torch.tensor(g), force=True)
-    with pytest.raises(NotImplementedError, match="port slice 2"):
-        y.sum().backward()
+    w = np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)
+
+    def jloss(a, b):
+        y = jfn.layer_norm(a, b, block_rows=32, interpret=True, force=True)
+        return (y.astype(jnp.float32) * w).sum()
+
+    jdx, jdg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x, jdt),
+                                               jnp.asarray(g))
+    xt = torch.tensor(x, dtype=tdt, requires_grad=True)
+    gt = torch.tensor(g, requires_grad=True)
+    (tfn.layer_norm(xt, gt, force=True).float() * torch.tensor(w)).sum().backward()
+    np.testing.assert_allclose(_np(xt.grad), _np(jdx), rtol=0,
+                               atol=_tol(jdt, _np(jdx)))
+    want_dg = np.asarray(jdg)
+    np.testing.assert_allclose(gt.grad.numpy(), want_dg, rtol=0,
+                               atol=_dg_tol(want_dg))
 
 
 def test_wrapper_rejects_a_device_without_kernel():
     x = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tfn.ln_fwd(x, torch.empty(8, device="meta"))
+    m = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfn.ln_bwd(x, torch.empty(8, device="meta"), x, m, m)
 

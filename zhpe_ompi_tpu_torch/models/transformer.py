@@ -2,11 +2,13 @@
 the framework's communicators (namesake:
 ``zhpe_ompi_tpu/models/transformer.py``).
 
-This slice ports the forward pass — ``forward_hidden``, ``forward``
-(logits) and ``loss_fn`` evaluated without gradients — with tensor
-parallelism: attention heads and the MLP hidden are sharded over the ranks
-of ``tp_comm``, and the partial sums after the output and down projections
-are combined with ``tp_comm.allreduce`` through ``g_allreduce``.
+The forward pass (``forward_hidden``, ``forward`` for logits, ``loss_fn``)
+and the training step (``make_train_step``, with ``_sync_grads``) are
+ported, with tensor and data parallelism: attention heads and the MLP
+hidden are sharded over the ranks of ``tp_comm``, the partial sums after
+the output and down projections are combined with ``tp_comm.allreduce``
+through ``g_allreduce`` (whose partner ``f_identity`` sums the input
+cotangents in the backward), and gradients are averaged over ``dp_comm``.
 
 Parameters keep the JAX package's stacked layout, so that
 :func:`params_from_numpy` is a plain copy of what
@@ -16,8 +18,8 @@ gains ``ln1``/``ln2`` (L, D) and ``lnf`` (D,), ``embed`` (V, D), all
 float32 masters cast to the model dtype at use.  The JAX package's
 ``lax.scan`` over layers is a Python loop over layer slices here.
 
-Not ported yet: the training step (``make_train_step``, ``_sync_grads``),
-sequence parallelism (``sp_comm``, ring attention) and ``remat``.
+Not ported yet: sequence parallelism (``sp_comm``, ring attention),
+``remat`` and ``make_train_step_optax``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import ops as zops
 from ..core import errors
 from ..ops import fused_ce, fused_norm
 from ..ops import flash_attention as fa
@@ -156,7 +159,7 @@ def forward(params: dict, tokens, cfg: Config, tp_comm=None):
 
 def loss_fn(params, tokens, targets, cfg: Config, tp_comm=None):
     """Mean token cross-entropy in the fused lse form, vocab-chunked when
-    ``cfg.ce_chunk`` is set (evaluation: no gradient is ported yet)."""
+    ``cfg.ce_chunk`` is set; differentiable on every path."""
     # targets go to the device before the forward is queued: a copy from
     # host memory queued after it would hold the host until the device
     # had run the whole forward
@@ -164,3 +167,74 @@ def loss_fn(params, tokens, targets, cfg: Config, tp_comm=None):
     x = forward_hidden(params, tokens, cfg, tp_comm)
     return fused_ce.token_ce(x, params["embed"].to(cfg.dtype), targets,
                              cfg.ce_chunk)
+
+
+# Parameters replicated over tp (everything else is tp-sharded).
+_TP_REPLICATED = frozenset({"embed", "lnf", "ln1", "ln2"})
+
+
+def _sync_grads(grads, loss, dp_comm, tp_comm, dp, tp):
+    """The gradient synchronization semantics of the JAX package's
+    ``_sync_grads``, every sync through the framework's allreduce:
+      - tp-sharded params (wqkv/wo/w1/w2): their grads are tp-local
+        already; average over dp only.
+      - replicated-over-tp params (embed/ln): with the f/g wrappers each
+        tp rank holds the full tp-summed gradient; a tp-mean makes the
+        update bitwise-identical across tp ranks.
+      - the loss is averaged over dp and tp.
+    (The JAX package's sp-mean has no counterpart until sp is ported.)"""
+    synced = {}
+    for name, g in grads.items():
+        g = dp_comm.allreduce(g, zops.SUM) / dp
+        if name in _TP_REPLICATED and tp_comm is not None:
+            g = tp_comm.allreduce(g, zops.SUM) / tp
+        synced[name] = g
+    loss = dp_comm.allreduce(loss, zops.SUM) / dp
+    if tp_comm is not None:
+        loss = tp_comm.allreduce(loss, zops.SUM) / tp
+    return synced, loss
+
+
+def make_train_step(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
+                    lr: float = 1e-2):
+    """Build the training step over dp x tp: gradients of :func:`loss_fn`
+    by autograd, the sync of :func:`_sync_grads`, and the SGD update
+    ``p - lr * g`` in each parameter's dtype.
+
+    The port's communicators take the place of the JAX package's ``mesh``:
+    each process runs ``step`` on its own shard, and ``dp_comm`` and
+    ``tp_comm`` (framework :class:`Communicator` objects over this rank's
+    data- and tensor-parallel groups; ``tp_comm`` may be None) carry every
+    collective.  ``step(params, tokens, targets) -> (new_params, loss)``
+    takes this rank's tp shards (``params_from_numpy(tp_rank=, tp=)``) and
+    its dp slice of the batch, and returns new tensors (the old ones are
+    left as they were).  ``param_specs`` maps each parameter to the axis
+    it is tp-sharded on, or None.  There is no ``jit``: PyTorch runs the
+    step eagerly.
+
+    ``sp_comm`` (sequence parallelism) needs ring attention, which a later
+    slice of the port brings; it raises ``UnsupportedError`` here."""
+    if sp_comm is not None:
+        raise errors.UnsupportedError(
+            "make_train_step: sequence parallelism (sp_comm) runs ring "
+            "attention (models/ring_attention.py), which a later slice of "
+            "the port brings")
+    dp = dp_comm.size
+    tp = tp_comm.size if tp_comm is not None else 1
+    param_specs = {name: _TP_AXIS.get(name) for name in
+                   ("embed", "wqkv", "wo", "w1", "w2", "ln1", "ln2", "lnf")}
+
+    def step(params, tokens, targets):
+        names = list(params)
+        leaves = {n: params[n].detach().requires_grad_(True) for n in names}
+        with torch.enable_grad():
+            loss = loss_fn(leaves, tokens, targets, cfg, tp_comm)
+            grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        synced, loss = _sync_grads(dict(zip(names, grads)), loss.detach(),
+                                   dp_comm, tp_comm, dp, tp)
+        with torch.no_grad():
+            new_params = {n: (params[n] - lr * synced[n]).to(params[n].dtype)
+                          for n in names}
+        return new_params, loss
+
+    return step, param_specs

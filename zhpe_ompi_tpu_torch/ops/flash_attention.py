@@ -1,20 +1,24 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain
-versions (namesake: ``zhpe_ompi_tpu/ops/flash_attention.py``).
+"""Flash attention, forward and backward: hand-written CUDA kernels and
+their plain versions (namesake: ``zhpe_ompi_tpu/ops/flash_attention.py``).
 
 - :func:`attn_reference` — naive attention, the single semantic baseline,
   the same body as the JAX package's (q scaled in the model dtype, f32
   softmax, weights cast back to the model dtype).
-- :func:`flash_fwd` — the kernel wrapper.  On a CUDA tensor it launches
-  ``csrc/flash_attention.cu`` (which replaces the TPU kernel
+- :func:`flash_fwd` — the forward kernel's wrapper.  On a CUDA tensor it
+  launches ``csrc/flash_attention.cu`` (which replaces the TPU kernel
   ``_flash_fwd_kernel``) or raises; on a CPU tensor it runs
   :func:`flash_fwd_plain`, the kernel's arithmetic in plain PyTorch.
   Returns ``(out, lse)``: out (B, S, h, hd) in q's dtype, lse (B*h, S)
   float32.
-- :func:`flash_attention` — the dispatcher the model calls, forward only.
-
-The backward kernels (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``)
-are not ported yet: a gradient through the kernel path raises rather than
-being computed another way.
+- :func:`flash_bwd` — the backward.  On CUDA tensors it launches the two
+  kernels of ``csrc/flash_attention_bwd.cu`` through their wrappers
+  :func:`flash_bwd_dq` (which replaces ``_flash_bwd_dq_kernel`` and also
+  computes delta = rowsum(dO * O)) and :func:`flash_bwd_dkv` (which
+  replaces ``_flash_bwd_dkv_kernel``), or raises; on CPU tensors it runs
+  :func:`flash_bwd_plain`.  Returns ``(dq, dk, dv)``.
+- :func:`flash_attention` — the dispatcher the model calls; its kernel
+  path is an autograd function whose forward saves q, k, v, out and lse
+  and whose backward is :func:`flash_bwd`.
 """
 
 from __future__ import annotations
@@ -56,31 +60,82 @@ def flash_fwd_plain(q, k, v, causal=True):
     return out, lse
 
 
+def flash_bwd_plain(q, k, v, o, lse, do, causal=True):
+    """The backward kernels' arithmetic in plain PyTorch, over whole rows
+    in f32: p = exp(scale * q k^T - lse) (masked: 0), delta = rowsum(dO *
+    O), ds = p (dO v^T - delta), dq = scale ds k, dk = scale ds^T q,
+    dv = p^T dO.  Returns ``(dq, dk, dv)`` in the operands' dtype."""
+    B, S, h, hd = q.shape
+    scale = hd ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, _NEG_INF)
+    p = torch.exp(s - lse.reshape(B, h, S, 1))
+    dp = torch.einsum("bshd,bthd->bhst", dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # (B, h, S)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+
+
 def _lib():
     from .. import _build
 
     return _build.load("flash_attention", {
-        "zt_flash_fwd": (ctypes.c_int, [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p,
-        ]),
+        "zt_flash_fwd": (_I32, [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                                _I32, _VP, _I32, ctypes.c_float, _VP]),
     })
 
 
-def _check_operand(name, t, shape, device):
+def _bwd_lib():
+    from .. import _build
+
+    args = [_VP] * 8 + [_I32] * 4 + [_VP, _I32, ctypes.c_float, _VP]
+    return _build.load("flash_attention_bwd", {
+        "zt_flash_bwd_dq": (_I32, args),
+        "zt_flash_bwd_dkv": (_I32, args),
+    })
+
+
+def _check_operand(who, name, t, shape, device):
     if t.dtype != torch.bfloat16 or t.device != device or t.shape != shape:
         raise ValueError(
-            f"flash_fwd: {name} must be bfloat16 {tuple(shape)} on {device}, "
+            f"{who}: {name} must be bfloat16 {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    # the kernel reads each (row, head) as 16-byte vectors
+    # the kernels read each (row, head) as 16-byte vectors
     if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
             or t.data_ptr() % 16):
         raise ValueError(
-            f"flash_fwd: {name} needs a contiguous last axis, strides that "
+            f"{who}: {name} needs a contiguous last axis, strides that "
             f"are multiples of 8 and a 16-byte aligned start, got strides "
             f"{t.stride()}")
+
+
+def _check_qkv(who, q, k, v):
+    """Device, rank and head dim of q, then every operand of q's shape."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"{who}: q must be (B, S, h, hd), got {tuple(q.shape)}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{who}: head_dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(who, name, t, q.shape, q.device)
+
+
+def _check_rows(who, name, t, B, S, h, device):
+    if (t.dtype != torch.float32 or t.shape != (B * h, S)
+            or not t.is_contiguous() or t.device != device):
+        raise ValueError(
+            f"{who}: {name} must be a contiguous float32 {(B * h, S)} tensor "
+            f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def flash_fwd(q, k, v, causal=True):
@@ -89,15 +144,8 @@ def flash_fwd(q, k, v, causal=True):
     version.  Returns ``(out, lse)``."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd: no kernel for device {q.device}")
-    if q.dim() != 4:
-        raise ValueError(f"flash_fwd: q must be (B, S, h, hd), got {tuple(q.shape)}")
+    _check_qkv("flash_fwd", q, k, v)
     B, S, h, hd = q.shape
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head_dim {hd} not in {_HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.shape, q.device)
     out = torch.empty((B, S, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * h, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(
@@ -118,22 +166,96 @@ def flash_fwd(q, k, v, causal=True):
 flash_fwd.launches = 0
 
 
+def _bwd_strides(q, k, v, o, do):
+    return (ctypes.c_longlong * 15)(
+        *(s for t in (q, k, v, o, do) for s in t.stride()[:3]))
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal=True):
+    """The dq kernel on CUDA tensors (or an error): ``(dq, delta)``, with
+    delta = rowsum(dO * O) as (B*h, S) float32 for :func:`flash_bwd_dkv`."""
+    _check_qkv("flash_bwd_dq", q, k, v)
+    B, S, h, hd = q.shape
+    for name, t in (("o", o), ("do", do)):
+        _check_operand("flash_bwd_dq", name, t, q.shape, q.device)
+    _check_rows("flash_bwd_dq", "lse", lse, B, S, h, q.device)
+    dq = torch.empty((B, S, h, hd), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B * h, S), dtype=torch.float32, device=q.device)
+    strides = _bwd_strides(q, k, v, o, do)
+    with torch.cuda.device(q.device):
+        rc = _bwd_lib().zt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, S, h, hd, ctypes.addressof(strides), int(bool(causal)),
+            hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq: kernel launch failed (cudaError {rc})")
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+#: kernel launches since the count was last set to 0
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, lse, delta, do, causal=True):
+    """The dk/dv kernel on CUDA tensors (or an error): ``(dk, dv)``."""
+    _check_qkv("flash_bwd_dkv", q, k, v)
+    B, S, h, hd = q.shape
+    _check_operand("flash_bwd_dkv", "do", do, q.shape, q.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _check_rows("flash_bwd_dkv", name, t, B, S, h, q.device)
+    dk = torch.empty((B, S, h, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, S, h, hd), dtype=q.dtype, device=q.device)
+    strides = _bwd_strides(q, k, v, do, do)  # the kernel reads no o
+    with torch.cuda.device(q.device):
+        rc = _bwd_lib().zt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, h, hd, ctypes.addressof(strides), int(bool(causal)),
+            hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv: kernel launch failed (cudaError {rc})")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+#: kernel launches since the count was last set to 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, o, lse, do, causal=True):
+    """Attention backward over (B, S, heads, head_dim) tensors, from the
+    forward's ``o`` and ``lse`` and the upstream gradient ``do``.  CUDA
+    tensors: the two hand-written kernels, dq first (it also writes delta),
+    or an error; CPU tensors: the plain version.  Returns ``(dq, dk, dv)``."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, causal)
+    dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, _ = flash_fwd(q, k, v, causal)
+        out, lse = flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError("flash backward: port slice 2")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, g.contiguous(), ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, causal: bool = True, force: bool = False):
-    """Fused attention over (B, S, heads, head_dim) tensors, forward only.
-    On CUDA: the kernel.  On the CPU: :func:`attn_reference`, or with
-    ``force=True`` the kernel's plain version (the counterpart of the JAX
-    package's forced, interpreted Pallas kernel)."""
+    """Fused attention over (B, S, heads, head_dim) tensors, with its
+    gradient.  On CUDA: the kernels.  On the CPU: :func:`attn_reference`,
+    or with ``force=True`` the kernels' plain versions (the counterpart of
+    the JAX package's forced, interpreted Pallas kernels)."""
     if q.device.type == "cpu" and not force:
         return attn_reference(q, k, v, causal)
     return _FlashAttention.apply(q, k, v, causal)
