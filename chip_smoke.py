@@ -13,11 +13,15 @@ Phases, each of which exits non-zero on failure:
 3. Hold each kernel against its plain PyTorch version at the shapes the
    main path gives it (layernorm forward and backward 8192 x 1024 bf16;
    flash attention forward, dq and dk/dv (16, 512, 16, 64) bf16 causal),
-   plus ragged and strided shapes, and time kernel, plain version and the
+   plus ragged and strided shapes and the flash kernels' edges (a 4096-long
+   sequence, causal and not, whose ring phases wrap many times; S = 192,
+   not a multiple of their 128-row blocks), check that dk/dv gives the same
+   bits twice, and time kernel, plain version and the
    PyTorch library call that computes the same function (``F.layer_norm``,
    ``aten.native_layer_norm_backward``, ``F.scaled_dot_product_attention``
    and its autograd backward; timed as a yardstick only, never used by the
-   port).
+   port).  Then the host µs per call of the flash forward and dk/dv
+   wrappers (checks, tensor maps, launch) at the headline shape.
 4. Drive the forward path at the flagship width (vocab 8192, d_model 1024,
    16 heads, d_ff 4096, 4 layers, seq 512, bf16, ce_chunk 1024, batch 16):
    numpy parameters in the JAX package's layout from a seed,
@@ -48,6 +52,12 @@ Phases, each of which exits non-zero on failure:
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
+
+    python3 chip_smoke.py --wrapper-host-us PORT_ROOT
+
+prints only the wrappers' host µs per call of the port under PORT_ROOT
+(for example an older commit unpacked there), to compare two versions on
+one card.
 """
 
 from __future__ import annotations
@@ -123,6 +133,13 @@ FLASH_BWD_REL_TOL = 2.0 ** -6
 TRAIN_LOSS_TOL = 2e-2
 UPDATE_REL_TOL = 2e-2
 
+# Shapes at the flash kernels' edges, (shape, causal, strided): a long
+# sequence, so the ring's mbarrier phases wrap many times (64 key or query
+# tiles a block), and an S that is not a multiple of the forward's 128-row
+# block nor of the dk/dv kernel's 128-key block.
+EDGE_CASES = [((1, 4096, 2, 64), True, False), ((1, 4096, 2, 64), False, False),
+              ((2, 192, 3, 64), True, False)]
+
 
 def _card_line() -> str:
     out = subprocess.run(
@@ -156,6 +173,43 @@ def _time_ms(torch, fn, n_sets, iters=40, warmup=4) -> float:
         raise SystemExit(f"timing: the host took {host_ms} ms to queue the "
                          "calls, longer than the spin kernel holds the device")
     return start.elapsed_time(end) / iters
+
+
+def host_us_per_call(torch, fn, n_sets, calls=200, reps=3) -> float:
+    """Host time of one call in µs: the median over ``reps`` runs of
+    ``calls`` back-to-back calls queued while a spin kernel holds the
+    device, so the clock reads the wrapper's own cost (checks, tensor maps,
+    ctypes, launch) and not the device's work."""
+    for i in range(4):
+        fn(i % n_sets)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        torch.cuda._sleep(200_000_000)  # ~100 ms of device time
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i % n_sets)
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    runs.sort()
+    return runs[reps // 2]
+
+
+def wrapper_host_us(torch, fa) -> dict:
+    """Host µs per call of the flash forward and dk/dv wrappers at the
+    headline shape (16, 512, 16, 64) bf16 causal."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape = (BATCH, HEADLINE["seq"], HEADLINE["n_heads"],
+             HEADLINE["d_model"] // HEADLINE["n_heads"])
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, True)
+    _, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, True)
+    return {
+        "flash_fwd": host_us_per_call(torch, lambda i: fa.flash_fwd(q, k, v, True), 1),
+        "flash_bwd_dkv": host_us_per_call(
+            torch, lambda i: fa.flash_bwd_dkv(q, k, v, lse, delta, do, True), 1),
+    }
 
 
 def _max_err(a, b) -> float:
@@ -218,7 +272,7 @@ def check_flash(torch, F, fa):
     # odd shapes: ragged S, other head dims, strided views of a fused qkv
     cases = [((2, 300, 3, 64), True, False), ((2, 300, 3, 64), False, False),
              ((1, 129, 2, 32), True, False), ((1, 200, 2, 128), True, False),
-             ((2, 256, 4, 64), True, True), ((B, S, h, hd), True, False)]
+             ((2, 256, 4, 64), True, True), *EDGE_CASES, ((B, S, h, hd), True, False)]
     for shape, causal, strided in cases:
         if strided:
             b_, s_, h_, d_ = shape
@@ -326,7 +380,7 @@ def check_flash_bwd(torch, F, fa):
     cases = [((2, 300, 3, 64), True, False), ((2, 300, 3, 64), False, False),
              ((1, 129, 2, 32), True, False), ((1, 200, 2, 128), True, False),
              ((3, 70, 2, 16), False, False), ((2, 256, 4, 64), True, True),
-             ((B, S, h, hd), True, False)]
+             *EDGE_CASES, ((B, S, h, hd), True, False)]
     for shape, causal, strided in cases:
         if strided:
             b_, s_, h_, d_ = shape
@@ -348,6 +402,14 @@ def check_flash_bwd(torch, F, fa):
               f"max|d(q,k,v)-plain| {errs} (tol {tols}), relative norm {rels}")
         if not all(e <= t for e, t in zip(errs, tols)):
             raise SystemExit(f"flash backward kernels disagree at {shape} causal={causal}")
+    # dk/dv sums in a fixed order (no atomics): the same bits twice
+    _, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, True)
+    first = fa.flash_bwd_dkv(q, k, v, lse, delta, do, True)
+    again = fa.flash_bwd_dkv(q, k, v, lse, delta, do, True)
+    deterministic = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"flash dk/dv twice on the same inputs: same bits {deterministic}")
+    if not deterministic:
+        raise SystemExit("the dk/dv kernel is not deterministic")
     # 2 sets of q, k, v, out, dO (84 MB each): more than the L2
     sets = [(q, k, v, out, lse, do)] + [
         tuple(t.clone() for t in (q, k, v, out, lse, do)) for _ in range(1)]
@@ -650,6 +712,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if args and (args[0] != "--wrapper-host-us" or len(args) != 2):
+        print("usage: chip_smoke.py [--wrapper-host-us PORT_ROOT]", file=sys.stderr)
+        return 2
+    if args:
+        # the wrappers' host cost of the port found under PORT_ROOT (for
+        # example an unpacked older commit), on this card
+        sys.path.insert(0, os.path.abspath(args[1]))
+        from zhpe_ompi_tpu_torch.ops import flash_attention as fa
+        print(json.dumps({"wrapper_host_us": wrapper_host_us(torch, fa),
+                          "port_root": args[1], "card": _card_line()}))
+        return 0
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import numpy as np
@@ -675,12 +749,20 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0} s wall, per source {seconds}")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "error",
+                                       "warning")):
                 print(f"  nvcc {name}: {line.strip()}")
 
     kernels = [check_layernorm(torch, F, fused_norm),
                check_layernorm_bwd(torch, fused_norm),
                check_flash(torch, F, fa), *check_flash_bwd(torch, F, fa)]
+    host_us = wrapper_host_us(torch, fa)
+    print(json.dumps({"wrapper_host_us": host_us, "card": card_line}))
+    for k in kernels:
+        if k["name"] == "flash_attention_fwd":
+            k["host_us_per_call"] = host_us["flash_fwd"]
+        elif k["name"] == "flash_attention_bwd_dkv":
+            k["host_us_per_call"] = host_us["flash_bwd_dkv"]
 
     with tempfile.TemporaryDirectory() as store_dir:
         dist.init_process_group(

@@ -70,10 +70,17 @@ def test_layernorm_wrapper_raises_on_bad_input(cuda):
         tfn.ln_fwd(x.t(), torch.ones(8, device=cuda))
 
 
+# The flash kernels' edges: a long sequence, causal and not (the rings'
+# mbarrier phases wrap many times), and an S that is not a multiple of the
+# kernels' 128-row and 128-key blocks.
+FLASH_EDGES = [((1, 4096, 2, 64), True), ((1, 4096, 2, 64), False), ((2, 192, 3, 64), True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal", [
     ((16, 512, 16, 64), True), ((2, 300, 3, 64), False),
-    ((1, 129, 2, 32), True), ((1, 200, 2, 128), True), ((3, 70, 2, 16), False)])
+    ((1, 129, 2, 32), True), ((1, 200, 2, 128), True), ((3, 70, 2, 16), False),
+    *FLASH_EDGES])
 def test_flash_kernel_matches_plain_version(cuda, shape, causal):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
@@ -173,7 +180,7 @@ def _flash_bwd_inputs(shape, causal, device, strided=False, seed=0):
     ((16, 512, 16, 64), True, False), ((2, 300, 3, 64), False, False),
     ((2, 300, 3, 64), True, False), ((1, 129, 2, 32), True, False),
     ((1, 200, 2, 128), True, False), ((3, 70, 2, 16), False, False),
-    ((2, 256, 4, 64), True, True)])
+    ((2, 256, 4, 64), True, True), *((sh, c, False) for sh, c in FLASH_EDGES)])
 def test_flash_bwd_kernels_match_plain_version(cuda, shape, causal, strided):
     q, k, v, out, lse, do = _flash_bwd_inputs(shape, causal, cuda, strided)
     dq0, dkv0 = tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches
@@ -184,6 +191,17 @@ def test_flash_bwd_kernels_match_plain_version(cuda, shape, causal, strided):
     for t, w in zip(got, want):
         assert t.dtype == torch.bfloat16 and t.shape == q.shape
         assert _max_err(t, w) <= 2.0 ** -6 * float(w.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dkv_kernel_is_deterministic(cuda):
+    """dk and dv are summed in a fixed order (no atomics): the same bits
+    twice."""
+    q, k, v, out, lse, do = _flash_bwd_inputs((4, 512, 8, 64), True, cuda, seed=3)
+    _, delta = tfa.flash_bwd_dq(q, k, v, out, lse, do, True)
+    dk1, dv1 = tfa.flash_bwd_dkv(q, k, v, lse, delta, do, True)
+    dk2, dv2 = tfa.flash_bwd_dkv(q, k, v, lse, delta, do, True)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 @pytest.mark.cuda

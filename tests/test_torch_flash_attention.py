@@ -144,3 +144,44 @@ def test_backward_wrappers_reject_a_device_without_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         tfa.flash_bwd_dkv(q, q, q, lse, lse, q)
 
+
+def test_tma_geometry_of_a_contiguous_operand():
+    B, S, h, hd = 2, 300, 3, 64
+    t = torch.zeros((B, S, h, hd), dtype=torch.bfloat16)
+    dims, strides, box = tfa.tma_map_geometry(t.shape, t.stride(), 2, t.data_ptr())
+    assert dims == (hd, S, h, B)
+    assert strides == (h * hd * 2, hd * 2, S * h * hd * 2)
+    assert box == (64, 64, 1, 1)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_tma_geometry_of_fused_qkv_views(hd):
+    """q, k, v as the model makes them, views into one (B, S, 3, H)
+    tensor: the same byte strides, bases H * 2 bytes apart, a box of one
+    swizzle atom (at most 64 bf16 columns, 128 bytes)."""
+    B, S, h = 2, 192, 4
+    H = h * hd
+    qkv = torch.zeros((B, S, 3, H), dtype=torch.bfloat16)
+    views = [qkv[:, :, i].reshape(B, S, h, hd) for i in range(3)]
+    geoms = [tfa.tma_map_geometry(t.shape, t.stride(), t.element_size(), t.data_ptr())
+             for t in views]
+    for dims, strides, box in geoms:
+        assert dims == (hd, S, h, B)
+        assert strides == (3 * H * 2, hd * 2, S * 3 * H * 2)
+        assert box == (min(hd, 64), 64, 1, 1)
+    bases = [t.data_ptr() - qkv.data_ptr() for t in views]
+    assert bases == [0, H * 2, 2 * H * 2]
+    flat = list(tfa._maps(views[0].shape, *views))
+    assert len(flat) == 3 * 11 and flat[:11] == flat[11:22] == flat[22:]
+
+
+def test_tma_geometry_enforces_the_16_byte_rules():
+    shape = (1, 64, 2, 64)
+    good = (64 * 2 * 64, 2 * 64, 64, 1)
+    assert tfa.tma_map_geometry(shape, good, 2, 4096)[1] == (256, 128, 16384)
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        tfa.tma_map_geometry(shape, good, 2, 4096 + 8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tfa.tma_map_geometry(shape, (64 * 2 * 68, 2 * 68, 68, 1), 2, 4096)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        tfa.tma_map_geometry(shape, (8192, 128, 1, 2), 2, 4096)

@@ -7,9 +7,12 @@ by ``nvcc`` into its own shared library, which is loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas -v -o <build>/lib<name>-<hash>.so <name>.cu
 
 No PyTorch header is compiled, so a build takes seconds where
-``torch.utils.cpp_extension.load`` takes minutes.  The library's name
-carries a hash of its source, so an edited kernel is rebuilt and a stale
-one is never loaded.  Libraries go to ``zhpe_ompi_tpu_torch/csrc/_build/``
+``torch.utils.cpp_extension.load`` takes minutes.  No ``-lcuda`` either:
+the kernels that use TMA reach ``cuTensorMapEncodeTiled`` through
+``cudaGetDriverEntryPoint`` (``csrc/sm90.cuh``).  The library's name
+carries a hash of its source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited kernel or header is rebuilt and a stale library is
+never loaded.  Libraries go to ``zhpe_ompi_tpu_torch/csrc/_build/``
 (listed in ``.gitignore``).  :func:`build` starts one ``nvcc`` per source,
 all at once.  Nothing here runs at import time: a module imports this and
 calls :func:`load` inside the function that launches its kernel.
@@ -54,9 +57,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """The source of ``name`` and the path of its library, named by a hash
+    of the source, of every ``csrc/*.cuh`` header and of the flags."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0" + fh.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

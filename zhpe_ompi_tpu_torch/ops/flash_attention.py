@@ -19,10 +19,14 @@ their plain versions (namesake: ``zhpe_ompi_tpu/ops/flash_attention.py``).
 - :func:`flash_attention` — the dispatcher the model calls; its kernel
   path is an autograd function whose forward saves q, k, v, out and lse
   and whose backward is :func:`flash_bwd`.
+- :func:`tma_map_geometry` — the dims, byte strides and box of the TMA
+  tensor map through which the forward and dk/dv kernels read each
+  operand; the wrappers pass it to C, which encodes the maps per call.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
@@ -104,6 +108,48 @@ def _bwd_lib():
     })
 
 
+#: the rows of one TMA box: a 64-row tile of q, k, v or dO
+_TMA_BOX_ROWS = 64
+
+
+def tma_map_geometry(shape, strides, itemsize, base):
+    """The TMA tensor map of one (B, S, h, hd) attention operand, as the
+    kernels encode it: ``(dims, byte_strides, box)``, innermost first.
+
+    dims are (hd, S, h, B); byte_strides those of S, h and B (the last axis
+    is contiguous); box (min(hd, 64), 64, 1, 1), one 64-row tile of one
+    swizzle atom (a row of at most 128 bytes).  ``strides`` are in elements,
+    ``base`` is the data pointer.  Raises ValueError where TMA cannot read
+    the tensor: a last axis that is not contiguous, a base that is not
+    16-byte aligned, or a byte stride that is not a multiple of 16."""
+    B, S, h, hd = shape
+    sb, ss, sh, sd = strides
+    if sd != 1:
+        raise ValueError(f"TMA needs a contiguous last axis, got strides {tuple(strides)}")
+    byte_strides = (ss * itemsize, sh * itemsize, sb * itemsize)
+    if (base | byte_strides[0] | byte_strides[1] | byte_strides[2]) & 15:
+        raise ValueError(
+            f"TMA needs a 16-byte aligned base and byte strides that are "
+            f"multiples of 16, got base {base:#x} and byte strides {byte_strides}")
+    return (hd, S, h, B), byte_strides, (min(hd, 64), _TMA_BOX_ROWS, 1, 1)
+
+
+def _maps(shape, *ts):
+    """The geometry of each tensor's map, flattened for the C entry points
+    (11 int64 a tensor: dims, byte strides, box).  Every tensor has the
+    (B, S, h, hd) ``shape`` and is bf16, as ``_check_operand`` holds.  An
+    ``array.array``: its address is ``buffer_info()[0]``, and it is several
+    times quicker to build than a ctypes array, on a path that runs every
+    call."""
+    flat = []
+    for t in ts:
+        dims, byte_strides, box = tma_map_geometry(shape, t.stride(), 2, t.data_ptr())
+        flat += dims
+        flat += byte_strides
+        flat += box
+    return array.array("q", flat)
+
+
 def _check_operand(who, name, t, shape, device):
     if t.dtype != torch.bfloat16 or t.device != device or t.shape != shape:
         raise ValueError(
@@ -148,12 +194,11 @@ def flash_fwd(q, k, v, causal=True):
     B, S, h, hd = q.shape
     out = torch.empty((B, S, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * h, S), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 9)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    maps = _maps(q.shape, q, k, v)
     with torch.cuda.device(q.device):
         rc = _lib().zt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, h, hd, ctypes.addressof(strides),
+            lse.data_ptr(), B, S, h, hd, maps.buffer_info()[0],
             int(bool(causal)), hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -207,12 +252,12 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, causal=True):
         _check_rows("flash_bwd_dkv", name, t, B, S, h, q.device)
     dk = torch.empty((B, S, h, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, h, hd), dtype=q.dtype, device=q.device)
-    strides = _bwd_strides(q, k, v, do, do)  # the kernel reads no o
+    maps = _maps(q.shape, q, k, v, do)
     with torch.cuda.device(q.device):
         rc = _bwd_lib().zt_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, h, hd, ctypes.addressof(strides), int(bool(causal)),
+            B, S, h, hd, maps.buffer_info()[0], int(bool(causal)),
             hd ** -0.5, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv: kernel launch failed (cudaError {rc})")
