@@ -15,12 +15,12 @@ Phases, each of which exits non-zero on failure:
    flash attention forward, dq and dk/dv (16, 512, 16, 64) bf16 causal),
    plus ragged and strided shapes and the flash kernels' edges (a 4096-long
    sequence, causal and not, whose ring phases wrap many times; S = 192,
-   not a multiple of their 128-row blocks), check that dk/dv gives the same
-   bits twice, and time kernel, plain version and the
+   not a multiple of their 128-row blocks), check that dq (with delta) and
+   dk/dv each give the same bits twice, and time kernel, plain version and the
    PyTorch library call that computes the same function (``F.layer_norm``,
    ``aten.native_layer_norm_backward``, ``F.scaled_dot_product_attention``
    and its autograd backward; timed as a yardstick only, never used by the
-   port).  Then the host µs per call of the flash forward and dk/dv
+   port).  Then the host µs per call of the flash forward, dq and dk/dv
    wrappers (checks, tensor maps, launch) at the headline shape.
 4. Drive the forward path at the flagship width (vocab 8192, d_model 1024,
    16 heads, d_ff 4096, 4 layers, seq 512, bf16, ce_chunk 1024, batch 16):
@@ -141,6 +141,11 @@ EDGE_CASES = [((1, 4096, 2, 64), True, False), ((1, 4096, 2, 64), False, False),
               ((2, 192, 3, 64), True, False)]
 
 
+# device function names of the port's kernels, as the profiler lists them
+PORT_KERNELS = ("ln_fwd_", "ln_bwd_", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel")
+
+
 def _card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -196,7 +201,7 @@ def host_us_per_call(torch, fn, n_sets, calls=200, reps=3) -> float:
 
 
 def wrapper_host_us(torch, fa) -> dict:
-    """Host µs per call of the flash forward and dk/dv wrappers at the
+    """Host µs per call of the flash forward, dq and dk/dv wrappers at the
     headline shape (16, 512, 16, 64) bf16 causal."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     shape = (BATCH, HEADLINE["seq"], HEADLINE["n_heads"],
@@ -207,6 +212,8 @@ def wrapper_host_us(torch, fa) -> dict:
     _, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, True)
     return {
         "flash_fwd": host_us_per_call(torch, lambda i: fa.flash_fwd(q, k, v, True), 1),
+        "flash_bwd_dq": host_us_per_call(
+            torch, lambda i: fa.flash_bwd_dq(q, k, v, out, lse, do, True), 1),
         "flash_bwd_dkv": host_us_per_call(
             torch, lambda i: fa.flash_bwd_dkv(q, k, v, lse, delta, do, True), 1),
     }
@@ -402,8 +409,15 @@ def check_flash_bwd(torch, F, fa):
               f"max|d(q,k,v)-plain| {errs} (tol {tols}), relative norm {rels}")
         if not all(e <= t for e, t in zip(errs, tols)):
             raise SystemExit(f"flash backward kernels disagree at {shape} causal={causal}")
-    # dk/dv sums in a fixed order (no atomics): the same bits twice
-    _, delta = fa.flash_bwd_dq(q, k, v, out, lse, do, True)
+    # dq (with delta) and dk/dv sum in a fixed order (no atomics): the same
+    # bits twice
+    first = fa.flash_bwd_dq(q, k, v, out, lse, do, True)
+    again = fa.flash_bwd_dq(q, k, v, out, lse, do, True)
+    deterministic = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"flash dq and delta twice on the same inputs: same bits {deterministic}")
+    if not deterministic:
+        raise SystemExit("the dq kernel is not deterministic")
+    delta = first[1]
     first = fa.flash_bwd_dkv(q, k, v, lse, delta, do, True)
     again = fa.flash_bwd_dkv(q, k, v, lse, delta, do, True)
     deterministic = all(torch.equal(a, b) for a, b in zip(first, again))
@@ -428,6 +442,9 @@ def check_flash_bwd(torch, F, fa):
                        st[5].transpose(1, 2)))
     lib_ms = _time_ms(torch, lambda i: torch.autograd.grad(
         graphs[i][0], graphs[i][1], graphs[i][2], retain_graph=True), len(sets))
+    print(f"flash bwd {(B, S, h, hd)} causal: dq {dq_ms * 1e3} us + dk/dv "
+          f"{dkv_ms * 1e3} us = pair {(dq_ms + dkv_ms) * 1e3} us, SDPA backward "
+          f"{lib_ms * 1e3} us")
     pairs = B * h * S * (S + 1) // 2  # causal (query, key) pairs this run needs
     elems = B * S * h * hd
     rows = B * h * S
@@ -536,6 +553,9 @@ def profile_calls(torch, call, reps=3):
         "device_ms_per_call": busy_ms,
         "busy_share": busy_ms / (wall_s * 1e3 / reps),
         "top_kernels_ms_per_call": [[k[2][:90], k[0], k[1]] for k in kernels[:16]],
+        # the port's own kernels, wherever they rank
+        "port_kernels_ms_per_call": [[k[2][:90], k[0], k[1]] for k in kernels
+                                     if any(n in k[2] for n in PORT_KERNELS)],
         # host time by operator (self time, profiler cost included)
         "top_host_ops_ms_per_call": [[k[2][:60], k[0], k[1]] for k in host_ops[:12]],
     }
@@ -761,6 +781,8 @@ def main() -> int:
     for k in kernels:
         if k["name"] == "flash_attention_fwd":
             k["host_us_per_call"] = host_us["flash_fwd"]
+        elif k["name"] == "flash_attention_bwd_dq":
+            k["host_us_per_call"] = host_us["flash_bwd_dq"]
         elif k["name"] == "flash_attention_bwd_dkv":
             k["host_us_per_call"] = host_us["flash_bwd_dkv"]
 

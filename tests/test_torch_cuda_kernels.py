@@ -20,7 +20,8 @@ summation order in f32 (1e-5 relative); dg is an f32 sum over the rows in
 another order (1e-4 relative to the largest |dg|).  Flash backward: the
 kernels round p and ds to bf16 for their products (the plain version keeps
 them f32) and all three round their result to bf16: two bf16 ulps of the
-largest |dq|, |dk|, |dv| (2^-6 relative).
+largest |dq|, |dk|, |dv| (2^-6 relative).  delta = rowsum(dO * O): f32
+sums of the same bf16 products in another order (1e-4 relative).
 """
 
 import numpy as np
@@ -202,6 +203,27 @@ def test_flash_bwd_dkv_kernel_is_deterministic(cuda):
     dk1, dv1 = tfa.flash_bwd_dkv(q, k, v, lse, delta, do, True)
     dk2, dv2 = tfa.flash_bwd_dkv(q, k, v, lse, delta, do, True)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dq_kernel_is_deterministic(cuda):
+    """dq and delta are summed in a fixed order (no atomics): the same bits
+    twice."""
+    q, k, v, out, lse, do = _flash_bwd_inputs((4, 512, 8, 64), True, cuda, seed=4)
+    dq1, delta1 = tfa.flash_bwd_dq(q, k, v, out, lse, do, True)
+    dq2, delta2 = tfa.flash_bwd_dq(q, k, v, out, lse, do, True)
+    assert torch.equal(dq1, dq2) and torch.equal(delta1, delta2)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_dq_delta_matches_plain_rowsum(cuda):
+    """delta = rowsum(dO * O) in f32, read through the tiles' swizzle, at
+    every head dim and a ragged S."""
+    for shape in ((1, 129, 2, 32), (3, 70, 2, 16), (1, 200, 2, 128), (2, 300, 3, 64)):
+        q, k, v, out, lse, do = _flash_bwd_inputs(shape, True, cuda)
+        _, delta = tfa.flash_bwd_dq(q, k, v, out, lse, do, True)
+        want = (do.float() * out.float()).sum(-1).transpose(1, 2).reshape(delta.shape)
+        assert _max_err(delta, want) <= 1e-4 * max(1.0, float(want.abs().max())), shape
 
 
 @pytest.mark.cuda

@@ -185,3 +185,39 @@ def test_tma_geometry_enforces_the_16_byte_rules():
         tfa.tma_map_geometry(shape, (64 * 2 * 68, 2 * 68, 68, 1), 2, 4096)
     with pytest.raises(ValueError, match="contiguous last axis"):
         tfa.tma_map_geometry(shape, (8192, 128, 1, 2), 2, 4096)
+
+
+def test_dq_maps_of_fused_qkv_views_and_contiguous_o_do():
+    """flash_bwd_dq's five maps: q, k, v as views into one (B, S, 3, H)
+    tensor, O and dO contiguous.  5 x 11 entries, the same dims and box,
+    O's and dO's own strides."""
+    B, S, h, hd = 2, 70, 4, 64
+    H = h * hd
+    qkv = torch.zeros((B, S, 3, H), dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, i].reshape(B, S, h, hd) for i in range(3))
+    o, do = (torch.zeros((B, S, h, hd), dtype=torch.bfloat16) for _ in range(2))
+    flat = list(tfa._maps(q.shape, q, k, v, o, do))
+    assert len(flat) == 5 * 11
+    maps = [flat[11 * i:11 * (i + 1)] for i in range(5)]
+    for m in maps:
+        assert m[:4] == [hd, S, h, B] and m[7:] == [64, 64, 1, 1]
+    for m in maps[:3]:
+        assert m[4:7] == [3 * H * 2, hd * 2, S * 3 * H * 2]
+    for m in maps[3:]:
+        assert m[4:7] == [H * 2, hd * 2, S * H * 2]
+
+
+@pytest.mark.parametrize("which", ["o", "do"])
+def test_dq_maps_refuse_a_misaligned_o_or_do(which):
+    """An O or dO view whose rows are not 16-byte aligned is refused with
+    ValueError by the pure helper, before any launch."""
+    B, S, h, hd = 1, 64, 2, 32
+    q, k, v, o, do = (torch.zeros((B, S, h, hd), dtype=torch.bfloat16)
+                      for _ in range(5))
+    # a view 4 elements (8 bytes) into a wider buffer: base off by 8 bytes
+    wide = torch.zeros((B, S, h, hd + 4), dtype=torch.bfloat16)
+    bad = wide[..., 4:]
+    ts = {"o": o, "do": do}
+    ts[which] = bad
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        tfa._maps(q.shape, q, k, v, ts["o"], ts["do"])

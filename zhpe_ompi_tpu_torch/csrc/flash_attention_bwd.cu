@@ -21,34 +21,66 @@
 // which zt_flash_bwd_dkv then reads.  p is recomputed as the forward made
 // the lse: the scale is applied to the f32 scores after the bf16 product,
 // and masked entries (causal, and keys or queries past S) are set to 0
-// after the exp.  q, k, v, O and dO are read through their strides (q, k,
-// v are views of the fused qkv product); dq, dk and dv are written
-// (B, S, h, hd) contiguous, lse and delta are (B*h, S) f32.  Ragged S is
-// masked.
+// after the exp.  q, k, v, O and dO are read through TMA tensor maps of
+// their strides (q, k, v are views of the fused qkv product); dq, dk and
+// dv are written (B, S, h, hd) contiguous, lse and delta are (B*h, S) f32.
+// Ragged S is masked.
 //
-// dq (the first design, unchanged): one block of four warps per
-// (batch*head, 64-row query tile), a loop over 64-key tiles up to the
-// diagonal (the TPU grid's sequential k axis), tiles staged synchronously
-// in four (64, hd + 8) bf16 shared tiles (the pad staggers rows over the
-// banks), bf16 mma.sync m16n8k16 products with ldmatrix(.trans) operands.
+// Both kernels share one shape: persistent blocks of two consumer
+// warpgroups (64 rows or keys each) and a producer warpgroup, which gives
+// up its registers with setmaxnreg (the consumers get 232, the producer
+// 40); work items walked in the order of sm90.cuh's Walk, so the tiles of
+// one head run at the same time and the operand they all stream comes
+// from device memory about once; TMA loads into mbarrier rings that run
+// on across items; every product on wgmma; only the diagonal tile and a
+// ragged last tile masked; the epilogue writes bf16 from registers and
+// never writes rows at or past S; no atomics, so the same bits on every
+// run.  Tiles (shared-memory layout in sm90.cuh) are 64-row atoms swizzled
+// to the row width.
 //
-// dk/dv.  What held its first design (the dq design, key-major) back, at
-// 147.6 us on an NVIDIA H100 80GB HBM3 at 700 W: each 64-query step was
-// staged with nothing in flight (Q and dO through registers, lse and delta
-// with scalar loads, between two __syncthreads); the B operands of
-// S^T = K Q^T and dP^T = V dO^T came from two 32-bit shared loads per
+// dq.  What held its first design back, at 100.7 us on an NVIDIA H100
+// 80GB HBM3 at 700 W: one 128-thread block per (head, 64-query tile), which
+// staged K and V synchronously through registers between two
+// __syncthreads on every key tile, so nothing was in flight while the
+// tensor cores worked; every product on mma.sync m16n8k16, its B
+// fragments from 32-bit shared loads; each staged K/V tile served 64 query
+// rows; and exp paid a multiply per score for the scale.
+//
+// This design, query-major like the forward:
+// - Work items are (batch*head, 128-query tile).  The producer loads an
+//   item's Q and dO tiles (double-buffered across items at hd <= 64) and
+//   its O tiles by TMA, then streams K and V tiles of 64 keys through a
+//   ring of kStages stages, up to the diagonal when causal.
+// - delta = rowsum(dO * O) is computed once per item, in f32, from the
+//   shared O and dO tiles read through the swizzle TMA wrote them with
+//   (a row over the four lanes of a quad), written for rows below S, and
+//   the O buffer is freed for the next item.  lse and delta are fixed
+//   across the key loop: each lane holds its two rows' values.
+// - S = Q K^T and dP = dO V^T take both operands from shared memory,
+//   K-major.  dQ += dS K takes dS from registers: the f32 dS accumulator,
+//   rounded to bf16 in pairs, is register for register the A fragment, and
+//   K is read MN-major.  p is exp2 with scale * log2(e) folded in.
+// - dS K of a tile is issued right after the next tile's S and dP and
+//   runs while that tile's p and ds are computed, so a ring stage is held
+//   one tile longer: kStages = 4 at hd <= 64 (144 KB of shared memory), 3
+//   at hd = 128 with single-buffered Q and dO (192 KB); one block per SM.
+//   No wgmma sits inside a data-dependent branch, where ptxas would
+//   serialise every wgmma of the kernel (its warning C7520).
+//
+// dk/dv.  What held its first design (the first dq design, key-major)
+// back, at 147.6 us on an NVIDIA H100 80GB HBM3 at 700 W: each 64-query
+// step was staged with nothing in flight (Q and dO through registers, lse
+// and delta with scalar loads, between two __syncthreads); the B operands
+// of S^T = K Q^T and dP^T = V dO^T came from two 32-bit shared loads per
 // mma.sync; p and ds read lse and delta from shared memory once per
 // element; 128 f32 accumulators per thread at hd = 64 left few warps per
 // SM to hide the synchronous copies; and Q and dO were read again for
 // every 64 keys.
 //
 // This design:
-// - Persistent: one block per SM (at most), each walking work items of
-//   (batch*head, 128-key tile) in the order of sm90.cuh's Walk: the key
-//   tiles of one head run at the same time, so its Q and dO come from
-//   device memory about once.  A block runs two consumer warpgroups of
-//   64 keys each and a producer warpgroup; setmaxnreg gives the consumers
-//   232 registers and leaves the producer 40.
+// - Work items are (batch*head, 128-key tile): the key tiles of one head
+//   run at the same time, so its Q and dO come from device memory about
+//   once.
 // - K and V of an item are loaded once by TMA and stay resident, in one of
 //   two buffers, so the next item's K and V load while this one computes.
 //   The producer streams the query side, from the diagonal on when
@@ -66,269 +98,317 @@
 //   dV is issued before ds is computed, and both run on while the
 //   warpgroup waits for the next stage and issues its S^T and dP^T.
 // - A lane's 16 query columns take their lse and delta from the stage once
-//   per tile, as float pairs; exp is exp2 with scale * log2(e) folded in.
-//   Only the diagonal tile and a ragged last tile are masked, and a
-//   warpgroup skips a causal tile wholly before its keys.
-// - The epilogue writes dk * scale and dv as bf16 from registers; keys at
-//   or past S are never written.  No atomics: the same bits on every run.
-// - Tiles (shared-memory layout in sm90.cuh): 64-row atoms swizzled to the
-//   row width.  kStages = 3 at hd <= 64 (115 KB of shared memory), 2 at
-//   hd = 128 (194 KB).
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+//   per tile, as float pairs; a warpgroup skips a causal tile wholly
+//   before its keys.
+// - The epilogue writes dk * scale and dv.  kStages = 3 at hd <= 64
+//   (115 KB of shared memory), 2 at hd = 128 (194 KB).
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kB = 64;  // query rows or keys per tile (16 per warp)
-constexpr int kWarps = 4;
-
-typedef __nv_bfloat16 bf16;
-
-// element strides (batch, seq, head) of q, k, v, O and dO
-struct Strides {
-  int64_t b[5], s[5], h[5];
-};
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The A fragment of rows [r0, r0 + 16) and columns [c0, c0 + 16) of a
-// row-major shared tile with leading dimension LD.
-template <int LD>
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* tile, int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_u32(p)));
-}
-
-// B fragments of a shared tile stored (k, n) row-major: k rows [k0, k0 + 16),
-// n columns [n0, n0 + 16).  b[0], b[1] feed n-tile n0..n0+7 and b[2], b[3]
-// n-tile n0+8..n0+15.
-template <int LD>
-__device__ __forceinline__ void ldsm_b_trans(uint32_t (&b)[4], const bf16* tile, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = tile + (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(smem_u32(p)));
-}
-
-// The B fragment pair of n-tile [n0, n0 + 8) and k-step [k0, k0 + 16) of a
-// shared tile stored (n, k) row-major.
-template <int LD>
-__device__ __forceinline__ void ld_b(uint32_t& b0, uint32_t& b1, const bf16* tile, int n0,
-                                     int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3) * 2;
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// Copy rows [row0, row0 + 64) of one head into a (64, LD) shared tile,
-// zero-filling rows at or past S.  16-byte loads; the wrapper guarantees
-// 16-byte aligned rows.
-template <int HD, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t s_stride,
-                                          int row0, int S) {
-  constexpr int kVecPerRow = HD / 8;
-  for (int i = threadIdx.x; i < kB * kVecPerRow; i += 32 * kWarps) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * s_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// Write this warp's 16 rows of an f32 accumulator, times mul, as bf16 rows
-// of a (B, S, H, HD) contiguous tensor.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[HD / 8][4], int64_t b,
-                                           int h, int S, int H, int row0, float mul) {
-  const int lane = threadIdx.x & 31;
-  const int tq = lane & 3;
-  const int row1 = row0 + 8;
-  const int64_t ss = (int64_t)H * HD;
-  bf16* p = out + (b * S * H + h) * HD;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int c = dt * 8 + tq * 2;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(p + row0 * ss + c) =
-          __floats2bfloat162_rn(acc[dt][0] * mul, acc[dt][1] * mul);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(p + row1 * ss + c) =
-          __floats2bfloat162_rn(acc[dt][2] * mul, acc[dt][3] * mul);
-  }
-}
-
-template <int HD>
-constexpr int smem_bytes() {
-  return 4 * kB * (HD + 8) * (int)sizeof(bf16);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(32 * kWarps)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ o,
-                    const bf16* __restrict__ dO, const float* __restrict__ lse,
-                    float* __restrict__ delta, bf16* __restrict__ dq, int S, int H, Strides st,
-                    int causal, float scale) {
-  constexpr int LD = HD + 8;
-  constexpr int KSTEPS = HD / 16;  // k-steps of Q K^T and dO V^T
-  constexpr int DT = HD / 8;       // n-tiles of ds K
-  constexpr int NT = kB / 8;       // n-tiles of Q K^T
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + kB * LD;
-  bf16* sK = sdO + kB * LD;
-  bf16* sV = sK + kB * LD;
-  __shared__ float sDelta[kB];
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int q0 = qt * kB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-
-  const bf16* qp = q + b * st.b[0] + h * st.h[0];
-  const bf16* kp = k + b * st.b[1] + h * st.h[1];
-  const bf16* vp = v + b * st.b[2] + h * st.h[2];
-  const bf16* op = o + b * st.b[3] + h * st.h[3];
-  const bf16* dop = dO + b * st.b[4] + h * st.h[4];
-
-  // Q and dO stay in shared memory for the whole loop; O passes through sK
-  // once, for delta = rowsum(dO * O) in f32 (two threads per row).
-  load_tile<HD, LD>(sQ, qp, st.s[0], q0, S);
-  load_tile<HD, LD>(sdO, dop, st.s[4], q0, S);
-  load_tile<HD, LD>(sK, op, st.s[3], q0, S);
-  __syncthreads();
-  {
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    float acc = 0.f;
-#pragma unroll
-    for (int c = half * (HD / 2); c < (half + 1) * (HD / 2); ++c)
-      acc += __bfloat162float(sdO[r * LD + c]) * __bfloat162float(sK[r * LD + c]);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      sDelta[r] = acc;
-      if (q0 + r < S) delta[(int64_t)bh * S + q0 + r] = acc;
-    }
-  }
-  __syncthreads();
-
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float lse0 = row0 < S ? lse[(int64_t)bh * S + row0] : 0.f;
-  const float lse1 = row1 < S ? lse[(int64_t)bh * S + row1] : 0.f;
-  const float dl0 = sDelta[warp * 16 + g], dl1 = sDelta[warp * 16 + g + 8];
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  const int n_kt = causal ? qt + 1 : (S + kB - 1) / kB;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();  // every warp is done with the previous tile (and O)
-    load_tile<HD, LD>(sK, kp, st.s[1], k0, S);
-    load_tile<HD, LD>(sV, vp, st.s[2], k0, S);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t qa[4], da[4];
-      ldsm_a<LD>(qa, sQ, warp * 16, kk * 16);
-      ldsm_a<LD>(da, sdO, warp * 16, kk * 16);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        ld_b<LD>(b0, b1, sK, nt * 8, kk * 16);
-        mma_bf16(s[nt], qa, b0, b1);
-        ld_b<LD>(b0, b1, sV, nt * 8, kk * 16);
-        mma_bf16(dp[nt], da, b0, b1);
-      }
-    }
-
-    // p, then ds in place of s
-    const bool need_mask = (causal && kt == qt) || (k0 + kB > S);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        float p = __expf(s[nt][e] * scale - (lo ? lse0 : lse1));
-        if (need_mask) {
-          const int col = k0 + nt * 8 + tq * 2 + (e & 1);
-          if (col >= S || (causal && col > (lo ? row0 : row1))) p = 0.f;
-        }
-        s[nt][e] = p * (dp[nt][e] - (lo ? dl0 : dl1));
-      }
-    }
-
-    // dq += ds K: the ds accumulators of n-tiles 2j and 2j + 1 are the A
-    // fragment of key chunk j; K, stored (key, d), is B (k = key, n = d).
-#pragma unroll
-    for (int j = 0; j < kB / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int d2 = 0; d2 < DT / 2; ++d2) {
-        uint32_t bb[4];
-        ldsm_b_trans<LD>(bb, sK, j * 16, d2 * 16);
-        mma_bf16(acc[2 * d2], a, bb[0], bb[1]);
-        mma_bf16(acc[2 * d2 + 1], a, bb[2], bb[3]);
-      }
-    }
-  }
-  store_rows<HD>(dq, acc, b, h, S, H, row0, scale);
-}
-
-// ---------------------------------------------------------------- dk/dv
-//
-// dk/dv for Hopper: TMA ring, wgmma, a producer warpgroup (see the note at
-// the top of this file).
-namespace dkv {
-
 using namespace sm90;
 
-constexpr int kBK = 128;             // keys per work item: two consumer warpgroups of 64
-constexpr int kBQ = 64;              // queries per ring stage
 constexpr int kConsumerWarps = 8;
-constexpr int kThreads = 3 * 128;    // and one producer warpgroup
+constexpr int kThreads = 3 * 128;    // two consumer warpgroups and one producer warpgroup
 constexpr int kProducerRegs = 40;    // setmaxnreg: 128 x 40 + 256 x 232 = 64 K registers
 constexpr int kConsumerRegs = 232;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------- dq
+
+namespace dq {
+
+constexpr int kBM = 128;  // query rows per work item: two consumer warpgroups of 64
+constexpr int kBN = 64;   // keys per ring stage
+
+template <int HD>
+struct Smem {
+  using T = Tiles<HD>;
+  static constexpr int kStages = HD <= 64 ? 4 : 3;
+  static constexpr int kQBufs = HD <= 64 ? 2 : 1;         // Q and dO buffers, one item each
+  static constexpr int kQ = 0;                            // Q, two tiles a buffer
+  static constexpr int kDO = kQ + 2 * kQBufs * T::kTile;  // dO, likewise
+  static constexpr int kO = kDO + 2 * kQBufs * T::kTile;  // O of one item, two tiles
+  static constexpr int kK = kO + 2 * T::kTile;            // K ring
+  static constexpr int kV = kK + kStages * T::kTile;      // V ring
+  // q_full[kQBufs], q_empty[kQBufs], o_full, o_empty, full[kStages], empty[kStages]
+  static constexpr int kBar = kV + kStages * T::kTile;
+  static constexpr int kBytes = kBar + 8 * (2 * kQBufs + 2 + 2 * kStages) + 1024;
+};
+
+// A work item: query tile qt of batch*head bh.
+struct Item {
+  int bh, b, h, q0;
+  __device__ __forceinline__ Item(int bh_, int qt, int H)
+      : bh(bh_), b(bh_ / H), h(bh_ % H), q0(qt * kBM) {}
+};
+
+// sum over 8 columns of a * b, two bf16 rows of 16 bytes each, in f32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(pa[i]), y = __bfloat1622float2(pb[i]);
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+  }
+  return s;
+}
+
+// Columns [c, c + 8) of row r of a 64-row tile, where TMA wrote them: in
+// column atom c / kAtom, with the 16-byte chunk index (bits 4.. of the
+// byte offset in the atom) XORed with the row's place in the swizzle
+// period (bits 7.. of the offset), as CU_TENSOR_MAP_SWIZZLE_{32,64,128}B
+// lay them out.
+template <int HD>
+__device__ __forceinline__ uint4 ld_swizzled(const uint8_t* tile, int r, int c) {
+  using T = Tiles<HD>;
+  uint32_t o = r * T::kSwz + (c % T::kAtom) * 2;
+  o ^= ((o >> 7) & (T::kSwz / 16 - 1)) << 4;
+  return *reinterpret_cast<const uint4*>(tile + (c / T::kAtom) * 64 * T::kSwz + o);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_o,
+                    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                    float* __restrict__ delta, bf16* __restrict__ dq_out, int S, int H, int BH,
+                    int causal, float scale) {
+  using C = Smem<HD>;
+  using T = Tiles<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t q_full0 = s0 + C::kBar, q_empty0 = q_full0 + 8 * C::kQBufs;
+  const uint32_t o_full = q_empty0 + 8 * C::kQBufs, o_empty = o_full + 8;
+  const uint32_t full0 = o_empty + 8, empty0 = full0 + 8 * C::kStages;
+  const int n_qt = (S + kBM - 1) / kBM;
+  const int n_kv = (S + kBN - 1) / kBN;
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < C::kQBufs; ++qb) {
+      mbar_init(q_full0 + 8 * qb, 1);
+      mbar_init(q_empty0 + 8 * qb, kConsumerWarps);
+    }
+    mbar_init(o_full, 1);
+    mbar_init(o_empty, kConsumerWarps);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * 128) {
+    // producer warpgroup: one thread issues every load, walking the block's
+    // work items in step with the consumers (i counts K/V tiles over all
+    // items, n items)
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      prefetch_map(&tm_o);
+      prefetch_map(&tm_do);
+      Walk walk(BH, n_qt);
+      for (int bh, qt, i = 0, n = 0; walk.next(bh, qt); ++n) {
+        const Item it(bh, qt, H);
+        const int n_kt = causal ? min(n_kv, (it.q0 + kBM + kBN - 1) / kBN) : n_kv;
+        const int tiles = it.q0 + 64 < S ? 2 : 1;  // the second warpgroup may have no rows
+        const int qb = n % C::kQBufs;
+        const uint32_t q_full = q_full0 + 8 * qb;
+        mbar_wait(q_empty0 + 8 * qb, ((n / C::kQBufs) & 1) ^ 1);
+        mbar_expect_tx(q_full, 2 * tiles * T::kTile);
+        for (int w = 0; w < tiles; ++w) {
+          const uint32_t at = (2 * qb + w) * T::kTile;
+          tma_load_rows<HD>(s0 + C::kQ + at, &tm_q, q_full, it.q0 + 64 * w, it.h, it.b);
+          tma_load_rows<HD>(s0 + C::kDO + at, &tm_do, q_full, it.q0 + 64 * w, it.h, it.b);
+        }
+        mbar_wait(o_empty, (n & 1) ^ 1);
+        mbar_expect_tx(o_full, tiles * T::kTile);
+        for (int w = 0; w < tiles; ++w)
+          tma_load_rows<HD>(s0 + C::kO + w * T::kTile, &tm_o, o_full, it.q0 + 64 * w, it.h,
+                            it.b);
+        for (int kt = 0; kt < n_kt; ++kt, ++i) {
+          const int st = i % C::kStages;
+          const uint32_t full = full0 + 8 * st;
+          mbar_wait(empty0 + 8 * st, ((i / C::kStages) & 1) ^ 1);
+          mbar_expect_tx(full, 2 * T::kTile);
+          tma_load_rows<HD>(s0 + C::kK + st * T::kTile, &tm_k, full, kt * kBN, it.h, it.b);
+          tma_load_rows<HD>(s0 + C::kV + st * T::kTile, &tm_v, full, kt * kBN, it.h, it.b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows [rbase, rbase + 64) of each item;
+    // this lane holds rows r0 and r0 + 8 of them
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wg = warp >> 2;
+    const int tq = lane & 3;
+    const int r0 = (warp & 3) * 16 + (lane >> 2);
+    const float sl2 = scale * kLog2e;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    uint32_t da[kBN / 16][4] = {};
+    Walk walk(BH, n_qt);
+    for (int bh, qt, i = 0, n = 0; walk.next(bh, qt); ++n) {
+      const Item it(bh, qt, H);
+      const int n_kt = causal ? min(n_kv, (it.q0 + kBM + kBN - 1) / kBN) : n_kv;
+      const int rbase = it.q0 + wg * 64;
+      const int row0 = rbase + r0, row1 = row0 + 8;
+      // key tiles with keys this warpgroup's rows see; the last is the
+      // diagonal when causal
+      const int my_kt = rbase >= S ? 0 : causal ? min(n_kt, rbase / kBN + 1) : n_kt;
+      const int qb = n % C::kQBufs;
+      const uint32_t sq = s0 + C::kQ + (2 * qb + wg) * T::kTile;
+      const uint32_t sdo = s0 + C::kDO + (2 * qb + wg) * T::kTile;
+      const int64_t at = (int64_t)it.bh * S;
+      // lse * log2(e) of this lane's rows (the exp is an exp2)
+      const float l0 = row0 < S ? lse[at + row0] * kLog2e : 0.f;
+      const float l1 = row1 < S ? lse[at + row1] * kLog2e : 0.f;
+
+      // delta = rowsum(dO * O) in f32: each lane of a quad sums every
+      // fourth 8-column chunk of the quad's two rows, then the quad adds
+      mbar_wait(q_full0 + 8 * qb, (n / C::kQBufs) & 1);
+      mbar_wait(o_full, n & 1);
+      float dl0 = 0.f, dl1 = 0.f;
+      {
+        const uint8_t* so = smem + C::kO + wg * T::kTile;
+        const uint8_t* sd = smem + C::kDO + (2 * qb + wg) * T::kTile;
+#pragma unroll
+        for (int c = tq * 8; c < HD; c += 32) {
+          dl0 += dot8(ld_swizzled<HD>(sd, r0, c), ld_swizzled<HD>(so, r0, c));
+          dl1 += dot8(ld_swizzled<HD>(sd, r0 + 8, c), ld_swizzled<HD>(so, r0 + 8, c));
+        }
+      }
+      release(o_empty);  // this item's O is read no more
+      dl0 += __shfl_xor_sync(0xffffffffu, dl0, 1);
+      dl0 += __shfl_xor_sync(0xffffffffu, dl0, 2);
+      dl1 += __shfl_xor_sync(0xffffffffu, dl1, 1);
+      dl1 += __shfl_xor_sync(0xffffffffu, dl1, 2);
+      if (tq == 0) {
+        if (row0 < S) delta[at + row0] = dl0;
+        if (row1 < S) delta[at + row1] = dl1;
+      }
+
+      // dq += ds K of a tile is issued with the next tile's S and dP and
+      // runs while that tile's p and ds are computed: `held` is the stage
+      // of the tile whose ds (in dp) waits for its product, `busy` the
+      // stage read by the product in flight.  No wgmma sits in a branch
+      // (ptxas would serialise them all, C7520): before the first tile the
+      // product adds zero fragments times that tile's K, and a warpgroup
+      // with no rows runs its last product on zeros and stores nothing.
+      float dqa[HD / 2], dp[kBN / 2];
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) dqa[j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBN / 2; ++j) dp[j] = 0.f;
+      // dq += ds K of the tile in `stage`: A from its ds, K (key, d) read
+      // MN-major
+      auto issue_dsk = [&](int stage) {
+        const uint32_t sk = s0 + C::kK + stage * T::kTile;
+#pragma unroll
+        for (int j = 0; j < kBN / 16; ++j) wgmma_rs(dqa, da[j], desc_mn<HD>(sk, j), 1);
+        wgmma_commit();
+      };
+      int held = -1, busy = -1, kt = 0;
+      for (; kt < my_kt; ++kt, ++i) {
+        const int st = i % C::kStages;
+        wgmma_wait<0>();  // the product in flight
+        fence_regs(dqa);
+        fence_frags(da);
+        if (busy >= 0) release(empty0 + 8 * busy);
+#pragma unroll
+        for (int j = 0; j < kBN / 16; ++j) acc_to_a(da[j], dp, j);
+        mbar_wait(full0 + 8 * st, (i / C::kStages) & 1);
+        const uint32_t sk = s0 + C::kK + st * T::kTile, sv = s0 + C::kV + st * T::kTile;
+        // S = Q K^T and dP = dO V^T: 64 rows x 64 keys per warpgroup
+        float s[kBN / 2];
+#pragma unroll
+        for (int j = 0; j < kBN / 2; ++j) s[j] = dp[j] = 0.f;
+        wgmma_fence();
+        fence_regs(s);
+        fence_regs(dp);
+        fence_regs(dqa);
+        fence_frags(da);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss(s, desc_k<HD>(sq, kk), desc_k<HD>(sk, kk), kk > 0 ? 1 : 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss(dp, desc_k<HD>(sdo, kk), desc_k<HD>(sv, kk), kk > 0 ? 1 : 0);
+        wgmma_commit();
+        issue_dsk(held >= 0 ? held : st);
+        wgmma_wait<1>();  // S and dP; the product runs on
+        fence_regs(s);
+        fence_regs(dp);
+        busy = held;
+        held = st;
+
+        // ds = p (dP - delta) in place of dp, with p = exp2(s scale log2(e)
+        // - lse log2(e)), masked to 0
+        const int k0 = kt * kBN;
+        const bool need_mask = (causal && kt == my_kt - 1) || k0 + kBN > S;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(fmaf(s[4 * j + e], sl2, -(e < 2 ? l0 : l1)));
+            if (need_mask) {
+              const int col = k0 + j * 8 + tq * 2 + (e & 1);
+              if (col >= S || (causal && col > (e < 2 ? row0 : row1))) p = 0.f;
+            }
+            dp[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+          }
+        }
+      }
+      // the last tile's product
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      fence_frags(da);
+      if (busy >= 0) release(empty0 + 8 * busy);
+#pragma unroll
+      for (int j = 0; j < kBN / 16; ++j) acc_to_a(da[j], dp, j);
+      wgmma_fence();
+      fence_regs(dqa);
+      fence_frags(da);
+      issue_dsk(held >= 0 ? held : 0);
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      fence_frags(da);
+      if (held >= 0) release(empty0 + 8 * held);
+      // key tiles past this warpgroup's rows (causal) or rows past S
+      for (; kt < n_kt; ++kt, ++i) {
+        const int st = i % C::kStages;
+        mbar_wait(full0 + 8 * st, (i / C::kStages) & 1);
+        release(empty0 + 8 * st);
+      }
+      release(q_empty0 + 8 * qb);  // this item's Q and dO are read no more
+      store_acc<HD>(dq_out, dqa, it.b, it.h, S, H, row0, scale, scale);
+    }
+  }
+}
+
+}  // namespace dq
+
+// ---------------------------------------------------------------- dk/dv
+//
+// (see the note at the top of this file)
+namespace dkv {
+
+constexpr int kBK = 128;  // keys per work item: two consumer warpgroups of 64
+constexpr int kBQ = 64;   // queries per ring stage
 
 template <int HD>
 struct Smem {
@@ -568,30 +648,30 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 }  // namespace dkv
 
-Strides make_strides(const long long* st) {
-  Strides s;
-  for (int i = 0; i < 5; ++i) {
-    s.b[i] = st[3 * i];
-    s.s[i] = st[3 * i + 1];
-    s.h[i] = st[3 * i + 2];
-  }
-  return s;
-}
-
 template <int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dO,
-              const void* lse, void* delta, void* dq, int B, int S, int H,
-              const long long* st, int causal, float scale, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(B * H), (unsigned)((S + kB - 1) / kB));
-  flash_bwd_dq_kernel<HD><<<grid, 32 * kWarps, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dO),
-      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), S,
-      H, make_strides(st), causal, scale);
+              const void* lse, void* delta, void* dq_out, int B, int S, int H,
+              const long long* maps, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to, tdo;
+  cudaError_t err;
+  if ((err = encode_operand(&tq, q, maps)) != cudaSuccess ||
+      (err = encode_operand(&tk, k, maps + kGeomLen)) != cudaSuccess ||
+      (err = encode_operand(&tv, v, maps + 2 * kGeomLen)) != cudaSuccess ||
+      (err = encode_operand(&to, o, maps + 3 * kGeomLen)) != cudaSuccess ||
+      (err = encode_operand(&tdo, dO, maps + 4 * kGeomLen)) != cudaSuccess)
+    return (int)err;
+  constexpr int smem = dq::Smem<HD>::kBytes;
+  static unsigned long long smem_set = 0;
+  if ((err = allow_smem(dq::flash_bwd_dq_kernel<HD>, smem, &smem_set)) != cudaSuccess)
+    return (int)err;
+  // persistent: at most one block per SM, each walking work items
+  const long long items = (long long)B * H * ((S + dq::kBM - 1) / dq::kBM);
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)(items < sms ? items : sms);
+  dq::flash_bwd_dq_kernel<HD><<<blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, to, tdo, static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<bf16*>(dq_out), S, H, B * H, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -601,46 +681,54 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO, cons
                const long long* maps, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err;
-  if ((err = sm90::encode_operand(&tq, q, maps)) != cudaSuccess ||
-      (err = sm90::encode_operand(&tk, k, maps + sm90::kGeomLen)) != cudaSuccess ||
-      (err = sm90::encode_operand(&tv, v, maps + 2 * sm90::kGeomLen)) != cudaSuccess ||
-      (err = sm90::encode_operand(&tdo, dO, maps + 3 * sm90::kGeomLen)) != cudaSuccess)
+  if ((err = encode_operand(&tq, q, maps)) != cudaSuccess ||
+      (err = encode_operand(&tk, k, maps + kGeomLen)) != cudaSuccess ||
+      (err = encode_operand(&tv, v, maps + 2 * kGeomLen)) != cudaSuccess ||
+      (err = encode_operand(&tdo, dO, maps + 3 * kGeomLen)) != cudaSuccess)
     return (int)err;
   constexpr int smem = dkv::Smem<HD>::kBytes;
   static unsigned long long smem_set = 0;
-  if ((err = sm90::allow_smem(dkv::flash_bwd_dkv_kernel<HD>, smem, &smem_set)) != cudaSuccess)
+  if ((err = allow_smem(dkv::flash_bwd_dkv_kernel<HD>, smem, &smem_set)) != cudaSuccess)
     return (int)err;
   // persistent: at most one block per SM, each walking work items
   const long long items = (long long)B * H * ((S + dkv::kBK - 1) / dkv::kBK);
   int sms = 0;
-  if ((err = sm90::sm_count(&sms)) != cudaSuccess) return (int)err;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)(items < sms ? items : sms);
-  dkv::flash_bwd_dkv_kernel<HD><<<blocks, dkv::kThreads, smem, stream>>>(
+  dkv::flash_bwd_dkv_kernel<HD><<<blocks, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, B * H, causal, scale);
   return (int)cudaGetLastError();
 }
 
-bool valid(int B, int S, int H) { return B > 0 && S > 0 && H > 0 && S <= 65535 * kB; }
+// Work items and rows are counted in int.
+bool valid(int B, int S, int H) {
+  return B > 0 && S > 0 && H > 0 && (long long)B * H * S < (1LL << 31);
+}
 
 }  // namespace
 
-// q, k, v, o, dO: bf16 (B, S, H, hd), the last axis contiguous, with
-// element strides (batch, seq, head) at strides[0..2] for q, [3..5] k,
-// [6..8] v, [9..11] o and [12..14] dO.  lse: the forward's f32 (B*H, S).
-// Writes delta, f32 (B*H, S), and dq, bf16 (B, S, H, hd) contiguous.
-// hd must be 16, 32, 64 or 128.  Returns the cudaError_t of the launch.
+// q, k, v, o, dO: bf16 (B, S, H, hd), each described by sm90::kGeomLen
+// entries of `maps` (q, k, v, o, then dO): dims (hd, S, H, B), byte strides of S,
+// H and B, and the box (min(hd, 64), 64, 1, 1), as
+// ops/flash_attention.py::tma_map_geometry computes them.  lse: the
+// forward's f32 (B*H, S).  Writes delta, f32 (B*H, S), and dq, bf16
+// (B, S, H, hd) contiguous.  hd must be 16, 32, 64 or 128.  Returns the
+// cudaError_t of the encoding or the launch.
 extern "C" int zt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                const void* dO, const void* lse, void* delta, void* dq, int B,
-                               int S, int H, int hd, const long long* strides, int causal,
+                               int S, int H, int hd, const long long* maps, int causal,
                                float scale, void* stream) {
   if (!valid(B, S, H)) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 5; ++i)
+    if (!sm90::geometry_ok(maps + i * sm90::kGeomLen, B, S, H, hd))
+      return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_dq<16>(q, k, v, o, dO, lse, delta, dq, B, S, H, strides, causal, scale, st);
-    case 32: return launch_dq<32>(q, k, v, o, dO, lse, delta, dq, B, S, H, strides, causal, scale, st);
-    case 64: return launch_dq<64>(q, k, v, o, dO, lse, delta, dq, B, S, H, strides, causal, scale, st);
-    case 128: return launch_dq<128>(q, k, v, o, dO, lse, delta, dq, B, S, H, strides, causal, scale, st);
+    case 16: return launch_dq<16>(q, k, v, o, dO, lse, delta, dq, B, S, H, maps, causal, scale, st);
+    case 32: return launch_dq<32>(q, k, v, o, dO, lse, delta, dq, B, S, H, maps, causal, scale, st);
+    case 64: return launch_dq<64>(q, k, v, o, dO, lse, delta, dq, B, S, H, maps, causal, scale, st);
+    case 128: return launch_dq<128>(q, k, v, o, dO, lse, delta, dq, B, S, H, maps, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -656,8 +744,7 @@ extern "C" int zt_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                 const void* lse, const void* delta, void* dk, void* dv, int B,
                                 int S, int H, int hd, const long long* maps, int causal,
                                 float scale, void* stream) {
-  // work items are counted in int
-  if (!valid(B, S, H) || (long long)B * H * S >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, S, H)) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 4; ++i)
     if (!sm90::geometry_ok(maps + i * sm90::kGeomLen, B, S, H, hd))
       return (int)cudaErrorInvalidValue;

@@ -33,27 +33,41 @@
 // What bounds it: bytes again.  At 8192 x 1024 bf16 it must read x and dy
 // and write dx, ~50.4 MB, ~15 us at 3.35 TB/s.
 //
-// Design: the TPU kernel summed dg across its sequential grid in VMEM
-// scratch; GPU blocks run in no order, so dg takes two launches, both in
-// zt_ln_bwd, with no atomics and a fixed summation order (the result is
-// the same bits on every run on a given card):
-// 1. A grid-stride loop of a few blocks per SM (the count is the occupancy
-//    the card reports, so it is fixed for a card).  One warp per row, as in
-//    the forward: on the register path the row of x and dy is read once
-//    with 16-byte loads, the two row means are warp shuffles over
-//    registers, dx is written once.  Each lane keeps its columns' dg sum in
-//    registers across the rows it visits; at the end the block's warps fold
-//    their sums in warp order through shared memory and the block writes
-//    one (D,) f32 partial.  At the flagship shape that is ~264 partials,
-//    ~1 MB, against the ~50 MB of the main pass.  The generic path (odd
-//    widths, unaligned pointers) keeps each warp's dg sum in its own row of
-//    the partials in device memory, one block per SM.
-// 2. ln_dg_reduce sums the partials column by column: 32 threads down each
-//    column, then a fold of those 32 sums in order.
+// What held the first design back, at 31.7 us on an NVIDIA H100 80GB HBM3
+// at 700 W: each lane kept its row as f32 (x^, dx^ and the dg sums, 127-128
+// registers), so two 256-thread blocks fit an SM and each warp had one row
+// in flight, its load -> two shuffle reductions -> store chain serial; g
+// was read again from device memory for every row; and dg took a second
+// launch, which folded ~264 partial rows with ~9 dependent loads a thread.
+//
+// This design, one cooperative launch (the grid is sized by the occupancy
+// the card reports, so every block is resident and the sum order is fixed
+// for a card):
+// - Register path: one warp per row, 16 warps a block, one block per SM,
+//   a grid-stride loop over the rows.  A lane keeps its columns of x and dy
+//   packed as loaded (16-byte vectors, 32 registers for d = 1024 bf16) and
+//   unpacks them twice, for the two row means and then for dx; the next
+//   row's x, dy, mean and rstd are loaded before this row's reductions, so
+//   two rows are in flight per warp.  g is read once per block into shared
+//   memory.  Each lane keeps its columns' dg sums in registers; at the end
+//   the block's warps fold them in warp order through shared memory into
+//   one (d,) partial row per block.
+// - Generic path (widths that are not a multiple of the 16-byte vector,
+//   unaligned pointers): scalar passes, each warp's dg sum in its own
+//   partial row in device memory, one block per SM.
+// - Then a grid-wide barrier, and the blocks fold the partial rows in
+//   parallel (fold_dg): a block takes 32 columns, its warps split the rows,
+//   and their sums are added in warp order.  No atomics: the same bits on
+//   every run on a given card.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -197,53 +211,110 @@ void launch(const void* x, const float* g, void* y, float* m, float* r, int64_t 
 
 // ---------------------------------------------------------------- backward
 
+// dg[j] = sum over p < rows of partial[p][j], once every block of the
+// (cooperative) grid has written its partial rows.  Block b folds the
+// 32-column chunks b, b + gridDim.x, ...: warp w sums rows w, w + W, ... of
+// its lane's column, then the W sums are added in warp order.
+__device__ void fold_dg(const float* partial, int64_t rows, int d, float* __restrict__ dg) {
+  __shared__ float sums[32][33];
+  cg::this_grid().sync();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, W = blockDim.x >> 5;
+  for (int c = blockIdx.x; c * 32 < d; c += gridDim.x) {
+    const int j = c * 32 + lane;
+    float a = 0.f;
+    if (j < d) {
+#pragma unroll 8
+      for (int64_t p = warp; p < rows; p += W) a += __ldcg(partial + p * d + j);
+    }
+    sums[warp][lane] = a;
+    __syncthreads();
+    if (warp == 0 && j < d) {
+      float t = 0.f;
+      for (int w = 0; w < W; ++w) t += sums[w][lane];
+      dg[j] = t;
+    }
+    __syncthreads();
+  }
+}
+
+// The register path's constants: VEC elements per 16-byte load, rows up to
+// kCols wide, 16 warps a block where two rows of packed x and dy and the
+// dg sums fit 128 registers (CHUNKS <= 4), else 8.
+template <typename T, int CHUNKS>
+struct BwdReg {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kCols = CHUNKS * 32 * kVec;
+  static constexpr int kThreads = CHUNKS <= 4 ? 512 : 256;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kSmem = (1 + kWarps) * kCols * 4;  // g, then each warp's dg sums
+};
+
 // Register path: lane l holds columns [(c * 32 + l) * VEC, +VEC) for
 // c < CHUNKS, as in ln_fwd_reg.  Requires d % VEC == 0 and 16-byte aligned
-// x, dy, dx and g.  Writes partial[blockIdx.x][:d], the block's dg sum.
+// x, dy, dx and g.  Writes partial[blockIdx.x][:d], the block's dg sum,
+// then folds the grid's partial rows into dg.
 template <typename T, int CHUNKS>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
+__global__ void __launch_bounds__(BwdReg<T, CHUNKS>::kThreads, 1)
 ln_bwd_reg(const T* __restrict__ x, const float* __restrict__ g, const T* __restrict__ dy,
            const float* __restrict__ mean, const float* __restrict__ rstd, T* __restrict__ dx,
-           float* __restrict__ partial, int64_t n, int d) {
-  constexpr int VEC = 16 / sizeof(T);
-  __shared__ float sdg[CHUNKS * 32 * VEC];
+           float* partial, float* __restrict__ dg, int64_t n, int d) {
+  using P = BwdReg<T, CHUNKS>;
+  constexpr int VEC = P::kVec, W = P::kWarps;
+  extern __shared__ float smem[];
+  float* sg = smem;               // g
+  float* sacc = smem + P::kCols;  // warp w's dg sums at w * kCols
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[CHUNKS][VEC];
-#pragma unroll
-  for (int c = 0; c < CHUNKS; ++c)
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[c][i] = 0.f;
 
-  const int64_t stride = (int64_t)gridDim.x * kRowsPerBlock;
-  for (int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + warp; row < n; row += stride) {
-    const float m = mean[row], r = rstd[row];
-    float xh[CHUNKS][VEC], dh[CHUNKS][VEC];
+  // x and dy of row r, packed as loaded; zeros past n and past d
+  auto load = [&](int64_t r, uint4 (&xs)[CHUNKS], uint4 (&ds)[CHUNKS]) {
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      const int col = (c * 32 + lane) * VEC;
+      xs[c] = ds[c] = make_uint4(0u, 0u, 0u, 0u);
+      if (r < n && col < d) {
+        xs[c] = *reinterpret_cast<const uint4*>(x + r * d + col);
+        ds[c] = *reinterpret_cast<const uint4*>(dy + r * d + col);
+      }
+    }
+  };
+
+  float acc[CHUNKS][VEC] = {};
+  uint4 xv[CHUNKS], dv[CHUNKS];
+  const int64_t stride = (int64_t)gridDim.x * W;
+  int64_t row = (int64_t)blockIdx.x * W + warp;
+  load(row, xv, dv);
+  float m = row < n ? mean[row] : 0.f, r = row < n ? rstd[row] : 0.f;
+  // g, while the first rows load
+  for (int j = threadIdx.x; j < d; j += P::kThreads) sg[j] = g[j];
+  __syncthreads();
+  for (; row < n; row += stride) {
+    // the next row's loads go out before this row's reductions
+    const int64_t next = row + stride;
+    uint4 xn[CHUNKS], dn[CHUNKS];
+    load(next, xn, dn);
+    const float m_next = next < n ? mean[next] : 0.f, r_next = next < n ? rstd[next] : 0.f;
+
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
       const int col = (c * 32 + lane) * VEC;
       if (col < d) {
-        uint4 xraw = *reinterpret_cast<const uint4*>(x + row * d + col);
-        uint4 draw = *reinterpret_cast<const uint4*>(dy + row * d + col);
-        const T* xe = reinterpret_cast<const T*>(&xraw);
-        const T* de = reinterpret_cast<const T*>(&draw);
+        const T* xe = reinterpret_cast<const T*>(&xv[c]);
+        const T* de = reinterpret_cast<const T*>(&dv[c]);
 #pragma unroll
         for (int i = 0; i < VEC; i += 4) {
-          const float4 g4 = *reinterpret_cast<const float4*>(g + col + i);
+          const float4 g4 = *reinterpret_cast<const float4*>(sg + col + i);
           const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
+            const float xh = (to_f(xe[i + t]) - m) * r;
             const float dyv = to_f(de[i + t]);
-            xh[c][i + t] = (to_f(xe[i + t]) - m) * r;
-            dh[c][i + t] = dyv * gv[t];
-            acc[c][i + t] += dyv * xh[c][i + t];
-            s1 += dh[c][i + t];
-            s2 += dh[c][i + t] * xh[c][i + t];
+            const float dh = dyv * gv[t];
+            acc[c][i + t] += dyv * xh;
+            s1 += dh;
+            s2 += dh * xh;
           }
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) xh[c][i] = dh[c][i] = 0.f;
       }
     }
     const float mdh = warp_sum(s1) / (float)d;
@@ -252,40 +323,58 @@ ln_bwd_reg(const T* __restrict__ x, const float* __restrict__ g, const T* __rest
     for (int c = 0; c < CHUNKS; ++c) {
       const int col = (c * 32 + lane) * VEC;
       if (col < d) {
+        const T* xe = reinterpret_cast<const T*>(&xv[c]);
+        const T* de = reinterpret_cast<const T*>(&dv[c]);
         uint4 raw;
         T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) e[i] = from_f<T>(r * (dh[c][i] - mdh - xh[c][i] * mdx));
+        for (int i = 0; i < VEC; i += 4) {
+          const float4 g4 = *reinterpret_cast<const float4*>(sg + col + i);
+          const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const float xh = (to_f(xe[i + t]) - m) * r;
+            e[i + t] = from_f<T>(r * (to_f(de[i + t]) * gv[t] - mdh - xh * mdx));
+          }
+        }
         *reinterpret_cast<uint4*>(dx + row * d + col) = raw;
       }
     }
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+      xv[c] = xn[c];
+      dv[c] = dn[c];
+    }
+    m = m_next;
+    r = r_next;
   }
 
-  // fold the warps' dg sums in warp order
-  for (int w = 0; w < kRowsPerBlock; ++w) {
-    if (warp == w) {
+  // the block's partial row: its warps' dg sums added in warp order
 #pragma unroll
-      for (int c = 0; c < CHUNKS; ++c) {
-        const int col = (c * 32 + lane) * VEC;
-        if (col < d) {
+  for (int c = 0; c < CHUNKS; ++c) {
+    const int col = (c * 32 + lane) * VEC;
+    if (col < d) {
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) sdg[col + i] = (w == 0 ? 0.f : sdg[col + i]) + acc[c][i];
-        }
-      }
+      for (int i = 0; i < VEC; ++i) sacc[warp * P::kCols + col + i] = acc[c][i];
     }
-    __syncthreads();
   }
-  for (int j = threadIdx.x; j < d; j += 32 * kRowsPerBlock)
-    partial[(int64_t)blockIdx.x * d + j] = sdg[j];
+  __syncthreads();
+  for (int j = threadIdx.x; j < d; j += P::kThreads) {
+    float t = 0.f;
+    for (int w = 0; w < W; ++w) t += sacc[w * P::kCols + j];
+    partial[(int64_t)blockIdx.x * d + j] = t;
+  }
+  fold_dg(partial, gridDim.x, d, dg);
 }
 
-// Generic path: any d, any alignment; scalar passes over the row, and each
-// warp's dg sum in its own row of partial, (gridDim.x * kRowsPerBlock, d).
+// Generic path: any d, any alignment; scalar passes over the row, each
+// warp's dg sum in its own row of partial, (gridDim.x * kRowsPerBlock, d),
+// then the grid's fold into dg.
 template <typename T>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 ln_bwd_generic(const T* __restrict__ x, const float* __restrict__ g, const T* __restrict__ dy,
                const float* __restrict__ mean, const float* __restrict__ rstd,
-               T* __restrict__ dx, float* __restrict__ partial, int64_t n, int d) {
+               T* __restrict__ dx, float* partial, float* __restrict__ dg, int64_t n, int d) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* pw = partial + ((int64_t)blockIdx.x * kRowsPerBlock + warp) * d;
   for (int j = lane; j < d; j += 32) pw[j] = 0.f;
@@ -310,88 +399,84 @@ ln_bwd_generic(const T* __restrict__ x, const float* __restrict__ g, const T* __
       dx[row * d + j] = from_f<T>(r * (to_f(dyr[j]) * g[j] - mdh - xh * mdx));
     }
   }
-}
-
-// dg[j] = sum over p of partial[p][j], in a fixed order: thread (tx, ty)
-// sums rows ty, ty + 32, ... of column blockIdx.x * 32 + tx, then row 0 of
-// the block folds the 32 sums in ty order.
-__global__ void __launch_bounds__(1024)
-ln_dg_reduce(const float* __restrict__ partial, float* __restrict__ dg, int64_t p, int d) {
-  __shared__ float s[32][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int j = blockIdx.x * 32 + tx;
-  float acc = 0.f;
-  if (j < d)
-    for (int64_t i = ty; i < p; i += 32) acc += partial[i * d + j];
-  s[ty][tx] = acc;
-  __syncthreads();
-  if (ty == 0 && j < d) {
-    float t = 0.f;
-    for (int i = 0; i < 32; ++i) t += s[i][tx];
-    dg[j] = t;
-  }
+  fold_dg(partial, (int64_t)gridDim.x * kRowsPerBlock, d, dg);
 }
 
 template <typename T>
 using BwdKernel = void (*)(const T*, const float*, const T*, const float*, const float*, T*,
-                           float*, int64_t, int);
+                           float*, float*, int64_t, int);
 
 template <typename T>
 struct BwdPlan {
   BwdKernel<T> kernel;
-  unsigned blocks;
+  unsigned blocks, threads;
+  int smem;
   long long partial_rows;
 };
 
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
+// The register path's kernel, block size and shared memory, its dynamic
+// shared-memory limit raised once per device.
+template <typename T, int CHUNKS>
+cudaError_t reg_plan(BwdPlan<T>* plan) {
+  using P = BwdReg<T, CHUNKS>;
+  static unsigned long long smem_set = 0;
+  plan->kernel = ln_bwd_reg<T, CHUNKS>;
+  plan->threads = P::kThreads;
+  plan->smem = P::kSmem;
+  return sm90::allow_smem(ln_bwd_reg<T, CHUNKS>, P::kSmem, &smem_set);
 }
 
-// Which kernel, how many blocks, how many dg partial rows.  Depends only
-// on the shapes, the alignment and the card, so the wrapper can size the
-// partials before the launch and the summation order is fixed.
+// Which kernel, how many blocks of how many threads, how many dg partial
+// rows.  Depends only on the shapes, the alignment and the card, so the
+// wrapper can size the partials before the launch and the summation order
+// is fixed.  The grid is at most what the card holds at once, as a
+// cooperative launch needs.
 template <typename T>
-BwdPlan<T> bwd_plan(const void* x, const void* g, const void* dy, const void* dx, int64_t n,
-                    int d) {
+cudaError_t bwd_plan(const void* x, const void* g, const void* dy, const void* dx, int64_t n,
+                     int d, BwdPlan<T>* plan) {
   constexpr int VEC = 16 / sizeof(T);
   const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)dy % 16 == 0) &&
                        ((uintptr_t)dx % 16 == 0) && ((uintptr_t)g % 16 == 0) && (d % VEC == 0);
   const int chunks = (d + 32 * VEC - 1) / (32 * VEC);
-  BwdKernel<T> k = nullptr;
-  if (aligned && chunks <= 1) k = ln_bwd_reg<T, 1>;
-  else if (aligned && chunks <= 2) k = ln_bwd_reg<T, 2>;
-  else if (aligned && chunks <= 4) k = ln_bwd_reg<T, 4>;
-  else if (aligned && chunks <= 8) k = ln_bwd_reg<T, 8>;
-  const bool reg = k != nullptr;
-  int per_sm = 1;
+  cudaError_t err = cudaSuccess;
+  bool reg = aligned && chunks <= 8;
+  if (aligned && chunks <= 1) err = reg_plan<T, 1>(plan);
+  else if (aligned && chunks <= 2) err = reg_plan<T, 2>(plan);
+  else if (aligned && chunks <= 4) err = reg_plan<T, 4>(plan);
+  else if (aligned && chunks <= 8) err = reg_plan<T, 8>(plan);
+  else *plan = {ln_bwd_generic<T>, 0, 32 * kRowsPerBlock, 0, 0};
+  if (err != cudaSuccess) return err;
+  int per_sm = 1, sms = 0;
   if (reg) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, 32 * kRowsPerBlock, 0);
-    if (per_sm < 1) per_sm = 1;
-  } else {
-    k = ln_bwd_generic<T>;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, plan->kernel, plan->threads,
+                                                        plan->smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
   }
-  const int64_t want = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  const int64_t cap = (int64_t)per_sm * sm_count();
-  const unsigned blocks = (unsigned)(want < cap ? want : cap);
-  return {k, blocks, reg ? (long long)blocks : (long long)blocks * kRowsPerBlock};
+  if ((err = sm90::sm_count(&sms)) != cudaSuccess) return err;
+  const int warps = plan->threads / 32;
+  const int64_t want = (n + warps - 1) / warps;
+  const int64_t cap = (int64_t)per_sm * sms;
+  plan->blocks = (unsigned)(want < cap ? want : cap);
+  plan->partial_rows = reg ? (long long)plan->blocks : (long long)plan->blocks * warps;
+  return cudaSuccess;
 }
 
 template <typename T>
 int launch_bwd(const void* x, const float* g, const void* dy, const float* m, const float* r,
                void* dx, float* dg, float* partial, long long partial_rows, int64_t n, int d,
                cudaStream_t st) {
-  const BwdPlan<T> plan = bwd_plan<T>(x, g, dy, dx, n, d);
-  if (plan.partial_rows != partial_rows) return (int)cudaErrorInvalidValue;
-  plan.kernel<<<plan.blocks, 32 * kRowsPerBlock, 0, st>>>(
-      static_cast<const T*>(x), g, static_cast<const T*>(dy), m, r, static_cast<T*>(dx),
-      partial, n, d);
-  const cudaError_t err = cudaGetLastError();
+  BwdPlan<T> plan;
+  cudaError_t err = bwd_plan<T>(x, g, dy, dx, n, d, &plan);
   if (err != cudaSuccess) return (int)err;
-  ln_dg_reduce<<<(unsigned)((d + 31) / 32), 1024, 0, st>>>(partial, dg, partial_rows, d);
-  return (int)cudaGetLastError();
+  if (plan.partial_rows != partial_rows) return (int)cudaErrorInvalidValue;
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  void* args[] = {&xp, &g, &dyp, &m, &r, &dxp, &partial, &dg, &n, &d};
+  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(plan.kernel),
+                                          dim3(plan.blocks), dim3(plan.threads), args,
+                                          (size_t)plan.smem, st);
 }
 
 }  // namespace
@@ -420,8 +505,16 @@ extern "C" long long zt_ln_bwd_partials(const void* x, const void* g, const void
                                         const void* dx, long long n, int d, int dtype) {
   if (n <= 0 || d <= 0) return -1;
   switch (dtype) {
-    case 0: return bwd_plan<float>(x, g, dy, dx, n, d).partial_rows;
-    case 1: return bwd_plan<__nv_bfloat16>(x, g, dy, dx, n, d).partial_rows;
+    case 0: {
+      BwdPlan<float> plan;
+      return bwd_plan<float>(x, g, dy, dx, n, d, &plan) == cudaSuccess ? plan.partial_rows : -1;
+    }
+    case 1: {
+      BwdPlan<__nv_bfloat16> plan;
+      return bwd_plan<__nv_bfloat16>(x, g, dy, dx, n, d, &plan) == cudaSuccess
+                 ? plan.partial_rows
+                 : -1;
+    }
     default: return -1;
   }
 }
@@ -430,8 +523,8 @@ extern "C" long long zt_ln_bwd_partials(const void* x, const void* g, const void
 // (0 = float32, 1 = bfloat16); g is (d,) float32; mean and rstd are the
 // forward's (n,) float32 statistics; dg is (d,) float32; partial is
 // (partial_rows, d) float32 scratch, partial_rows as zt_ln_bwd_partials
-// gives it.  Two launches on `stream`.  Returns the cudaError_t (0 on
-// success).
+// gives it.  One cooperative launch on `stream`.  Returns the cudaError_t
+// (0 on success).
 extern "C" int zt_ln_bwd(const void* x, const void* g, const void* dy, const void* mean,
                          const void* rstd, void* dx, void* dg, void* partial,
                          long long partial_rows, long long n, int d, int dtype, void* stream) {

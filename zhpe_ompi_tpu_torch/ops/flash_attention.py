@@ -20,8 +20,8 @@ their plain versions (namesake: ``zhpe_ompi_tpu/ops/flash_attention.py``).
   path is an autograd function whose forward saves q, k, v, out and lse
   and whose backward is :func:`flash_bwd`.
 - :func:`tma_map_geometry` — the dims, byte strides and box of the TMA
-  tensor map through which the forward and dk/dv kernels read each
-  operand; the wrappers pass it to C, which encodes the maps per call.
+  tensor map through which the kernels read each operand; the wrappers
+  pass it to C, which encodes the maps per call.
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ def _bwd_lib():
     })
 
 
-#: the rows of one TMA box: a 64-row tile of q, k, v or dO
+#: the rows of one TMA box: a 64-row tile of q, k, v, O or dO
 _TMA_BOX_ROWS = 64
 
 
@@ -211,11 +211,6 @@ def flash_fwd(q, k, v, causal=True):
 flash_fwd.launches = 0
 
 
-def _bwd_strides(q, k, v, o, do):
-    return (ctypes.c_longlong * 15)(
-        *(s for t in (q, k, v, o, do) for s in t.stride()[:3]))
-
-
 def flash_bwd_dq(q, k, v, o, lse, do, causal=True):
     """The dq kernel on CUDA tensors (or an error): ``(dq, delta)``, with
     delta = rowsum(dO * O) as (B*h, S) float32 for :func:`flash_bwd_dkv`."""
@@ -226,12 +221,12 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal=True):
     _check_rows("flash_bwd_dq", "lse", lse, B, S, h, q.device)
     dq = torch.empty((B, S, h, hd), dtype=q.dtype, device=q.device)
     delta = torch.empty((B * h, S), dtype=torch.float32, device=q.device)
-    strides = _bwd_strides(q, k, v, o, do)
+    maps = _maps(q.shape, q, k, v, o, do)
     with torch.cuda.device(q.device):
         rc = _bwd_lib().zt_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            B, S, h, hd, ctypes.addressof(strides), int(bool(causal)),
+            B, S, h, hd, maps.buffer_info()[0], int(bool(causal)),
             hd ** -0.5, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq: kernel launch failed (cudaError {rc})")

@@ -120,9 +120,9 @@ ln_fwd.launches = 0
 def ln_bwd(x2, g, dy2, mean, rstd):
     """Layernorm backward of rows ``x2`` (N, D) with float32 gain ``g``
     (D,), upstream gradient ``dy2`` (N, D) and the forward's (N,) float32
-    ``mean`` and ``rstd``.  CUDA tensors: the hand-written kernel (two
-    launches, counted as one), or an error; CPU tensors: the plain
-    version.  Returns ``(dx, dg)``."""
+    ``mean`` and ``rstd``.  CUDA tensors: the hand-written kernel (one
+    cooperative launch that also folds dg), or an error; CPU tensors: the
+    plain version.  Returns ``(dx, dg)``."""
     if x2.device.type == "cpu":
         return ln_bwd_plain(x2, g, dy2, mean, rstd)
     if x2.device.type != "cuda":
@@ -161,8 +161,7 @@ def ln_bwd(x2, g, dy2, mean, rstd):
     return dx, dg
 
 
-#: kernel launches (each a pair: rows, then the dg reduction) since the
-#: count was last set to 0
+#: kernel launches since the count was last set to 0
 ln_bwd.launches = 0
 
 
