@@ -22,42 +22,73 @@ Phases, each of which exits non-zero on failure:
    and its autograd backward; timed as a yardstick only, never used by the
    port).  Then the host µs per call of the flash forward, dq and dk/dv
    wrappers (checks, tensor maps, launch) at the headline shape.
-4. Drive the forward path at the flagship width (vocab 8192, d_model 1024,
+4. Hold the ring attention's block recurrence at (16, 512, 16, 64) bf16
+   causal, the sequence cut into 4 blocks: for each virtual rank, the
+   port's ``_chunk_attn`` over the blocks in the order the ring delivers
+   them, then the normalisation, against ``_block_attention_single`` on
+   the whole sequence (max abs error within 2e-2); the same with the
+   zigzag layout's live sub-blocks; the time per rank of each.
+5. On one-rank NCCL communicators (``tp``, ``dp``, ``sp``), whose
+   collectives ``tuned`` serves over ``coll/nccl``: every entry of
+   ``comm.coll``, and every algorithm of ``coll/algorithms.py`` forced
+   through ``ZMPI_MCA_coll_tuned_<op>_algorithm``, on CUDA tensors of f32,
+   bf16 and int32, must give the one-rank MPI answer.  Then the host µs
+   per call of ``Communicator.allreduce`` through tuned and through a
+   communicator composed without tuned, in 10 alternating turns, and of
+   the nccl component's allreduce alone.
+6. Drive the forward path at the flagship width (vocab 8192, d_model 1024,
    16 heads, d_ff 4096, 4 layers, seq 512, bf16, ce_chunk 1024, batch 16):
    numpy parameters in the JAX package's layout from a seed,
-   ``params_from_numpy`` onto the card, a one-rank NCCL ``Communicator``
-   as ``tp_comm``, and three batches scored through ``forward`` and
-   ``loss_fn``.  The kernels' launch counts are set to 0 just before and
-   read just after; each forward must launch the layernorm kernel 9 times
-   and the flash kernel 4 times.  The losses must be finite and near
-   ln(8192), and match the same forward with ``fused_ln=False,
-   flash=False``; the logits product (bf16 operands, f32 result) must
-   match both operands upcast to f32.  Then steady-state times of
-   ``forward`` and ``loss_fn`` and a torch.profiler breakdown of
+   ``params_from_numpy`` onto the card, ``tp_comm``, and three batches
+   scored through ``forward`` and ``loss_fn``.  The kernels' launch counts
+   (all five) are set to 0 just before and read just after; each forward
+   must launch the layernorm kernel 9 times, the flash kernel 4 times and
+   no backward kernel.  The losses
+   must be finite and near ln(8192), and match the same forward with
+   ``fused_ln=False, flash=False``; the logits product (bf16 operands, f32
+   result) must match both operands upcast to f32.  Then steady-state
+   times of ``forward`` and ``loss_fn`` and a torch.profiler breakdown of
    ``loss_fn`` are printed.
-5. Drive the training path at the same width: ``make_train_step`` with
-   one-rank NCCL communicators as ``dp_comm`` and ``tp_comm``, five SGD
-   steps on one repeated batch.  The launch counts are set to 0 just
-   before each step and read just after; each step must launch the
-   layernorm forward and backward kernels 9 times each and the flash
-   forward, dq and dk/dv kernels 4 times each.  The losses must be finite
-   and the last below the first.  One step on the kernel path and one on
-   the plain path (``fused_ln=False, flash=False``) from the same
-   parameters and batch must agree in loss and in every parameter's
-   update.  Then the steady step time (median, quartiles) and tokens
-   trained per second, the peak device memory, and a torch.profiler
-   breakdown of one step are printed.
-6. Print one ``{"kernels": [...]}`` line (``launches``: per training
-   step), the card's line, and last ``{"ok": true, "device": {...}}``.
+7. Drive the training path at the same width: ``make_train_step`` with
+   ``dp_comm`` and ``tp_comm``, five SGD steps on one repeated batch.  The
+   launch counts are set to 0 just before each step and read just after;
+   each step must launch the layernorm forward and backward kernels 9
+   times each and the flash forward, dq and dk/dv kernels 4 times each.
+   The losses must be finite and the last below the first.  One step on
+   the kernel path and one on the plain path (``fused_ln=False,
+   flash=False``) from the same parameters and batch must agree in loss
+   and in every parameter's update.  Then the steady step time (median,
+   quartiles), tokens trained per second, the peak device memory, and a
+   torch.profiler breakdown of one step are printed.
+8. The same with ``remat=True``: each step must launch the layernorm
+   forward 17 times and the flash forward 8 times (the recomputed layers),
+   the backward kernels as before; the first step's loss is compared in
+   its bits with the step without remat on the same parameters and batch,
+   and each parameter's update must agree within 1e-3 (relative Frobenius
+   norm); the peak device memory must be below the step's without remat.
+9. The same with the one-rank NCCL ``sp_comm`` (ring attention),
+   contiguous and then zigzag: no flash launch, 9 layernorm forward and
+   backward launches per step, the first loss within 2e-2 of the flash
+   path's.
+10. Print one ``{"kernels": [...]}`` line (``launches``: per training
+   step; ``launches_by_path``: per forward, training, remat and sp step),
+   the card's line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
 
     python3 chip_smoke.py --wrapper-host-us PORT_ROOT
 
-prints only the wrappers' host µs per call of the port under PORT_ROOT
-(for example an older commit unpacked there), to compare two versions on
-one card.
+prints only the wrappers' host µs per call, and ``Communicator.allreduce``'s,
+of the port under PORT_ROOT (for example an older commit unpacked there),
+to compare two versions on one card.
+
+    python3 chip_smoke.py --compare-host-us OTHER_ROOT [PAIRS]
+
+runs that measurement for OTHER_ROOT and for the port beside this script
+in PAIRS (default 10) alternating pairs of processes (other first in even
+pairs, this one first in odd pairs) and prints each version's median and
+quartiles of every number.
 """
 
 from __future__ import annotations
@@ -133,6 +164,19 @@ FLASH_BWD_REL_TOL = 2.0 ** -6
 TRAIN_LOSS_TOL = 2e-2
 UPDATE_REL_TOL = 2e-2
 
+# - remat: the same forward, so the same loss; the backward recomputes the
+#   same layers, so each parameter's update agrees to f32 summation order
+#   (relative Frobenius norm).
+REMAT_UPDATE_REL_TOL = 1e-3
+# - ring recurrence at (16, 512, 16, 64) bf16 in RING_BLOCKS blocks against
+#   one exact block: both in f32 from bf16 inputs, rounded to bf16 once
+#   (2^-8 relative of outputs of order 1), summed in another order.
+RING_BLOCKS = 4
+# rounds of the in-process comparison of allreduce's host cost with and
+# without tuned
+HOST_US_TURNS = 10
+RING_TOL = 2e-2
+
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
 # sequence, so the ring's mbarrier phases wrap many times (64 key or query
 # tiles a block), and an S that is not a multiple of the forward's 128-row
@@ -178,6 +222,22 @@ def _time_ms(torch, fn, n_sets, iters=40, warmup=4) -> float:
         raise SystemExit(f"timing: the host took {host_ms} ms to queue the "
                          "calls, longer than the spin kernel holds the device")
     return start.elapsed_time(end) / iters
+
+
+def _event_ms(torch, fn, reps=3) -> float:
+    """Time of one call by CUDA events around ``reps`` calls after one
+    warm-up, with no spin kernel ahead of them: for work that issues many
+    small kernels, the time includes the host's issue rate."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def host_us_per_call(torch, fn, n_sets, calls=200, reps=3) -> float:
@@ -571,8 +631,9 @@ def drive_main_path(torch, np, tfm, fused_ce, fused_norm, fa, tp_comm):
                 rng.integers(0, cfg.vocab, (BATCH, cfg.seq)))
                for _ in range(N_BATCHES)]
     results = []
-    fused_norm.ln_fwd.launches = 0
-    fa.flash_fwd.launches = 0
+    counted = _kernel_counters(fused_norm, fa)
+    for fn in counted.values():
+        fn.launches = 0
     with torch.inference_mode():
         for tokens, targets in batches:
             torch.cuda.synchronize()
@@ -584,11 +645,11 @@ def drive_main_path(torch, np, tfm, fused_ce, fused_norm, fa, tp_comm):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             results.append((logits, float(loss), t1 - t0, t2 - t1))
-    launches = {"layernorm_fwd": fused_norm.ln_fwd.launches,
-                "flash_attention_fwd": fa.flash_fwd.launches}
+    launches = {name: fn.launches for name, fn in counted.items()}
     n_forward = 2 * N_BATCHES
     want = {"layernorm_fwd": (2 * cfg.n_layers + 1) * n_forward,
-            "flash_attention_fwd": cfg.n_layers * n_forward}
+            "layernorm_bwd": 0, "flash_attention_fwd": cfg.n_layers * n_forward,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
     print(f"main path launches {launches}, expected {want} "
           f"({n_forward} forwards)")
     if launches != want:
@@ -640,29 +701,22 @@ def drive_main_path(torch, np, tfm, fused_ce, fused_norm, fa, tp_comm):
     return launches, [r[2] for r in results], [r[3] for r in results]
 
 
-def drive_train(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm):
-    """The training path: make_train_step at the headline width."""
-    from dataclasses import replace
+def _kernel_counters(fused_norm, fa):
+    return {"layernorm_fwd": fused_norm.ln_fwd, "layernorm_bwd": fused_norm.ln_bwd,
+            "flash_attention_fwd": fa.flash_fwd,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv}
 
-    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
-    step, _ = tfm.make_train_step(cfg, dp_comm, tp_comm, lr=TRAIN_LR)
-    plain_step, _ = tfm.make_train_step(
-        replace(cfg, fused_ln=False, flash=False), dp_comm, tp_comm, lr=TRAIN_LR)
-    params0 = tfm.params_from_numpy(_numpy_params(np, cfg, seed=0), cfg)
-    rng = np.random.default_rng(2)
-    tokens, targets = (torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, cfg.seq)),
-                                       device="cuda") for _ in range(2))
-    counted = {"layernorm_fwd": fused_norm.ln_fwd, "layernorm_bwd": fused_norm.ln_bwd,
-               "flash_attention_fwd": fa.flash_fwd,
-               "flash_attention_bwd_dq": fa.flash_bwd_dq,
-               "flash_attention_bwd_dkv": fa.flash_bwd_dkv}
-    L = cfg.n_layers
-    want = {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
-            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L}
+
+def train_steps(torch, step, params, tokens, targets, counted, want, label):
+    """TRAIN_STEPS steps on one batch, each between launch counts set to 0
+    just before and read just after; fails unless every count is as
+    ``want`` says and the loss falls with finite values.  The trained
+    parameters come back in a dict that no one else references, so that
+    ``steady_steps`` can replace them step by step and the peak memory it
+    reads holds one live set."""
     card = torch.cuda.get_device_name(0)
-
-    params, losses = params0, []
+    losses = []
     for i in range(TRAIN_STEPS):
         for fn in counted.values():
             fn.launches = 0
@@ -673,38 +727,36 @@ def drive_train(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counted.items()}
-        print(f"train step {i}: loss {loss} in {dt * 1e3} ms, launches {launches} "
-              f"(expected {want}) on {card}")
+        print(f"{label} step {i}: loss {loss} in {dt * 1e3} ms, launches "
+              f"{launches} (expected {want}) on {card}")
         if launches != want:
-            raise SystemExit("a training step did not launch every kernel as expected")
+            raise SystemExit(f"a {label} step did not launch the kernels as expected")
         losses.append(loss)
     finite = all(bool(torch.isfinite(p).all()) for p in params.values())
     if not (all(math.isfinite(x) for x in losses) and finite and losses[-1] < losses[0]):
-        raise SystemExit(f"training did not lower the loss with finite values: {losses}")
+        raise SystemExit(f"{label}: the loss did not fall with finite values: {losses}")
+    return {"params": params}, losses, launches
 
-    # one step on each path from the same parameters and batch
-    new_k, loss_k = step(params0, tokens, targets)
-    new_p, loss_p = plain_step(params0, tokens, targets)
-    lerr = abs(float(loss_k) - float(loss_p))
-    rel = {name: float((new_k[name] - p0 - (new_p[name] - p0)).norm()
-                       / (new_p[name] - p0).norm())
-           for name, p0 in params0.items()}
-    print(f"train step, kernel path vs plain path: |loss diff| {lerr} "
-          f"(tol {TRAIN_LOSS_TOL}), relative update difference {rel} "
-          f"(tol {UPDATE_REL_TOL})")
-    if not (lerr <= TRAIN_LOSS_TOL and all(r <= UPDATE_REL_TOL for r in rel.values())):
-        raise SystemExit("the kernel path's training step disagrees with the plain path")
-    del new_k, new_p
 
-    # steady state: synchronized steps after two warm-up steps
+def steady_steps(torch, step, state, tokens, targets, label):
+    """Synchronised steps after two warm-up steps: the step time's median
+    and quartiles, tokens trained per second, the peak device memory over
+    the steady steps, and a torch.profiler breakdown of two steps.
+    ``state["params"]`` is replaced by each step's result: the caller
+    holds no other reference to it."""
+    card = torch.cuda.get_device_name(0)
+
+    def one_step():
+        state["params"], _ = step(state["params"], tokens, targets)
+
     for _ in range(2):
-        params, _ = step(params, tokens, targets)
+        one_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = []
     for _ in range(STEADY_STEPS):
         t0 = time.perf_counter()
-        params, loss = step(params, tokens, targets)
+        one_step()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
@@ -712,18 +764,335 @@ def drive_train(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm):
     n = len(ms)
     steady = {"steps": n, "median_ms": ms[n // 2], "q1_ms": ms[n // 4],
               "q3_ms": ms[3 * n // 4], "min_ms": ms[0], "max_ms": ms[-1],
-              "tokens_per_s_trained": BATCH * cfg.seq / (ms[n // 2] / 1e3),
+              "tokens_per_s_trained": BATCH * HEADLINE["seq"] / (ms[n // 2] / 1e3),
               "max_memory_allocated_bytes": peak}
-    print(json.dumps({"train_steady_state": steady, "losses": losses,
-                      "lr": TRAIN_LR, "card": card}))
-    holder = {"params": params}
-
-    def one_step():
-        holder["params"], _ = step(holder["params"], tokens, targets)
-
     prof = profile_calls(torch, one_step, reps=2)
-    print(json.dumps({"profile_train_step": prof, "card": card}))
+    steady["busy_share"] = prof["busy_share"]
+    steady["device_ms_per_step"] = prof["device_ms_per_call"]
+    print(json.dumps({f"{label}_steady_state": steady, "card": card}))
+    print(json.dumps({f"profile_{label}_step": prof, "card": card}))
+    return steady
+
+
+def _train_inputs(torch, np, tfm, cfg):
+    params0 = tfm.params_from_numpy(_numpy_params(np, cfg, seed=0), cfg)
+    rng = np.random.default_rng(2)
+    tokens, targets = (torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, cfg.seq)),
+                                       device="cuda") for _ in range(2))
+    return params0, tokens, targets
+
+
+def _update_rel(params0, new_a, new_b):
+    """Relative Frobenius difference of two updates of each parameter."""
+    return {name: float((new_a[name] - p0 - (new_b[name] - p0)).norm()
+                        / (new_b[name] - p0).norm())
+            for name, p0 in params0.items()}
+
+
+def drive_train(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm):
+    """The training path: make_train_step at the headline width."""
+    from dataclasses import replace
+
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    step, _ = tfm.make_train_step(cfg, dp_comm, tp_comm, lr=TRAIN_LR)
+    plain_step, _ = tfm.make_train_step(
+        replace(cfg, fused_ln=False, flash=False), dp_comm, tp_comm, lr=TRAIN_LR)
+    params0, tokens, targets = _train_inputs(torch, np, tfm, cfg)
+    counted = _kernel_counters(fused_norm, fa)
+    L = cfg.n_layers
+    want = {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    state, losses, launches = train_steps(torch, step, params0, tokens, targets,
+                                          counted, want, "train")
+
+    # one step on each path from the same parameters and batch
+    new_k, loss_k = step(params0, tokens, targets)
+    new_p, loss_p = plain_step(params0, tokens, targets)
+    lerr = abs(float(loss_k) - float(loss_p))
+    rel = _update_rel(params0, new_k, new_p)
+    print(f"train step, kernel path vs plain path: |loss diff| {lerr} "
+          f"(tol {TRAIN_LOSS_TOL}), relative update difference {rel} "
+          f"(tol {UPDATE_REL_TOL})")
+    if not (lerr <= TRAIN_LOSS_TOL and all(r <= UPDATE_REL_TOL for r in rel.values())):
+        raise SystemExit("the kernel path's training step disagrees with the plain path")
+    del new_k, new_p
+    print(json.dumps({"losses": losses, "lr": TRAIN_LR}))
+    steady = steady_steps(torch, step, state, tokens, targets, "train")
+    return launches, steady, float(loss_k)
+
+
+def drive_remat(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, train_steady):
+    """The training path with ``remat=True``: each layer checkpointed,
+    the projections' outputs kept, the rest (both forward kernels
+    included) recomputed in the backward."""
+    from dataclasses import replace
+
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    step, _ = tfm.make_train_step(replace(cfg, remat=True), dp_comm, tp_comm,
+                                  lr=TRAIN_LR)
+    base_step, _ = tfm.make_train_step(cfg, dp_comm, tp_comm, lr=TRAIN_LR)
+    params0, tokens, targets = _train_inputs(torch, np, tfm, cfg)
+    counted = _kernel_counters(fused_norm, fa)
+    L = cfg.n_layers
+    want = {"layernorm_fwd": 4 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    state, losses, launches = train_steps(torch, step, params0, tokens, targets,
+                                          counted, want, "remat")
+    # the first step against the step without remat, same params and batch:
+    # the forward is the same computation, so the same loss bits
+    new_r, loss_r = step(params0, tokens, targets)
+    new_b, loss_b = base_step(params0, tokens, targets)
+    loss_r, loss_b = float(loss_r), float(loss_b)
+    rel = _update_rel(params0, new_r, new_b)
+    print(f"remat step vs step without remat: loss {loss_r} vs {loss_b} "
+          f"(difference {loss_r - loss_b}), relative update difference {rel} "
+          f"(tol {REMAT_UPDATE_REL_TOL})")
+    if loss_r != loss_b:
+        print("remat: the first step's loss differs in its bits from the step "
+              "without remat")
+    if not all(r <= REMAT_UPDATE_REL_TOL for r in rel.values()):
+        raise SystemExit("the remat step's update disagrees with the step without remat")
+    del new_r, new_b
+    print(json.dumps({"remat_losses": losses, "first_loss": loss_r,
+                      "first_loss_without_remat": loss_b}))
+    steady = steady_steps(torch, step, state, tokens, targets, "remat")
+    peak, base_peak = (steady["max_memory_allocated_bytes"],
+                       train_steady["max_memory_allocated_bytes"])
+    print(f"remat: step median {steady['median_ms']} ms (without remat "
+          f"{train_steady['median_ms']} ms), peak memory {peak} bytes (without "
+          f"remat {base_peak} bytes), launches per step {launches}")
+    if not peak < base_peak:
+        raise SystemExit("remat did not lower the training step's peak memory")
     return launches, steady
+
+
+def drive_sp(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, sp_comm, flash_loss):
+    """The training path with a one-rank NCCL ``sp_comm``: attention is ring
+    attention (at one rank, one exact block), contiguous then zigzag."""
+    from dataclasses import replace
+
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    counted = _kernel_counters(fused_norm, fa)
+    L = cfg.n_layers
+    want = {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    out = {}
+    for zigzag in (False, True):
+        label = "sp_zigzag" if zigzag else "sp_contiguous"
+        step, _ = tfm.make_train_step(replace(cfg, zigzag_sp=zigzag), dp_comm,
+                                      tp_comm, sp_comm, lr=TRAIN_LR)
+        params0, tokens, targets = _train_inputs(torch, np, tfm, cfg)
+        state, losses, launches = train_steps(
+            torch, step, params0, tokens, targets, counted, want, label)
+        lerr = abs(losses[0] - flash_loss)
+        print(f"{label}: first loss {losses[0]} vs the flash path's {flash_loss}: "
+              f"|diff| {lerr} (tol {TRAIN_LOSS_TOL})")
+        if not lerr <= TRAIN_LOSS_TOL:
+            raise SystemExit(f"{label}: the loss disagrees with the flash path")
+        steady = steady_steps(torch, step, state, tokens, targets, label)
+        out[label] = (launches, steady)
+    return out
+
+
+def check_ring_recurrence(torch, ra):
+    """The ring's block recurrence at full width on the card: the sequence
+    split into RING_BLOCKS blocks; for each virtual rank, the port's own
+    step update (``_contiguous_step``) over the blocks in the order the
+    ring delivers them (``_ring_sources``), then the normalisation,
+    against ``_block_attention_single`` on the whole sequence; the same
+    for the zigzag layout (``_zigzag_step``)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, S, h = BATCH, HEADLINE["seq"], HEADLINE["n_heads"]
+    hd = HEADLINE["d_model"] // h
+    n = RING_BLOCKS
+    q, k, v = (torch.randn((B, S, h, hd), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    want = ra._block_attention_single(q, k, v, True)
+    sl = S // n
+    # the port's own per-step updates, in the order the ring delivers the
+    # blocks (models/ring_attention.py)
+
+    def contiguous(r):
+        qf = q[:, r * sl:(r + 1) * sl].float() * hd ** -0.5
+        state = ra._init(q, sl)
+        for src in ra._ring_sources(r, n):
+            state = ra._contiguous_step(qf, k[:, src * sl:(src + 1) * sl],
+                                        v[:, src * sl:(src + 1) * sl], state, r, src,
+                                        True)
+        return ra._finish(*state[1:]).to(q.dtype)
+
+    qz, kz, vz = (ra.zigzag_shard(t, n) for t in (q, k, v))
+    c = sl // 2
+    diag = torch.tril(torch.ones((c, c), dtype=torch.bool, device="cuda"))
+
+    def zigzag(r):
+        qf = qz[r].float() * hd ** -0.5
+        sa, sb = ra._init(q, c), ra._init(q, c)
+        for src in ra._ring_sources(r, n):
+            sa, sb = ra._zigzag_step(qf[:, :c], qf[:, c:], kz[src], vz[src], sa, sb,
+                                     r, src, diag)
+        return torch.cat([ra._finish(*sa[1:]), ra._finish(*sb[1:])], 1).to(q.dtype)
+
+    want_z = ra.zigzag_shard(want, n)
+    result = {}
+    for layout, fn, ref in (("contiguous", contiguous,
+                             lambda r: want[:, r * sl:(r + 1) * sl]),
+                            ("zigzag", zigzag, lambda r: want_z[r])):
+        errs, ms = [], []
+        for r in range(n):
+            errs.append(_max_err(fn(r), ref(r)))
+            ms.append(_event_ms(torch, lambda: fn(r)))
+        print(f"ring recurrence {layout} at {(B, S, h, hd)} bf16 causal, {n} blocks: "
+              f"max|ring - single| per rank {errs} (tol {RING_TOL}), "
+              f"ms per rank (CUDA events, host issue included) {ms}")
+        if not max(errs) <= RING_TOL:
+            raise SystemExit(f"the {layout} ring recurrence disagrees with "
+                             "_block_attention_single")
+        result[layout] = {"max_abs_err": max(errs), "ms_per_rank": ms}
+    return result
+
+
+def _one_rank_answer(torch, opname, x):
+    """What each collective gives at one rank, from its MPI definition (an
+    exscan's rank 0 result, undefined in MPI, is zeros here)."""
+    if opname == "barrier":
+        return torch.zeros((), dtype=torch.int32, device=x.device)
+    if opname == "exscan":
+        return torch.zeros_like(x)
+    if opname == "scatter":
+        return x.reshape(-1)
+    return x
+
+
+def check_collectives(torch, comm, zmpi, tuned, nccl, mca_var):
+    """Every entry of ``comm.coll``, and every algorithm of
+    coll/algorithms.py forced through ZMPI_MCA_coll_tuned_<op>_algorithm,
+    on a one-rank NCCL communicator with CUDA tensors of f32, bf16 and
+    int32: each must give the one-rank MPI answer.  Then the host µs per
+    call of ``comm.allreduce`` (tuned, then nccl) and of the nccl
+    component's allreduce alone."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    base = torch.randn((4, 6), generator=gen, device="cuda")
+    checked = 0
+
+    def run(opname, x, dtype):
+        nonlocal checked
+        if opname in ("allreduce", "reduce", "reduce_scatter",
+                      "reduce_scatter_block", "scan", "exscan"):
+            outs = [getattr(comm, opname)(x, op) for op in (zmpi.SUM, zmpi.PROD,
+                                                            zmpi.MAX)]
+        elif opname == "barrier":
+            outs = [comm.barrier()]
+        elif opname == "alltoallv":
+            outs = [comm.alltoallv(x[None], [[x.shape[0]]])[0]]
+        elif opname == "allgatherv":
+            outs = [comm.allgatherv(x, [x.shape[0]])]
+        elif opname in ("bcast", "gather", "scatter"):
+            outs = [getattr(comm, opname)(x, root=0)]
+        else:
+            outs = [getattr(comm, opname)(x)]
+        want = _one_rank_answer(torch, opname, x)
+        for got in outs:
+            if not (got.device == x.device and got.shape == want.shape
+                    and torch.equal(got, want)):
+                raise SystemExit(f"{opname} on {dtype} at one rank gave {got}, "
+                                 f"not {want}")
+            checked += 1
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        x = (base * 4).to(dtype)
+        for opname in comm.coll:
+            run(opname, x, dtype)
+        for opname, table in tuned._ALG_TABLES.items():
+            var = f"coll_tuned_{opname}_algorithm"
+            for algname in table:
+                os.environ["ZMPI_MCA_" + var] = algname
+                mca_var.unset(var)  # re-resolve the variable from the environment
+                if mca_var.get(var) != algname:
+                    raise SystemExit(f"{var} did not take {algname} from the environment")
+                run(opname, x, dtype)
+            del os.environ["ZMPI_MCA_" + var]
+            mca_var.unset(var)
+    print(f"collectives: {checked} one-rank results checked (every coll entry and "
+          f"every forced algorithm, f32, bf16 and int32)")
+    # tuned's own host cost: the same allreduce through ``comm`` and through
+    # a communicator composed without tuned (nccl serves it straight, the
+    # route before tuned existed), in turns, each side first in every
+    # other round, so that both see the same host
+    mca_var.set_var("coll", "^tuned")
+    try:
+        direct = comm.dup(name="direct")
+        if direct.coll["allreduce"][1] != "nccl":
+            raise SystemExit(f"excluding tuned left {direct.coll['allreduce'][1]}")
+    finally:
+        mca_var.unset("coll")
+    small = [torch.ones(1024, device="cuda") for _ in range(4)]
+    sides = {"comm.allreduce (tuned -> nccl)": comm, "comm.allreduce without tuned": direct}
+    turns = {name: [] for name in sides}
+    for i in range(HOST_US_TURNS):
+        for name in (list(sides) if i % 2 == 0 else list(sides)[::-1]):
+            c = sides[name]
+            turns[name].append(host_us_per_call(torch, lambda j: c.allreduce(small[j]), 4))
+    tuned_us, direct_us = turns.values()
+    host = {name: _quartiles(us) for name, us in turns.items()}
+    host["tuned_faster_in_turns"] = sum(a < b for a, b in zip(tuned_us, direct_us))
+    host["turns"] = HOST_US_TURNS
+    host["nccl.allreduce alone"] = host_us_per_call(
+        torch, lambda i: nccl.allreduce(comm, small[i], zmpi.SUM), 4)
+    print(json.dumps({"allreduce_host_us_per_call": host,
+                      "card": torch.cuda.get_device_name(0)}))
+    return checked, host
+
+
+def comm_allreduce_host_us(torch, zmpi, dist):
+    """Host µs per call of ``Communicator.allreduce`` of 1024 floats on a
+    one-rank NCCL communicator of the port found on sys.path."""
+    with tempfile.TemporaryDirectory() as store_dir:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            comm = zmpi.Communicator(name="host_us")
+            small = [torch.ones(1024, device="cuda") for _ in range(4)]
+            return host_us_per_call(torch, lambda i: comm.allreduce(small[i]), 4)
+        finally:
+            dist.destroy_process_group()
+
+
+def _quartiles(xs) -> dict:
+    xs = sorted(xs)
+    n = len(xs)
+    return {"median": xs[n // 2], "q1": xs[n // 4], "q3": xs[(3 * n) // 4],
+            "min": xs[0], "max": xs[-1], "n": n}
+
+
+def compare_host_us(other_root: str, pairs: int) -> dict:
+    """``--wrapper-host-us`` for ``other_root`` and for the port beside
+    this script, in ``pairs`` alternating pairs of processes; each
+    version's median and quartiles of every number."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = {"other": os.path.abspath(other_root), "this": here}
+    readings = {"other": [], "this": []}
+    for i in range(pairs):
+        for which in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            run = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--wrapper-host-us",
+                 roots[which]], capture_output=True, text=True, check=False)
+            if run.returncode != 0:
+                raise SystemExit(f"--wrapper-host-us {roots[which]} failed:\n"
+                                 f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+            reading = json.loads(run.stdout.strip().splitlines()[-1])
+            readings[which].append({"comm_allreduce": reading["comm_allreduce_host_us"],
+                                    **reading["wrapper_host_us"]})
+    this_faster = sum(t["comm_allreduce"] < o["comm_allreduce"]
+                      for t, o in zip(readings["this"], readings["other"]))
+    return ({which: {key: _quartiles([r[key] for r in rs]) for key in rs[0]}
+             for which, rs in readings.items()}
+            | {"comm_allreduce_this_faster_in_pairs": this_faster,
+               "readings": readings, "roots": roots, "pairs": pairs})
 
 
 def main() -> int:
@@ -733,15 +1102,25 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     args = sys.argv[1:]
+    if args and args[0] == "--compare-host-us" and len(args) in (2, 3):
+        result = compare_host_us(args[1], int(args[2]) if len(args) == 3 else 10)
+        print(json.dumps({"host_us_pairs": result, "card": _card_line()}))
+        return 0
     if args and (args[0] != "--wrapper-host-us" or len(args) != 2):
-        print("usage: chip_smoke.py [--wrapper-host-us PORT_ROOT]", file=sys.stderr)
+        print("usage: chip_smoke.py [--wrapper-host-us PORT_ROOT | "
+              "--compare-host-us OTHER_ROOT [PAIRS]]", file=sys.stderr)
         return 2
     if args:
-        # the wrappers' host cost of the port found under PORT_ROOT (for
-        # example an unpacked older commit), on this card
+        # the wrappers' and the communicator's host cost of the port found
+        # under PORT_ROOT (for example an unpacked older commit), on this card
         sys.path.insert(0, os.path.abspath(args[1]))
+        import torch.distributed as dist
+
+        import zhpe_ompi_tpu_torch as zmpi
         from zhpe_ompi_tpu_torch.ops import flash_attention as fa
         print(json.dumps({"wrapper_host_us": wrapper_host_us(torch, fa),
+                          "comm_allreduce_host_us": comm_allreduce_host_us(
+                              torch, zmpi, dist),
                           "port_root": args[1], "card": _card_line()}))
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
@@ -752,6 +1131,9 @@ def main() -> int:
 
     import zhpe_ompi_tpu_torch as zmpi
     from zhpe_ompi_tpu_torch import _build
+    from zhpe_ompi_tpu_torch.coll import nccl, tuned
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.models import ring_attention as ra
     from zhpe_ompi_tpu_torch.models import transformer as tfm
     from zhpe_ompi_tpu_torch.ops import flash_attention as fa
     from zhpe_ompi_tpu_torch.ops import fused_ce, fused_norm
@@ -776,6 +1158,7 @@ def main() -> int:
     kernels = [check_layernorm(torch, F, fused_norm),
                check_layernorm_bwd(torch, fused_norm),
                check_flash(torch, F, fa), *check_flash_bwd(torch, F, fa)]
+    ring = check_ring_recurrence(torch, ra)
     host_us = wrapper_host_us(torch, fa)
     print(json.dumps({"wrapper_host_us": host_us, "card": card_line}))
     for k in kernels:
@@ -793,22 +1176,43 @@ def main() -> int:
         try:
             tp_comm = zmpi.Communicator(name="tp")
             dp_comm = tp_comm.dup(name="dp")
-            for comm in (tp_comm, dp_comm):
-                if comm.coll["allreduce"][1] != "nccl" or comm.backend != "nccl":
-                    raise SystemExit(f"{comm.name} did not compose coll/nccl: {comm.coll}")
+            sp_comm = tp_comm.dup(name="sp")
+            probe = torch.ones(4, device="cuda")
+            for comm in (tp_comm, dp_comm, sp_comm):
+                # tuned serves every collective; its route for a SUM
+                # allreduce is the native one, coll/nccl
+                if ({c for _, c in comm.coll.values()} != {"tuned"}
+                        or tuned.decide("allreduce", comm, probe, zmpi.SUM) != "xla"
+                        or comm.backend != "nccl"):
+                    raise SystemExit(f"{comm.name} did not compose tuned over "
+                                     f"coll/nccl: {comm.coll}")
+            checked, allreduce_host = check_collectives(torch, dp_comm, zmpi, tuned,
+                                                        nccl, mca_var)
             fwd_launches, t_fwd, t_loss = drive_main_path(
                 torch, np, tfm, fused_ce, fused_norm, fa, tp_comm)
-            launches, steady = drive_train(torch, np, tfm, fused_norm, fa,
-                                           dp_comm, tp_comm)
+            launches, steady, flash_loss = drive_train(torch, np, tfm, fused_norm, fa,
+                                                       dp_comm, tp_comm)
+            remat_launches, remat_steady = drive_remat(
+                torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, steady)
+            sp = drive_sp(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, sp_comm,
+                          flash_loss)
         finally:
             dist.destroy_process_group()
     for k in kernels:
+        # ``launches``: per training step; the other paths beside it
         k["launches"] = launches[k["name"]]
-        if k["name"] in fwd_launches:
-            k["launches_forward_phase"] = fwd_launches[k["name"]]
+        k["launches_by_path"] = {
+            "forward": fwd_launches[k["name"]] // (2 * N_BATCHES),
+            "train": launches[k["name"]], "remat": remat_launches[k["name"]],
+            **{label: sp[label][0][k["name"]] for label in sp}}
+    steps = {"train": steady, "remat": remat_steady,
+             **{label: sp[label][1] for label in sp}}
+    print(json.dumps({"steps": steps, "card": card_line}))
     print(json.dumps({"kernels": kernels, "card": card_line,
                       "forward_s": t_fwd, "loss_fn_s": t_loss,
-                      "train_step_median_ms": steady["median_ms"]}))
+                      "train_step_median_ms": steady["median_ms"],
+                      "ring_recurrence": ring, "collectives_checked": checked,
+                      "allreduce_host_us_per_call": allreduce_host}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

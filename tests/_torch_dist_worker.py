@@ -1,14 +1,15 @@
 """One rank of a multi-process gloo test of the PyTorch port.
 
-Run by ``tests/test_torch_comm.py``, ``tests/test_torch_transformer.py`` and
-``tests/test_torch_train.py`` as ``python _torch_dist_worker.py MODE RANK
-WORLD DIR``: it joins a gloo
-group through a ``FileStore`` in DIR, does MODE, and writes
-``DIR/out<RANK>.npz``.  Imports the port, never jax.
+Run by the ``tests/test_torch_*.py`` files as ``python _torch_dist_worker.py
+MODE RANK WORLD DIR``: it joins a gloo group through a ``FileStore`` in
+DIR, does MODE, and writes ``DIR/out<RANK>.npz``.  Imports the port, never
+jax.  ``coll_inputs`` and ``coll_cases`` define the collective checks, so
+that the tests can feed the same inputs to the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 
@@ -32,6 +33,12 @@ def _allreduce(comm, rank, out):
         out[op.name] = comm.allreduce(f, op).numpy()
     out["bcast"] = comm.bcast(t, root=1).numpy()
     out["input_untouched"] = t.numpy()
+    out["MPI_PROD"] = comm.allreduce(t, zmpi.PROD).numpy()
+    ints = torch.from_numpy(rng.integers(0, 64, 16).astype(np.int32))
+    out["ints"], out["MPI_BAND"] = ints.numpy(), comm.allreduce(ints, zmpi.BAND).numpy()
+    idx = torch.full((16,), rank, dtype=torch.int32)
+    v, i = comm.allreduce((t, idx), zmpi.MINLOC)
+    out["MINLOC_v"], out["MINLOC_i"] = v.numpy(), i.numpy()
     out["coll_components"] = np.array(sorted({c for _, c in comm.coll.values()}))
 
 
@@ -87,6 +94,293 @@ def _train(rank, world, out, workdir):
     out["dp_tp"] = np.array([dp_rank, tp_rank, dp_comm.size, tp_comm.size])
 
 
+def _groups(rank, dims):
+    """This rank's communicators over a mesh of ``dims`` (name -> size, in
+    the mesh's axis order; world rank = row-major index): one per axis,
+    over the ranks that differ from this one in that axis only.  Every
+    rank creates every group, in the same order, as dist.new_group
+    requires."""
+    import itertools
+
+    import zhpe_ompi_tpu_torch as zmpi
+
+    names, sizes = list(dims), list(dims.values())
+    coords = np.unravel_index(rank, sizes)
+    comms = {}
+    for ax, name in enumerate(names):
+        others = [range(sz) for i, sz in enumerate(sizes) if i != ax]
+        for fixed in itertools.product(*others):
+            ranks = []
+            for i in range(sizes[ax]):
+                c = list(fixed)
+                c.insert(ax, i)
+                ranks.append(int(np.ravel_multi_index(c, sizes)))
+            pg = dist.new_group(ranks)
+            if rank in ranks:
+                comms[name] = zmpi.Communicator(pg, name=name)
+    return comms, dict(zip(names, (int(c) for c in coords)))
+
+
+def _spmd(comm, rank, world, out):
+    """shift/ppermute/permute patterns, and their gradients."""
+    from zhpe_ompi_tpu_torch.core import errors
+    from zhpe_ompi_tpu_torch.pt2pt import spmd
+
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+    for off in (1, -1, 2):
+        out[f"shift{off}_wrap"] = comm.shift(x, off).numpy()
+        out[f"shift{off}_nowrap"] = comm.shift(x, off, wrap=False).numpy()
+    # a pattern that leaves ranks 1.. without a sender, and rank 0 sending
+    # to the last rank only
+    out["ppermute_partial"] = comm.ppermute(x, [(0, world - 1)]).numpy()
+    out["permute_reverse"] = comm.permute(
+        x, [world - 1 - i for i in range(world)]).numpy()
+    # strided (non-contiguous) buffers, bf16 and bool
+    wide = torch.arange(24, dtype=torch.float32).reshape(4, 6) + 100 * rank
+    out["strided"] = comm.shift(wide[:, 1::2], 1).numpy()
+    out["transposed"] = comm.shift(wide.t(), 1).numpy()
+    out["bf16"] = comm.shift(x.to(torch.bfloat16), 1).float().numpy()
+    out["bool"] = comm.shift(x > 10 * rank + 2, 1).numpy()
+    for name, pattern in (("dup_dst", [(0, 1), (2, 1)]),
+                          ("dup_src", [(0, 1), (0, 2)])):
+        try:
+            spmd.ppermute(comm, x, pattern)
+            out[name] = np.array("no error")
+        except errors.ArgError as e:
+            out[name] = np.array(str(e))
+    # gradients: the cotangent travels the inverse permutation
+    g = torch.zeros(2, 3, requires_grad=True)
+    ct = torch.arange(6, dtype=torch.float32).reshape(2, 3) * (rank + 1)
+    for name, fn in (("shift", lambda t: spmd.shift(comm, t, 1)),
+                     ("shift_nowrap", lambda t: spmd.shift(comm, t, 1, wrap=False)),
+                     ("ppermute", lambda t: spmd.ppermute(
+                         comm, t, [(i, (2 * i + 1) % world) for i in range(world)]
+                         if world % 2 else [(i, world - 1 - i) for i in range(world)]))):
+        y = fn(g + x)
+        (grad,) = torch.autograd.grad(y, g, ct)
+        out[f"grad_{name}"] = grad.numpy()
+
+
+def coll_inputs(n: int) -> dict:
+    """The inputs of the collective checks at comm size ``n``, one block
+    per rank on axis 0, from a fixed seed."""
+    rng = np.random.default_rng(1000 + n)
+    counts = rng.integers(0, 4, (n, n))
+    counts[0, -1] = 3  # at least one full block
+    return {
+        "x": rng.standard_normal((n, 12, 2)).astype(np.float32),
+        "xp": rng.uniform(0.5, 1.5, (n, 12, 2)).astype(np.float32),
+        "loc_v": rng.integers(0, 3, (n, 12)).astype(np.float32),
+        "loc_i": (np.arange(12)[None] + 100 * np.arange(n)[:, None]).astype(np.int32),
+        "xv": rng.standard_normal((n, n, 3, 2)).astype(np.float32),
+        "counts": counts,
+        "gv_counts": np.arange(1, n + 1),
+        "xg": rng.standard_normal((n, n, 2)).astype(np.float32),
+    }
+
+
+_PYTREE_REDUCTIONS = {
+    # the algorithms that take a (values, indices) tuple in the JAX package
+    "allreduce_recursive_doubling", "allreduce_nonoverlapping",
+    "allreduce_linear", "reduce_binomial", "reduce_linear", "reduce_binary",
+    "reduce_in_order_binary", "scan_recursive_doubling", "scan_linear",
+    "exscan_linear", "exscan_recursive_doubling",
+}
+
+
+def coll_cases(n: int) -> list:
+    """``(case name, algorithm or comm method, kind, kwargs)`` for every
+    algorithm of ``coll/algorithms.py`` and every communicator collective
+    at comm size ``n``.  Kinds: ``red`` (x, op), ``plain`` (x), ``atv``
+    (alltoallv), ``agv`` (allgatherv), ``barrier``; a name starting with
+    ``comm.`` is the communicator method (the tuned path)."""
+    roots = (0, n - 1)
+    cases = []
+    for a in ("recursive_doubling", "ring", "rabenseifner", "nonoverlapping",
+              "segmented_ring", "linear"):
+        cases.append((f"allreduce_{a}", f"allreduce_{a}", "red", {}))
+    for a in ("binomial", "linear", "chain", "pipeline", "binary",
+              "in_order_binary", "rabenseifner"):
+        for r in roots:
+            cases.append((f"reduce_{a}@{r}", f"reduce_{a}", "red", {"root": r}))
+    for a in ("ring", "recursive_halving", "nonoverlapping", "butterfly"):
+        cases.append((f"reduce_scatter_{a}", f"reduce_scatter_{a}", "red", {}))
+    for a in ("linear", "recursive_doubling", "recursive_halving", "butterfly"):
+        cases.append((f"reduce_scatter_block_{a}", f"reduce_scatter_block_{a}",
+                      "red", {}))
+    for a in ("scan_recursive_doubling", "scan_linear", "exscan_linear",
+              "exscan_recursive_doubling"):
+        cases.append((a, a, "red", {}))
+    for a in ("binomial", "chain", "linear", "binary", "pipeline",
+              "split_binary", "knomial", "scatter_allgather", "via_scatter"):
+        for r in roots:
+            cases.append((f"bcast_{a}@{r}", f"bcast_{a}", "plain", {"root": r}))
+    for a in ("ring", "bruck", "recursive_doubling", "neighbor_exchange",
+              "two_proc", "linear"):
+        cases.append((f"allgather_{a}", f"allgather_{a}", "plain", {}))
+    for a in ("pairwise", "bruck", "linear", "linear_sync", "two_proc"):
+        cases.append((f"alltoall_{a}", f"alltoall_{a}", "plain", {}))
+    cases.append(("alltoallv_padded", "alltoallv_padded", "atv", {}))
+    for a in ("dissemination", "double_ring", "recursive_doubling", "two_proc",
+              "tree", "linear"):
+        cases.append((f"barrier_{a}", f"barrier_{a}", "barrier", {}))
+    for a in ("gather_ring", "scatter_linear", "gather_binomial",
+              "gather_linear_sync", "scatter_binomial"):
+        for r in roots:
+            cases.append((f"{a}@{r}", a, "plain", {"root": r}))
+    cases.append(("allgatherv_concat", "allgatherv_concat", "agv", {}))
+    # the communicator's collectives through the composed table (tuned)
+    for m in ("allreduce", "reduce_scatter", "reduce_scatter_block", "scan",
+              "exscan"):
+        cases.append((f"comm.{m}", m, "red", {}))
+    for r in roots:
+        cases.append((f"comm.reduce@{r}", "reduce", "red", {"root": r}))
+        for m in ("bcast", "gather", "scatter"):
+            cases.append((f"comm.{m}@{r}", m, "plain", {"root": r}))
+    for m in ("allgather", "alltoall"):
+        cases.append((f"comm.{m}", m, "plain", {}))
+    cases += [("comm.alltoallv", "alltoallv", "atv", {}),
+              ("comm.allgatherv", "allgatherv", "agv", {}),
+              ("comm.barrier", "barrier", "barrier", {})]
+    return cases
+
+
+def case_ops(name: str, kind: str) -> list:
+    """The reduction ops a case runs with (names of the port's and the JAX
+    package's ``ops`` module attributes); NONCOMM is the user op."""
+    if kind != "red":
+        return [None]
+    base = name.split("@")[0]
+    ops = ["SUM", "PROD", "MAX"]
+    if base in _PYTREE_REDUCTIONS:
+        ops.append("MINLOC")
+    if base.startswith("comm.") and "scan" not in base:
+        ops.append("NONCOMM")
+    return ops
+
+
+def noncommutative(a, b):
+    """The user op of the checks: associative, not commutative."""
+    return a * 2.0 + b
+
+
+def _coll(comm, rank, world, out):
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.coll import algorithms as alg
+
+    data = {k: v[rank] for k, v in coll_inputs(world).items()
+            if k not in ("counts", "gv_counts")}
+    counts = coll_inputs(world)["counts"].tolist()
+    gv_counts = coll_inputs(world)["gv_counts"].tolist()
+    ops = {name: getattr(zmpi, name) for name in ("SUM", "PROD", "MAX", "MINLOC")}
+    ops["NONCOMM"] = zmpi.create_op(noncommutative, commute=False, name="nc")
+    t = {k: torch.from_numpy(v.copy()) for k, v in data.items()}
+    for name, fn_name, kind, kw in coll_cases(world):
+        if name.startswith("comm."):
+            call = getattr(comm, fn_name)
+        else:
+            call = functools.partial(getattr(alg, fn_name), comm)
+        for opname in case_ops(name, kind):
+            key = name if opname is None else f"{name}/{opname}"
+            if kind == "red":
+                if opname == "MINLOC":
+                    x = (t["loc_v"], t["loc_i"])
+                else:
+                    x = t["xp"] if opname == "PROD" else t["x"]
+                res = call(x, ops[opname], **kw)
+            elif kind == "plain":
+                res = call(t["x"], **kw)
+            elif kind == "atv":
+                res = call(t["xv"], counts)
+            elif kind == "agv":
+                res = call(t["xg"], gv_counts)
+            else:
+                res = call()
+            if isinstance(res, tuple):
+                out[key + "#v"], out[key + "#i"] = res[0].numpy(), res[1].numpy()
+            else:
+                out[key] = res.numpy()
+    out["coll_components"] = np.array(sorted({c for _, c in comm.coll.values()}))
+
+
+def ring_inputs(sp: int) -> dict:
+    """Global (B, S, H, D) q, k, v and an output cotangent for the ring
+    attention checks at ``sp`` ranks."""
+    rng = np.random.default_rng(50 + sp)
+    shape = (2, 16 * sp, 2, 8)
+    return {k: rng.standard_normal(shape).astype(np.float32)
+            for k in ("q", "k", "v", "cot")}
+
+
+RING_VARIANTS = [("contiguous", True), ("contiguous", False), ("zigzag", True)]
+
+
+def _ring(comm, rank, world, out):
+    """Ring attention outputs and q/k/v gradients on this rank's block, for
+    each variant of RING_VARIANTS in f32 and bf16."""
+    from zhpe_ompi_tpu_torch.models import ring_attention as ra
+
+    inp = {k: torch.from_numpy(v) for k, v in ring_inputs(world).items()}
+    for layout, causal in RING_VARIANTS:
+        if layout == "zigzag":
+            blocks = {k: ra.zigzag_shard(v, world)[rank] for k, v in inp.items()}
+        else:
+            s = inp["q"].shape[1] // world
+            blocks = {k: v[:, rank * s:(rank + 1) * s] for k, v in inp.items()}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (blocks[n].to(dtype).requires_grad_(True)
+                       for n in ("q", "k", "v"))
+            if layout == "zigzag":
+                o = ra.ring_attention_zigzag(comm, q, k, v)
+            else:
+                o = ra.ring_attention(comm, q, k, v, causal=causal)
+            grads = torch.autograd.grad((o.float() * blocks["cot"]).sum(),
+                                        (q, k, v))
+            tag = f"{layout}_{'causal' if causal else 'full'}_{str(dtype)[6:]}"
+            out[f"{tag}_out"] = o.float().detach().numpy()
+            for n, g in zip("qkv", grads):
+                out[f"{tag}_d{n}"] = g.float().numpy()
+
+
+def _sp_train(rank, world, out, workdir):
+    """One ``make_train_step`` step on a dp x tp x sp mesh (world rank =
+    row-major index), the layout and the zigzag and remat flags from
+    inputs.npz."""
+    from zhpe_ompi_tpu_torch.models import ring_attention as ra
+    from zhpe_ompi_tpu_torch.models import transformer as tfm
+
+    data = np.load(os.path.join(workdir, "inputs.npz"))
+    dp, tp, sp = (int(v) for v in data["layout"])
+    zigzag = bool(data["zigzag"])
+    comms, at = _groups(rank, {"dp": dp, "tp": tp, "sp": sp})
+    cfg = tfm.Config(vocab=int(data["vocab"]), d_model=int(data["d_model"]),
+                     n_heads=int(data["n_heads"]), d_ff=int(data["d_ff"]),
+                     n_layers=int(data["n_layers"]), seq=int(data["seq"]),
+                     dtype=torch.float32, flash=True, fused_ln=True,
+                     ce_chunk=int(data["ce_chunk"]), zigzag_sp=zigzag,
+                     remat=bool(data["remat"]))
+    np_params = {k[2:]: data[k] for k in data.files if k.startswith("p_")}
+    params = tfm.params_from_numpy(np_params, cfg, device="cpu",
+                                   tp_rank=at["tp"], tp=tp)
+    b = data["tokens"].shape[0] // dp
+    rows = slice(at["dp"] * b, (at["dp"] + 1) * b)
+
+    def local(a):
+        a = torch.from_numpy(a[rows])
+        if zigzag:
+            return ra.zigzag_shard(a[..., None], sp)[at["sp"]][..., 0]
+        s = a.shape[1] // sp
+        return a[:, at["sp"] * s:(at["sp"] + 1) * s]
+
+    step, _ = tfm.make_train_step(cfg, comms["dp"],
+                                  comms["tp"] if tp > 1 else None,
+                                  comms["sp"], lr=float(data["lr"]))
+    new_params, loss = step(params, local(data["tokens"]), local(data["targets"]))
+    out.update({f"p_{k}": v.numpy() for k, v in new_params.items()})
+    out["loss"] = loss.numpy()
+    out["at"] = np.array([at["dp"], at["tp"], at["sp"]])
+
+
 def run_ranks(mode: str, world: int, workdir, env=None, timeout: float = 120):
     """Start ``world`` ranks of this script in ``workdir`` and wait for them
     (each join bounded by ``timeout``).  Returns ``[(rc, output), ...]``
@@ -136,6 +430,14 @@ def main() -> int:
             _transformer(comm, rank, world, out, workdir)
         elif mode == "train":
             _train(rank, world, out, workdir)
+        elif mode == "spmd":
+            _spmd(comm, rank, world, out)
+        elif mode == "coll":
+            _coll(comm, rank, world, out)
+        elif mode == "ring":
+            _ring(comm, rank, world, out)
+        elif mode == "sp_train":
+            _sp_train(rank, world, out, workdir)
         elif mode == "select":
             out["coll_components"] = np.array(
                 sorted({c for _, c in comm.coll.values()}))

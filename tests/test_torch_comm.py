@@ -1,10 +1,13 @@
 """The PyTorch port's communicator and coll framework on gloo (CPU).
 
-- ``comm_select`` composes the ``nccl`` component (gloo-backed here) for
-  allreduce and bcast; allreduce with SUM/MAX/MIN/LAND/LOR/LXOR on two
-  gloo ranks equals numpy, and bcast is native.
-- An op the JAX package sends to its algorithm layer (``coll/tpu.py:109``)
-  raises a typed error that names the layer not yet ported.
+- ``comm_select`` composes every collective from ``tuned`` (priority 50),
+  whose ``xla`` route is the ``nccl`` component (gloo-backed here);
+  allreduce with SUM/MAX/MIN/LAND/LOR/LXOR on two gloo ranks equals numpy,
+  and bcast is native.
+- An op the JAX package sends to its algorithm layer (``coll/tpu.py:109``:
+  PROD, bitwise, MINLOC) computes through ``coll/algorithms.py`` and
+  equals numpy.
+- Errors at the dispatch boundary are typed and, by default, fatal.
 - The ``coll`` MCA variable's include/exclude list is honoured, from the
   API layer and from ``ZMPI_MCA_coll`` in the environment.
 
@@ -39,13 +42,22 @@ def world1(tmp_path, monkeypatch):
         dist.destroy_process_group()
 
 
-def test_comm_select_composes_nccl_component_on_gloo(world1):
+def test_comm_select_composes_nccl_component_on_gloo(world1, monkeypatch):
+    from zhpe_ompi_tpu_torch.coll import nccl
+
     comm = zmpi.Communicator(name="w")
     assert (comm.rank, comm.size, comm.backend) == (0, 1, "gloo")
     assert comm.group.ranks == (0,)
     table = comm.coll
-    assert set(table) == {"allreduce", "bcast"}
-    assert {c for _, c in table.values()} == {"nccl"}
+    assert set(table) == set(framework.COLL_OPS)
+    assert {c for _, c in table.values()} == {"tuned"}
+    assert [c.name for c in framework.coll_framework().admitted()] == [
+        "tuned", "nccl", "basic"]
+    # tuned's "xla" route is the nccl component: SUM goes native
+    native = []
+    monkeypatch.setattr(nccl, "_all_reduce", lambda *a: native.append(a) or a[1])
+    comm.allreduce(torch.ones(4))
+    assert len(native) == 1
 
 
 @pytest.mark.parametrize("op,fn", [
@@ -55,25 +67,39 @@ def test_comm_select_composes_nccl_component_on_gloo(world1):
     (zmpi.LXOR, lambda a: (a != 0).astype(a.dtype)),
 ])
 def test_one_rank_allreduce(world1, op, fn):
+    """``fn``: the native route's answer (coll/nccl re-expresses the
+    logical ops as flags).  Through the composed table, tuned sends the
+    logical ops to recursive doubling, which at one rank returns the one
+    contribution as it came, as the JAX package's does."""
+    from zhpe_ompi_tpu_torch.coll import nccl
+
     comm = zmpi.Communicator()
     x = np.array([0, 3, -2, 5], np.int32)
-    got = comm.allreduce(torch.from_numpy(x.copy()), op)
+    got = nccl.allreduce(comm, torch.from_numpy(x.copy()), op)
     np.testing.assert_array_equal(got.numpy(), fn(x))
+    got = comm.allreduce(torch.from_numpy(x.copy()), op)
+    np.testing.assert_array_equal(got.numpy(), x)
 
 
 def test_non_native_op_raises_typed_error(world1):
+    """An op without a native reduction (PROD, bitwise) no longer raises: it
+    computes through the algorithm layer, as in the JAX package."""
     comm = zmpi.Communicator()
     comm.set_errhandler(errh.ERRORS_RETURN)
-    with pytest.raises(errors.UnsupportedError, match="coll/algorithms.py"):
-        comm.allreduce(torch.ones(4), zmpi.PROD)
+    x = torch.tensor([2.0, -3.0, 0.5])
+    np.testing.assert_array_equal(comm.allreduce(x, zmpi.PROD).numpy(), x.numpy())
+    flags = torch.tensor([6, 3, 0], dtype=torch.int32)
+    np.testing.assert_array_equal(comm.allreduce(flags, zmpi.BAND).numpy(),
+                                  flags.numpy())
 
 
 def test_non_native_op_is_fatal_by_default(world1):
     """The communicator default is MPI_ERRORS_ARE_FATAL, as in the JAX
-    package: the typed error arrives wrapped in a JobAbort."""
+    package: a typed error at the dispatch boundary arrives wrapped in a
+    JobAbort."""
     comm = zmpi.Communicator()
     with pytest.raises(errh.JobAbort) as info:
-        comm.allreduce(torch.ones(4), zmpi.BAND)
+        comm._coll_call("neighbor_allgather", torch.ones(4))
     assert info.value.errclass == errors.ERR_UNSUPPORTED
 
 
@@ -81,22 +107,23 @@ def test_unprovided_collective_is_unsupported(world1):
     comm = zmpi.Communicator()
     comm.set_errhandler(errh.ERRORS_RETURN)
     with pytest.raises(errors.UnsupportedError, match="no coll component"):
-        comm._coll_call("alltoall", torch.ones(4))
+        comm._coll_call("neighbor_allgather", torch.ones(4))
 
 
 @pytest.mark.parametrize("spec,selected", [("nccl", True), ("^nccl", False)])
 def test_mca_coll_include_exclude(world1, spec, selected):
+    """``selected``: whether the nccl component is in the composed table
+    (with it excluded, tuned serves every op and basic backs it up)."""
     from zhpe_ompi_tpu_torch.mca import var as mca_var
 
     framework.coll_framework()  # registers the "coll" variable
     mca_var.set_var("coll", spec)
     try:
         comm = zmpi.Communicator()
-        if selected:
-            assert comm.coll["allreduce"][1] == "nccl"
-        else:
-            with pytest.raises(errors.InternalError, match="no coll component"):
-                framework.comm_select(comm)
+        components = {c for _, c in comm.coll.values()}
+        assert components == ({"nccl"} if selected else {"tuned"})
+        np.testing.assert_array_equal(
+            comm.allreduce(torch.ones(3), zmpi.PROD).numpy(), 1.0)
     finally:
         mca_var.unset("coll")
 
@@ -138,12 +165,19 @@ def test_two_gloo_ranks_allreduce_equals_numpy(tmp_path):
             np.testing.assert_array_equal(o[name], w, err_msg=name)
         np.testing.assert_array_equal(o["bcast"], outs[1]["x"])
         np.testing.assert_array_equal(o["input_untouched"], o["x"])
-        assert list(o["coll_components"]) == ["nccl"]
+        assert list(o["coll_components"]) == ["tuned"]
+        # the ops the algorithm layer computes
+        np.testing.assert_allclose(o["MPI_PROD"], xs.prod(0), rtol=1e-6)
+        np.testing.assert_array_equal(
+            o["MPI_BAND"], np.bitwise_and(*[p["ints"] for p in outs]))
+        vals = np.stack([p["x"] for p in outs])
+        np.testing.assert_array_equal(o["MINLOC_v"], vals.min(0))
+        np.testing.assert_array_equal(o["MINLOC_i"], vals.argmin(0))
 
 
 def test_mca_coll_exclude_from_environment(tmp_path):
     results, outs = run_ranks("select", 1, tmp_path,
-                              env={"ZMPI_MCA_coll": "^nccl"})
+                              env={"ZMPI_MCA_coll": "^nccl,tuned,basic"})
     rc, log = results[0]
     assert rc != 0 and "no coll component available" in log, log
     assert outs[0] is None

@@ -36,7 +36,6 @@ import torch
 import torch.distributed as dist
 
 from zhpe_ompi_tpu.models import transformer as jt
-from zhpe_ompi_tpu_torch.core import errors
 from zhpe_ompi_tpu_torch.models import transformer as tt
 
 from _torch_dist_worker import run_ranks
@@ -129,8 +128,3 @@ def test_dp2_tp2_step_over_gloo_equals_single_device_jax(tmp_path):
             np.testing.assert_allclose(got, arr, rtol=RTOL, atol=ATOL,
                                        err_msg=f"{name} dp rank {dp_rank}")
 
-
-def test_sp_comm_raises_until_ring_attention_is_ported(one_rank_comm):
-    cfg = tt.Config(**SMALL, dtype=torch.float32)
-    with pytest.raises(errors.UnsupportedError, match="ring attention"):
-        tt.make_train_step(cfg, one_rank_comm, sp_comm=one_rank_comm)

@@ -6,8 +6,10 @@ never jax, and nothing of ``zhpe_ompi_tpu``.  The kernels the JAX package
 wrote in Pallas for the TPU are hand-written CUDA here (``csrc/``), built
 by ``nvcc`` on first use.
 
-This slice carries the flagship transformer's forward pass through the
-framework communicator::
+It carries the flagship transformer's forward pass and training step
+(tensor, data and sequence parallelism, remat) through the framework
+communicator, whose collectives compose ``coll/tuned`` over the
+algorithm layer and the process group's native collectives::
 
     import torch.distributed as dist
     import zhpe_ompi_tpu_torch as zmpi

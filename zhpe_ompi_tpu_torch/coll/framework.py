@@ -6,10 +6,12 @@ Re-design of ``ompi/mca/coll``'s selection machinery
 a per-communicator module; the communicator's collective table then takes each
 *operation* from the highest-priority module that provides it.
 
-The port has one component so far, ``nccl`` (``coll/nccl.py``), the
-counterpart of the JAX package's ``coll/tpu``.  ``tuned`` and ``basic`` need
-the algorithm layer (``coll/algorithms.py``) and the monitoring
-interposition needs ``coll/monitoring.py``; later slices port them.
+Three components, as in the JAX package: ``tuned`` (priority 50, the
+decision layer over ``coll/algorithms.py``), ``nccl`` (40, the counterpart
+of the JAX package's ``coll/tpu``: the process group's native collectives,
+and ``tuned``'s ``xla`` route) and ``basic`` (10, linear algorithms).  The
+monitoring interposition needs ``coll/monitoring.py``, which a later slice
+ports.
 """
 
 from __future__ import annotations
@@ -59,10 +61,13 @@ class CollComponent(mca_component.Component):
 
 
 def coll_framework() -> mca_component.Framework:
+    from .basic import BasicCollComponent
     from .nccl import NcclCollComponent
+    from .tuned import TunedCollComponent
 
     return mca_component.build_framework(
-        "coll", "collective operations", [NcclCollComponent])
+        "coll", "collective operations",
+        [NcclCollComponent, TunedCollComponent, BasicCollComponent])
 
 
 def comm_select(comm) -> dict[str, tuple[Callable, str]]:

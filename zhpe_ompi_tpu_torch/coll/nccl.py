@@ -5,23 +5,27 @@ lowers each operation to the XLA collective the TPU runs on ICI, this one
 hands it to the process group's own backend — NCCL on GPUs (NVLink within
 a host), gloo on CPU tensors, which the tests use.  The component is
 named ``nccl`` whichever of the two backs the group; ``comm.backend``
-says which one does.
+says which one does.  It is ``coll/tuned``'s ``xla`` route.
 
-- SUM, MAX and MIN map to ``dist.all_reduce`` with the op's ``reduce_op``
-  hint (``coll/tpu.py:94-101``).
-- LAND, LOR and LXOR are re-expressed arithmetically so they still ride
-  one native collective, as at ``coll/tpu.py:102-107``: LAND = MIN(x≠0),
-  LOR = MAX(x≠0), LXOR = SUM(x≠0) mod 2.
-- Every other op (PROD, bitwise, MINLOC/MAXLOC, user ops) goes to the
-  algorithm layer's recursive doubling in the JAX package
-  (``coll/tpu.py:109``).  That layer (``coll/algorithms.py``) is not
-  ported yet, so those ops raise a typed ``UnsupportedError`` rather than
-  computing something else.
-- bcast is native ``dist.broadcast``.
+- allreduce: SUM, MAX and MIN map to ``dist.all_reduce`` with the op's
+  ``reduce_op`` hint (``coll/tpu.py:94-101``).  LAND, LOR and LXOR are
+  re-expressed arithmetically so they still ride one native collective, as
+  at ``coll/tpu.py:102-107``: LAND = MIN(x≠0), LOR = MAX(x≠0), LXOR =
+  SUM(x≠0) mod 2.  Every other op (PROD, bitwise, MINLOC/MAXLOC, user
+  ops) takes the algorithm layer's recursive doubling
+  (``coll/algorithms.py``), as at ``coll/tpu.py:109``; NCCL's own PROD is
+  not used, so PROD computes exactly as in the JAX package.
+- bcast, allgather(v), alltoall(v) and reduce_scatter with a ``reduce_op``
+  hint are the native ``dist`` calls; reduce_scatter with any other op,
+  scan and exscan take the algorithm layer's recursive forms.
+- reduce, gather and scatter keep the JAX package's SPMD shapes: reduce is
+  the allreduce (significant at root), gather the allgather, and scatter
+  this rank's flat chunk of root's buffer after a bcast.
+- barrier all-reduces a token and returns an int32 zero computed from it.
 
-Collectives are functional, as in the JAX package: the input tensor is
-left untouched and a new tensor is returned (one copy, then the backend
-reduces that copy in place).
+NCCL has no bool reduction: bool tensors are reduced and moved as int32
+or bytes.  Collectives are functional, as in the JAX package: the input
+tensor is left untouched and a new tensor is returned.
 """
 
 from __future__ import annotations
@@ -30,14 +34,25 @@ import torch
 import torch.distributed as dist
 
 from ..core import errors
+from ..pt2pt.spmd import wire
+from . import algorithms as alg
 from .framework import CollComponent, CollModule
 
 _NATIVE_BACKENDS = ("nccl", "gloo")
 
 
 def _all_reduce(comm, x, reduce_op):
+    if x.dtype == torch.bool:
+        return _all_reduce(comm, x.to(torch.int32), reduce_op).to(torch.bool)
     out = x.clone()
     dist.all_reduce(out, op=reduce_op, group=comm.pg)
+    return out
+
+
+def _all_gather(comm, x):
+    """(n * x.shape[0], ...) of every rank's x in rank order."""
+    out = x.new_empty((comm.size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(wire(out), wire(x), group=comm.pg)
     return out
 
 
@@ -53,18 +68,96 @@ def allreduce(comm, x, op):
         if name == "MPI_LOR":
             return _all_reduce(comm, flag, R.MAX).to(x.dtype)
         return (_all_reduce(comm, flag, R.SUM) % 2).to(x.dtype)
-    raise errors.UnsupportedError(
-        f"allreduce with {name} on {comm.name}: this op takes the algorithm "
-        "layer's recursive doubling (coll/algorithms.py "
-        "allreduce_recursive_doubling), which the PyTorch port has not "
-        "ported yet"
-    )
+    # PROD / bitwise / MINLOC / MAXLOC / user ops: algorithmic path
+    return alg.allreduce_recursive_doubling(comm, x, op)
+
+
+def reduce(comm, x, op, root=0):
+    # the allreduce everywhere is the result at root, as in the JAX package
+    return allreduce(comm, x, op)
 
 
 def bcast(comm, x, root=0):
-    out = x.clone()
-    dist.broadcast(out, src=comm.group.global_of_rank(root), group=comm.pg)
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.broadcast(wire(out), src=comm.group.global_of_rank(root),
+                   group=comm.pg)
     return out
+
+
+def barrier(comm, token=None):
+    t = alg._barrier_token(comm, token)
+    return alg._seal_token(_all_reduce(comm, t, dist.ReduceOp.SUM))
+
+
+def allgather(comm, x):
+    return _all_gather(comm, alg._stack_shape(x))
+
+
+def allgatherv(comm, x, counts):
+    n = comm.size
+    mx = max(counts)
+    x = alg._pad_rows(x, mx - x.shape[0])
+    g = _all_gather(comm, x).reshape((n, mx) + tuple(x.shape[1:]))
+    return torch.cat([g[i, :counts[i]] for i in range(n)], dim=0)
+
+
+def alltoall(comm, x):
+    n = comm.size
+    if x.shape[0] % n:
+        raise errors.CountError(
+            f"alltoall needs dim0 divisible by comm size {n}")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(wire(out), wire(x), group=comm.pg)
+    return out
+
+
+def alltoallv(comm, x, counts):
+    """Padded alltoallv on the native all_to_all: ``x`` is (n, max_send,
+    ...) blocks, ``counts`` the n x n static matrix; validation, padding
+    and count-masking are shared with the algorithmic transport
+    (``alg.alltoallv_prepare``, cf. coll_base_alltoallv.c:125)."""
+    blocks, _ = alg.alltoallv_prepare(comm, x, counts)
+    out = torch.empty_like(blocks)
+    dist.all_to_all_single(wire(out), wire(blocks), group=comm.pg)
+    return out
+
+
+def reduce_scatter(comm, x, op):
+    n = comm.size
+    if op.reduce_op is None:
+        return alg.reduce_scatter_recursive_halving(comm, x, op)
+    if x.shape[0] % n:
+        raise errors.CountError(
+            f"reduce_scatter needs dim0 divisible by comm size {n}")
+    if x.dtype == torch.bool:
+        return reduce_scatter(comm, x.to(torch.int32), op).to(torch.bool)
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), op=op.reduce_op,
+                               group=comm.pg)
+    return out
+
+
+def reduce_scatter_block(comm, x, op):
+    # MPI_Reduce_scatter_block (equal counts) — reduce_scatter's contract
+    return reduce_scatter(comm, x, op)
+
+
+def scan(comm, x, op):
+    return alg.scan_recursive_doubling(comm, x, op)
+
+
+def exscan(comm, x, op):
+    return alg.exscan_recursive_doubling(comm, x, op)
+
+
+def gather(comm, x, root=0):
+    return allgather(comm, x)
+
+
+def scatter(comm, x, root=0):
+    # take own chunk of root's buffer after a single-collective bcast
+    buf, _ = alg._chunked(bcast(comm, x, root), comm.size)
+    return buf[comm.rank]
 
 
 class NcclCollComponent(CollComponent):
@@ -77,4 +170,19 @@ class NcclCollComponent(CollComponent):
     def comm_query(self, comm) -> CollModule | None:
         if comm.backend not in _NATIVE_BACKENDS:
             return None
-        return CollModule(allreduce=allreduce, bcast=bcast)
+        return CollModule(
+            allreduce=allreduce,
+            reduce=reduce,
+            bcast=bcast,
+            barrier=barrier,
+            allgather=allgather,
+            allgatherv=allgatherv,
+            alltoall=alltoall,
+            alltoallv=alltoallv,
+            reduce_scatter=reduce_scatter,
+            reduce_scatter_block=reduce_scatter_block,
+            scan=scan,
+            exscan=exscan,
+            gather=gather,
+            scatter=scatter,
+        )

@@ -9,13 +9,16 @@ communicator object over one ``torch.distributed`` process group, with
 ``rank`` and ``size`` as plain ints.  A communicator over one dimension of
 a ``DeviceMesh`` is ``Communicator(mesh.get_group(dim))``.
 
-A one-rank group is legal and still dispatches through ``comm_select`` to
-the ``nccl`` component: that is how a single GPU runs the framework path.
+A one-rank group is legal and still dispatches through ``comm_select``
+(``tuned``, whose ``xla`` route is the ``nccl`` component): that is how a
+single GPU runs the framework path.
 
 The collective function table (``comm.coll``) is composed per communicator,
 per operation from the coll framework's components by priority, mirroring
-``mca_coll_base_comm_select.c:108-152``.  ``split``, ``shrink``, ``revoke``
-and ``agree`` are not ported yet.
+``mca_coll_base_comm_select.c:108-152``; every MPI collective method goes
+through it.  ``shift``, ``permute`` and ``ppermute`` are the SPMD plane's
+point-to-point (``pt2pt/spmd.py``).  ``split``, ``shrink``, ``revoke``,
+``agree`` and ``run`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,13 +26,16 @@ from __future__ import annotations
 import threading
 from typing import Any
 
+import torch
 import torch.distributed as dist
 
+from .. import ops as _ops
 from ..core import attributes
 from ..core import errhandler as errh
 from ..core import errors
 from ..core import info as info_mod
 from ..mca import output as mca_output
+from ..pt2pt import spmd as _spmd
 from .group import Group
 
 _stream = mca_output.open_stream("comm")
@@ -75,6 +81,8 @@ class Communicator(errh.HasErrhandler, attributes.AttrHost):
         self.attributes: dict[Any, Any] = {}
         self.info = info_mod.coerce(info)
         self._coll: dict[str, tuple] | None = None
+        # set by pt2pt/spmd once a full-group batched P2P call has run
+        self._p2p_ready = False
         mca_output.verbose(
             5, _stream, "created %s: rank %d of %d on %s",
             self.name, self.rank, self.size, self.backend,
@@ -127,13 +135,76 @@ class Communicator(errh.HasErrhandler, attributes.AttrHost):
         fn, _ = entry
         return fn(self, *args, **kwargs)
 
-    def allreduce(self, x, op=None, **kw):
-        from .. import ops as _ops
+    @property
+    def device(self) -> torch.device:
+        """Where this communicator's own buffers live (a barrier token with
+        no caller data): the current CUDA device on NCCL, else the CPU."""
+        if self.backend == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
 
+    def allreduce(self, x, op=None, **kw):
         return self._coll_call("allreduce", x, op or _ops.SUM, **kw)
+
+    def reduce(self, x, op=None, root: int = 0, **kw):
+        return self._coll_call("reduce", x, op or _ops.SUM, root, **kw)
 
     def bcast(self, x, root: int = 0, **kw):
         return self._coll_call("bcast", x, root, **kw)
+
+    def barrier(self, token=None):
+        return self._coll_call("barrier", token)
+
+    def allgather(self, x, **kw):
+        return self._coll_call("allgather", x, **kw)
+
+    def alltoall(self, x, **kw):
+        return self._coll_call("alltoall", x, **kw)
+
+    def reduce_scatter(self, x, op=None, **kw):
+        return self._coll_call("reduce_scatter", x, op or _ops.SUM, **kw)
+
+    def reduce_scatter_block(self, x, op=None, **kw):
+        return self._coll_call("reduce_scatter_block", x, op or _ops.SUM,
+                               **kw)
+
+    def alltoallv(self, x, counts, **kw):
+        """MPI_Alltoallv with a static count matrix: ``counts[i][j]`` rows
+        go from rank i to rank j; ``x`` is (size, max_send, ...) padded
+        blocks, result is (size, max_recv, ...) padded blocks."""
+        return self._coll_call("alltoallv", x, counts, **kw)
+
+    def scan(self, x, op=None, **kw):
+        return self._coll_call("scan", x, op or _ops.SUM, **kw)
+
+    def exscan(self, x, op=None, **kw):
+        return self._coll_call("exscan", x, op or _ops.SUM, **kw)
+
+    def gather(self, x, root: int = 0, **kw):
+        return self._coll_call("gather", x, root, **kw)
+
+    def scatter(self, x, root: int = 0, **kw):
+        return self._coll_call("scatter", x, root, **kw)
+
+    def allgatherv(self, x, counts, **kw):
+        return self._coll_call("allgatherv", x, counts, **kw)
+
+    # -- point-to-point (SPMD plane) -------------------------------------
+
+    def shift(self, x, offset: int, wrap: bool = True):
+        """Uniform-shift sendrecv (MPI_Sendrecv in a ring / MPI_Cart_shift):
+        every rank sends its buffer to (rank+offset) and receives from
+        (rank-offset).  With wrap=False the ends get zeros (MPI_PROC_NULL)."""
+        return _spmd.shift(self, x, offset, wrap=wrap)
+
+    def permute(self, x, dest_of: list[int]):
+        """General static sendrecv: dest_of[i] is where comm rank i's buffer
+        goes (-1 = sends nowhere); ranks nobody targets receive zeros."""
+        return _spmd.sendrecv(self, x, dest_of)
+
+    def ppermute(self, x, pairs):
+        """Comm-relative collective permute (the BTL of the SPMD plane)."""
+        return _spmd.ppermute(self, x, pairs)
 
     def __repr__(self):  # pragma: no cover
         return (f"Communicator({self.name}, rank={self.rank}, "

@@ -57,6 +57,14 @@ class Output:
             msg = msg % args
         print(f"[zmpi:{s.name}] {msg}", file=sys.stderr)
 
+    def output(self, stream: int | str, msg: str, *args) -> None:
+        """Unconditional output on a stream."""
+        s = self._resolve(stream)
+        name = s.name if s is not None else "?"
+        if args:
+            msg = msg % args
+        print(f"[zmpi:{name}] {msg}", file=sys.stderr)
+
     def _resolve(self, stream: int | str) -> Stream | None:
         if isinstance(stream, str):
             sid = self._by_name.get(stream)
@@ -69,3 +77,4 @@ class Output:
 output = Output()
 open_stream = output.open_stream
 verbose = output.verbose
+emit = output.output

@@ -112,6 +112,9 @@ class VarRegistry:
         # API-set values that arrived before the variable was registered
         # (the reference keeps these in the var system's file-value list).
         self._pending_api: dict[str, Any] = {}
+        #: bumped by every register, set and unset: a cache of decisions
+        #: that read variables is valid while this number is unchanged
+        self.generation = 0
 
     # -- file layer ------------------------------------------------------
 
@@ -189,6 +192,7 @@ class VarRegistry:
             if ovr_val is not None:
                 var._value, var._source = var.validate(ovr_val), VarSource.OVERRIDE
             self._vars[name] = var
+            self.generation += 1
             return var
 
     # -- access ----------------------------------------------------------
@@ -207,6 +211,7 @@ class VarRegistry:
     def set(self, name: str, value: Any) -> None:
         """API-layer set (highest precedence below the override file)."""
         with self._lock:
+            self.generation += 1
             var = self._vars.get(name)
             if var is None:
                 self._pending_api[name] = value
@@ -221,6 +226,7 @@ class VarRegistry:
     def unset(self, name: str) -> None:
         """Drop an API-layer value, re-resolving from lower layers."""
         with self._lock:
+            self.generation += 1
             self._pending_api.pop(name, None)
             var = self._vars.get(name)
             if var is None:

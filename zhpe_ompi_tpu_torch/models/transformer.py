@@ -4,11 +4,18 @@ the framework's communicators (namesake:
 
 The forward pass (``forward_hidden``, ``forward`` for logits, ``loss_fn``)
 and the training step (``make_train_step``, with ``_sync_grads``) are
-ported, with tensor and data parallelism: attention heads and the MLP
-hidden are sharded over the ranks of ``tp_comm``, the partial sums after
-the output and down projections are combined with ``tp_comm.allreduce``
-through ``g_allreduce`` (whose partner ``f_identity`` sums the input
-cotangents in the backward), and gradients are averaged over ``dp_comm``.
+ported, with tensor, data and sequence parallelism:
+
+- **tp**: attention heads and the MLP hidden are sharded over the ranks of
+  ``tp_comm``; the partial sums after the output and down projections are
+  combined with ``tp_comm.allreduce`` through ``g_allreduce`` (whose
+  partner ``f_identity`` sums the input cotangents in the backward);
+- **dp**: gradients are averaged over ``dp_comm``;
+- **sp**: tokens arrive sequence-sharded over ``sp_comm`` and attention
+  runs as ring attention over its ranks (``models/ring_attention.py``),
+  contiguous or, with ``cfg.zigzag_sp``, zigzag;
+- **remat**: ``cfg.remat`` checkpoints each layer, keeping the projections'
+  outputs and recomputing the rest in the backward.
 
 Parameters keep the JAX package's stacked layout, so that
 :func:`params_from_numpy` is a plain copy of what
@@ -18,8 +25,7 @@ gains ``ln1``/``ln2`` (L, D) and ``lnf`` (D,), ``embed`` (V, D), all
 float32 masters cast to the model dtype at use.  The JAX package's
 ``lax.scan`` over layers is a Python loop over layer slices here.
 
-Not ported yet: sequence parallelism (``sp_comm``, ring attention),
-``remat`` and ``make_train_step_optax``.
+Not ported yet: ``make_train_step_optax``.
 """
 
 from __future__ import annotations
@@ -29,12 +35,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import ops as zops
 from ..core import errors
 from ..ops import fused_ce, fused_norm
 from ..ops import flash_attention as fa
 from ..parallel.grad import f_identity, g_allreduce
+from . import ring_attention as ra
 
 
 @dataclass(frozen=True)
@@ -54,6 +63,14 @@ class Config:
     fused_ln: bool | None = None
     # vocab-chunked cross-entropy chunk size, or None for the unchunked loss
     ce_chunk: int | None = None
+    # checkpoint each layer: keep the projections' outputs (aten.mm), and
+    # recompute the rest (attention, layernorms, the tp allreduces) in the
+    # backward — the JAX package's dots_with_no_batch_dims_saveable
+    remat: bool = False
+    # sequence parallelism on the zigzag layout: rank i holds global
+    # chunks (i, 2n-1-i), and causal ring attention computes only the
+    # live sub-blocks (models/ring_attention.py::ring_attention_zigzag)
+    zigzag_sp: bool = False
 
 
 # tp-sharded parameters and the axis each is sharded on (the JAX
@@ -103,68 +120,103 @@ def _ln(x, g, fused):
     return fused_norm.layer_norm(x, g, force=fused is True)
 
 
-def _attention(q, k, v, flash):
-    if flash is False:
+def _attention(q, k, v, cfg, sp_comm):
+    # under sp_comm attention is ring attention, whatever cfg.flash says
+    if sp_comm is not None:
+        if cfg.zigzag_sp:
+            return ra.ring_attention_zigzag(sp_comm, q, k, v)
+        return ra.ring_attention(sp_comm, q, k, v, causal=True)
+    if cfg.flash is False:
         return fa.attn_reference(q, k, v, causal=True)
-    return fa.flash_attention(q, k, v, causal=True, force=flash is True)
+    return fa.flash_attention(q, k, v, causal=True, force=cfg.flash is True)
 
 
-def forward_hidden(params: dict, tokens, cfg: Config, tp_comm=None):
+def _block(x, params, layer, cfg, tp_comm, sp_comm):
+    """One transformer layer on this rank's shard."""
+    dtype = cfg.dtype
+    B, S, D = x.shape
+    hd = D // cfg.n_heads
+    n_heads_local = params["wqkv"].shape[-1] // hd
+    h = _ln(x, params["ln1"][layer], cfg.fused_ln)
+    if tp_comm is not None:
+        h = f_identity(tp_comm, h)
+    wqkv = params["wqkv"][layer].to(dtype)  # (D, 3, H_local)
+    qkv = (h.reshape(B * S, D) @ wqkv.reshape(D, -1)).reshape(B, S, 3, -1)
+    q = qkv[:, :, 0].reshape(B, S, n_heads_local, hd)
+    k = qkv[:, :, 1].reshape(B, S, n_heads_local, hd)
+    v = qkv[:, :, 2].reshape(B, S, n_heads_local, hd)
+    o = _attention(q, k, v, cfg, sp_comm).reshape(B, S, -1)
+    o = o @ params["wo"][layer].to(dtype)
+    if tp_comm is not None:
+        o = g_allreduce(tp_comm, o)
+    x = x + o
+    h = _ln(x, params["ln2"][layer], cfg.fused_ln)
+    if tp_comm is not None:
+        h = f_identity(tp_comm, h)
+    # jax.nn.gelu's default is the tanh approximation
+    u = F.gelu(h @ params["w1"][layer].to(dtype), approximate="tanh")
+    d = u @ params["w2"][layer].to(dtype)
+    if tp_comm is not None:
+        d = g_allreduce(tp_comm, d)
+    return x + d
+
+
+def _save_only_mm(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``cfg.remat``: keep the outputs
+    of ``aten.mm`` (the projections, all (B*S, D)-shaped operands) and
+    recompute everything else — attention's batched products, the kernels
+    (whose outputs are written in place through ctypes), the tp
+    allreduces (which reduce a clone in place) and the sp shifts."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_contexts():
+    return create_selective_checkpoint_contexts(_save_only_mm)
+
+
+def forward_hidden(params: dict, tokens, cfg: Config, tp_comm=None,
+                   sp_comm=None):
     """Forward pass on this rank's shard, up to the final layernorm.
 
     ``tp_comm`` is a framework :class:`Communicator` over the tensor-
     parallel ranks, or None.  Heads and the ffn hidden arrive pre-sharded
     (``params_from_numpy(tp_rank=, tp=)``); after ``wo`` and ``w2`` the
-    partial products are summed with ``tp_comm.allreduce``."""
-    emb = params["embed"]
-    dtype = cfg.dtype
-    tokens = torch.as_tensor(tokens, device=emb.device).long()
-    x = emb.to(dtype)[tokens]  # (B, S, D)
-    B, S, D = x.shape
-    hd = D // cfg.n_heads
-    n_heads_local = params["wqkv"].shape[-1] // hd
+    partial products are summed with ``tp_comm.allreduce``.
 
+    ``sp_comm`` (sequence parallelism): ``tokens`` are this rank's block
+    of the sequence (contiguous, or the zigzag chunk pair with
+    ``cfg.zigzag_sp``) and attention runs as ring attention over
+    ``sp_comm``'s ranks."""
+    emb = params["embed"]
+    tokens = torch.as_tensor(tokens, device=emb.device).long()
+    x = emb.to(cfg.dtype)[tokens]  # (B, S_local, D)
     for layer in range(params["wqkv"].shape[0]):
-        h = _ln(x, params["ln1"][layer], cfg.fused_ln)
-        if tp_comm is not None:
-            h = f_identity(tp_comm, h)
-        wqkv = params["wqkv"][layer].to(dtype)  # (D, 3, H_local)
-        qkv = (h.reshape(B * S, D) @ wqkv.reshape(D, -1)).reshape(B, S, 3, -1)
-        q = qkv[:, :, 0].reshape(B, S, n_heads_local, hd)
-        k = qkv[:, :, 1].reshape(B, S, n_heads_local, hd)
-        v = qkv[:, :, 2].reshape(B, S, n_heads_local, hd)
-        o = _attention(q, k, v, cfg.flash).reshape(B, S, -1)
-        o = o @ params["wo"][layer].to(dtype)
-        if tp_comm is not None:
-            o = g_allreduce(tp_comm, o)
-        x = x + o
-        h = _ln(x, params["ln2"][layer], cfg.fused_ln)
-        if tp_comm is not None:
-            h = f_identity(tp_comm, h)
-        # jax.nn.gelu's default is the tanh approximation
-        u = F.gelu(h @ params["w1"][layer].to(dtype), approximate="tanh")
-        d = u @ params["w2"][layer].to(dtype)
-        if tp_comm is not None:
-            d = g_allreduce(tp_comm, d)
-        x = x + d
+        if cfg.remat:
+            x = checkpoint(_block, x, params, layer, cfg, tp_comm, sp_comm,
+                           use_reentrant=False, context_fn=_remat_contexts)
+        else:
+            x = _block(x, params, layer, cfg, tp_comm, sp_comm)
     return _ln(x, params["lnf"], cfg.fused_ln)
 
 
-def forward(params: dict, tokens, cfg: Config, tp_comm=None):
+def forward(params: dict, tokens, cfg: Config, tp_comm=None, sp_comm=None):
     """Full forward pass: hidden states -> vocabulary logits (f32), from
     model-dtype operands with f32 accumulation."""
-    x = forward_hidden(params, tokens, cfg, tp_comm)
+    x = forward_hidden(params, tokens, cfg, tp_comm, sp_comm)
     return fused_ce._logits(x, params["embed"].to(cfg.dtype))
 
 
-def loss_fn(params, tokens, targets, cfg: Config, tp_comm=None):
-    """Mean token cross-entropy in the fused lse form, vocab-chunked when
-    ``cfg.ce_chunk`` is set; differentiable on every path."""
+def loss_fn(params, tokens, targets, cfg: Config, tp_comm=None, sp_comm=None):
+    """Mean token cross-entropy (over this rank's tokens) in the fused lse
+    form, vocab-chunked when ``cfg.ce_chunk`` is set; differentiable on
+    every path."""
     # targets go to the device before the forward is queued: a copy from
     # host memory queued after it would hold the host until the device
     # had run the whole forward
     targets = torch.as_tensor(targets, device=params["embed"].device).long()
-    x = forward_hidden(params, tokens, cfg, tp_comm)
+    x = forward_hidden(params, tokens, cfg, tp_comm, sp_comm)
     return fused_ce.token_ce(x, params["embed"].to(cfg.dtype), targets,
                              cfg.ce_chunk)
 
@@ -173,23 +225,30 @@ def loss_fn(params, tokens, targets, cfg: Config, tp_comm=None):
 _TP_REPLICATED = frozenset({"embed", "lnf", "ln1", "ln2"})
 
 
-def _sync_grads(grads, loss, dp_comm, tp_comm, dp, tp):
+def _sync_grads(grads, loss, dp_comm, tp_comm, sp_comm, dp, tp, sp):
     """The gradient synchronization semantics of the JAX package's
-    ``_sync_grads``, every sync through the framework's allreduce:
+    ``_sync_grads``, in its order (dp, then sp, then tp), every sync
+    through the framework's allreduce:
       - tp-sharded params (wqkv/wo/w1/w2): their grads are tp-local
-        already; average over dp only.
+        already; average over dp (and sp) only.
       - replicated-over-tp params (embed/ln): with the f/g wrappers each
         tp rank holds the full tp-summed gradient; a tp-mean makes the
         update bitwise-identical across tp ranks.
-      - the loss is averaged over dp and tp.
-    (The JAX package's sp-mean has no counterpart until sp is ported.)"""
+      - sp: every rank sees only its sequence block, so every param's grad
+        is partial over sp: sp-mean them all (dp-mean x sp-mean composes
+        to the global token mean).
+      - the loss is averaged over dp, sp and tp."""
     synced = {}
     for name, g in grads.items():
         g = dp_comm.allreduce(g, zops.SUM) / dp
+        if sp_comm is not None:
+            g = sp_comm.allreduce(g, zops.SUM) / sp
         if name in _TP_REPLICATED and tp_comm is not None:
             g = tp_comm.allreduce(g, zops.SUM) / tp
         synced[name] = g
     loss = dp_comm.allreduce(loss, zops.SUM) / dp
+    if sp_comm is not None:
+        loss = sp_comm.allreduce(loss, zops.SUM) / sp
     if tp_comm is not None:
         loss = tp_comm.allreduce(loss, zops.SUM) / tp
     return synced, loss
@@ -197,30 +256,31 @@ def _sync_grads(grads, loss, dp_comm, tp_comm, dp, tp):
 
 def make_train_step(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
                     lr: float = 1e-2):
-    """Build the training step over dp x tp: gradients of :func:`loss_fn`
-    by autograd, the sync of :func:`_sync_grads`, and the SGD update
-    ``p - lr * g`` in each parameter's dtype.
+    """Build the training step over dp x tp x sp: gradients of
+    :func:`loss_fn` by autograd, the sync of :func:`_sync_grads`, and the
+    SGD update ``p - lr * g`` in each parameter's dtype.
 
     The port's communicators take the place of the JAX package's ``mesh``:
-    each process runs ``step`` on its own shard, and ``dp_comm`` and
-    ``tp_comm`` (framework :class:`Communicator` objects over this rank's
-    data- and tensor-parallel groups; ``tp_comm`` may be None) carry every
-    collective.  ``step(params, tokens, targets) -> (new_params, loss)``
-    takes this rank's tp shards (``params_from_numpy(tp_rank=, tp=)``) and
-    its dp slice of the batch, and returns new tensors (the old ones are
-    left as they were).  ``param_specs`` maps each parameter to the axis
-    it is tp-sharded on, or None.  There is no ``jit``: PyTorch runs the
-    step eagerly.
+    each process runs ``step`` on its own shard, and ``dp_comm``,
+    ``tp_comm`` and ``sp_comm`` (framework :class:`Communicator` objects
+    over this rank's data-, tensor- and sequence-parallel groups;
+    ``tp_comm`` and ``sp_comm`` may be None) carry every collective.
+    ``step(params, tokens, targets) -> (new_params, loss)`` takes this
+    rank's tp shards (``params_from_numpy(tp_rank=, tp=)``) and its block
+    of the batch: its dp slice of the rows and its sp block of the
+    sequence (the zigzag chunk pair with ``cfg.zigzag_sp``).  It returns
+    new tensors (the old ones are left as they were).  ``param_specs``
+    maps each parameter to the axis it is tp-sharded on, or None.  There
+    is no ``jit``: PyTorch runs the step eagerly.
 
-    ``sp_comm`` (sequence parallelism) needs ring attention, which a later
-    slice of the port brings; it raises ``UnsupportedError`` here."""
-    if sp_comm is not None:
-        raise errors.UnsupportedError(
-            "make_train_step: sequence parallelism (sp_comm) runs ring "
-            "attention (models/ring_attention.py), which a later slice of "
-            "the port brings")
+    The rank layout of the JAX package's ("dp", "tp", "sp") mesh: world
+    rank ``r = (d * tp + t) * sp + s`` holds dp index d, tp index t and sp
+    index s; its tp group is the ranks that differ from it in t only, its
+    sp group those that differ in s only, its dp group those that differ
+    in d only, each in increasing rank order."""
     dp = dp_comm.size
     tp = tp_comm.size if tp_comm is not None else 1
+    sp = sp_comm.size if sp_comm is not None else 1
     param_specs = {name: _TP_AXIS.get(name) for name in
                    ("embed", "wqkv", "wo", "w1", "w2", "ln1", "ln2", "lnf")}
 
@@ -228,10 +288,10 @@ def make_train_step(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
         names = list(params)
         leaves = {n: params[n].detach().requires_grad_(True) for n in names}
         with torch.enable_grad():
-            loss = loss_fn(leaves, tokens, targets, cfg, tp_comm)
+            loss = loss_fn(leaves, tokens, targets, cfg, tp_comm, sp_comm)
             grads = torch.autograd.grad(loss, [leaves[n] for n in names])
         synced, loss = _sync_grads(dict(zip(names, grads)), loss.detach(),
-                                   dp_comm, tp_comm, dp, tp)
+                                   dp_comm, tp_comm, sp_comm, dp, tp, sp)
         with torch.no_grad():
             new_params = {n: (params[n] - lr * synced[n]).to(params[n].dtype)
                           for n in names}

@@ -10,13 +10,14 @@ Re-design of ``ompi/op`` + ``ompi/mca/op`` for PyTorch:
   JAX package's ``xla_collective`` hint, so the coll layer can skip the
   algorithmic path;
 - the reference's COMMUTE / FLOAT_ASSOCIATIVE flags (``ompi/op/op.h:425-460``)
-  are kept for the decision layers that later slices port;
+  are kept: ``coll/tuned`` sends non-commutative ops to the rank-ordered
+  linear algorithms;
 - MINLOC/MAXLOC combine ``(values, indices)`` tuples of tensors; ties go to
-  the lower index, per the MPI standard.
-
-``op_reduce`` and the per-datatype checks (``check_datatype``) need the
-datatype engine, and the identity elements (``identity_for``) serve the
-algorithm layer's padding; later slices port them.
+  the lower index, per the MPI standard;
+- ``check_datatype`` holds an op to the datatype kinds it is defined for
+  (the bitwise and logical ops take integers and bools only; the pair ops
+  take pair types only), ``identity_for`` gives the identity element for a
+  ``torch.dtype``, and :func:`op_reduce` is ``ompi_op_reduce``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import errors
+from ..datatype.predefined import Datatype, PairDatatype
 
 
 class Op:
@@ -40,7 +42,9 @@ class Op:
         commute: bool = True,
         float_assoc: bool = True,
         reduce_op: Any = None,
+        allowed_kinds: str | None = None,
         pair_op: bool = False,
+        identity: Any = None,
     ) -> None:
         self.name = name
         self._fn = fn
@@ -50,8 +54,28 @@ class Op:
         self.float_assoc = float_assoc
         #: ``torch.distributed.ReduceOp`` this op maps to natively, or None.
         self.reduce_op = reduce_op
+        #: datatype kinds this op accepts (None = any numeric).
+        self.allowed_kinds = allowed_kinds
         self.pair_op = pair_op
+        #: identity element: a number, or "min"/"max" for the dtype's
+        #: lowest/highest value.
+        self._identity = identity
         self.is_user_defined = False
+
+    def check_datatype(self, datatype: Datatype) -> None:
+        if self.pair_op:
+            if not isinstance(datatype, PairDatatype):
+                raise errors.OpError(
+                    f"{self.name} requires a pair datatype (e.g. "
+                    f"MPI_FLOAT_INT), got {datatype.name}")
+            return
+        if isinstance(datatype, PairDatatype):
+            raise errors.OpError(
+                f"{self.name} does not accept pair datatype {datatype.name}")
+        kind = getattr(datatype, "kind", "u")
+        if self.allowed_kinds is not None and kind not in self.allowed_kinds:
+            raise errors.OpError(
+                f"{self.name} not defined for datatype {datatype.name}")
 
     def __call__(self, a, b):
         """Elementwise combine a ⊕ b.  MPI_Reduce semantics: ``a`` is the
@@ -60,6 +84,27 @@ class Op:
         if self._fn is None:
             raise errors.OpError(f"{self.name} has no combine function")
         return self._fn(a, b)
+
+    def identity_for(self, dtype: torch.dtype) -> Any:
+        """Identity element for padding, as a Python number of ``dtype``'s
+        kind (raises for ops without one)."""
+        if self._identity is None:
+            raise errors.OpError(f"{self.name} has no identity element")
+        if self._identity in ("min", "max"):
+            low = self._identity == "min"
+            if dtype == torch.bool:
+                return not low
+            if dtype.is_floating_point:
+                return float("-inf") if low else float("inf")
+            info = torch.iinfo(dtype)
+            return info.min if low else info.max
+        if dtype == torch.bool:
+            return bool(self._identity)
+        if dtype.is_complex:
+            return complex(self._identity)
+        if dtype.is_floating_point:
+            return float(self._identity)
+        return int(self._identity)
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"Op({self.name})"
@@ -89,16 +134,16 @@ def _logical(kind):
 
 _R = dist.ReduceOp
 
-MAX = Op("MPI_MAX", torch.maximum, reduce_op=_R.MAX)
-MIN = Op("MPI_MIN", torch.minimum, reduce_op=_R.MIN)
-SUM = Op("MPI_SUM", torch.add, reduce_op=_R.SUM)
-PROD = Op("MPI_PROD", torch.mul)
-LAND = Op("MPI_LAND", _logical("and"))
-BAND = Op("MPI_BAND", torch.bitwise_and)
-LOR = Op("MPI_LOR", _logical("or"))
-BOR = Op("MPI_BOR", torch.bitwise_or)
-LXOR = Op("MPI_LXOR", _logical("xor"))
-BXOR = Op("MPI_BXOR", torch.bitwise_xor)
+MAX = Op("MPI_MAX", torch.maximum, reduce_op=_R.MAX, identity="min")
+MIN = Op("MPI_MIN", torch.minimum, reduce_op=_R.MIN, identity="max")
+SUM = Op("MPI_SUM", torch.add, reduce_op=_R.SUM, identity=0)
+PROD = Op("MPI_PROD", torch.mul, identity=1)
+LAND = Op("MPI_LAND", _logical("and"), allowed_kinds="iub", identity=1)
+BAND = Op("MPI_BAND", torch.bitwise_and, allowed_kinds="iub", identity="max")
+LOR = Op("MPI_LOR", _logical("or"), allowed_kinds="iub", identity=0)
+BOR = Op("MPI_BOR", torch.bitwise_or, allowed_kinds="iub", identity=0)
+LXOR = Op("MPI_LXOR", _logical("xor"), allowed_kinds="iub", identity=0)
+BXOR = Op("MPI_BXOR", torch.bitwise_xor, allowed_kinds="iub", identity=0)
 MAXLOC = Op("MPI_MAXLOC", _pair_combine(torch.gt), pair_op=True)
 MINLOC = Op("MPI_MINLOC", _pair_combine(torch.lt), pair_op=True)
 REPLACE = Op("MPI_REPLACE", lambda a, b: a, commute=False)
@@ -123,3 +168,10 @@ def create_op(fn: Callable, *, commute: bool = True,
     op = Op(name, fn, commute=commute, float_assoc=False)
     op.is_user_defined = True
     return op
+
+
+def op_reduce(op: Op, source, target, datatype: Datatype | None = None):
+    """ompi_op_reduce equivalent: target = source ⊕ target (elementwise)."""
+    if datatype is not None:
+        op.check_datatype(datatype)
+    return op(source, target)
