@@ -28,7 +28,32 @@ Phases, each of which exits non-zero on failure:
    them, then the normalisation, against ``_block_attention_single`` on
    the whole sequence (max abs error within 2e-2); the same with the
    zigzag layout's live sub-blocks; the time per rank of each.
-5. On one-rank NCCL communicators (``tp``, ``dp``, ``sp``), whose
+5. The MPI entry point, at phase 7's flagship width, before any
+   process group is made and before any profiler session runs:
+   ``runtime.init()`` (timed) must give a one-rank NCCL COMM_WORLD and COMM_SELF and print the comm_method hook's lines (the
+   world's layout and tuned over every operation); ``make_mesh({"dp": 1,
+   "tp": 1, "sp": 1})`` then gives ``dp_comm`` from its dp group,
+   ``tp_comm`` from ``world.split`` and ``sp_comm`` from a ``dup`` of its
+   sp group.  With ``coll_monitoring_enable`` set, ``make_train_step``
+   over ``dp_comm`` and ``tp_comm`` takes three steps: each must launch
+   the kernels 9/9/4/4/4 times and raise the SPC counter
+   ``coll_allreduce_calls`` by exactly the number of
+   ``Communicator.allreduce`` calls the step makes (one per parameter on
+   dp, one per tp-replicated parameter on tp, two for the loss, four per
+   layer for the f/g pair: 30), split as counted per communicator.  On
+   CUDA tensors: an allreduce on a revoked communicator raises
+   ``Revoked``, ``shrink(failed=[])`` of it gives a working communicator,
+   ``agree`` runs on it; ``probe_device_plane()`` at its default deadline
+   returns "ok" (the child reports its seconds by stage), and with
+   ``ZMPI_DEVICE_WEDGE`` set to "all" or to this rank it returns
+   "deadline" or "hung" within its timeout.  Then
+   ``zhpe_ompi_tpu_torch.bench``'s measurement (monitoring off again, on
+   fresh communicators): the framework step against the plain step with
+   remat on and off (step ms, tokens/s, ``vs_baseline``, mfu) and the
+   long-context line, and one long-context step (seq 4096, batch 2,
+   remat) between launch counts (17/9/8/4/4); then ``finalize()``, after
+   which no process group is left.
+6. On one-rank NCCL communicators (``tp``, ``dp``, ``sp``), whose
    collectives ``tuned`` serves over ``coll/nccl``: every entry of
    ``comm.coll``, and every algorithm of ``coll/algorithms.py`` forced
    through ``ZMPI_MCA_coll_tuned_<op>_algorithm``, on CUDA tensors of f32,
@@ -36,7 +61,7 @@ Phases, each of which exits non-zero on failure:
    per call of ``Communicator.allreduce`` through tuned and through a
    communicator composed without tuned, in 10 alternating turns, and of
    the nccl component's allreduce alone.
-6. Drive the forward path at the flagship width (vocab 8192, d_model 1024,
+7. Drive the forward path at the flagship width (vocab 8192, d_model 1024,
    16 heads, d_ff 4096, 4 layers, seq 512, bf16, ce_chunk 1024, batch 16):
    numpy parameters in the JAX package's layout from a seed,
    ``params_from_numpy`` onto the card, ``tp_comm``, and three batches
@@ -49,7 +74,7 @@ Phases, each of which exits non-zero on failure:
    result) must match both operands upcast to f32.  Then steady-state
    times of ``forward`` and ``loss_fn`` and a torch.profiler breakdown of
    ``loss_fn`` are printed.
-7. Drive the training path at the same width: ``make_train_step`` with
+8. Drive the training path at the same width: ``make_train_step`` with
    ``dp_comm`` and ``tp_comm``, five SGD steps on one repeated batch.  The
    launch counts are set to 0 just before each step and read just after;
    each step must launch the layernorm forward and backward kernels 9
@@ -60,19 +85,20 @@ Phases, each of which exits non-zero on failure:
    and in every parameter's update.  Then the steady step time (median,
    quartiles), tokens trained per second, the peak device memory, and a
    torch.profiler breakdown of one step are printed.
-8. The same with ``remat=True``: each step must launch the layernorm
+9. The same with ``remat=True``: each step must launch the layernorm
    forward 17 times and the flash forward 8 times (the recomputed layers),
    the backward kernels as before; the first step's loss is compared in
    its bits with the step without remat on the same parameters and batch,
    and each parameter's update must agree within 1e-3 (relative Frobenius
    norm); the peak device memory must be below the step's without remat.
-9. The same with the one-rank NCCL ``sp_comm`` (ring attention),
+10. The same with the one-rank NCCL ``sp_comm`` (ring attention),
    contiguous and then zigzag: no flash launch, 9 layernorm forward and
    backward launches per step, the first loss within 2e-2 of the flash
    path's.
-10. Print one ``{"kernels": [...]}`` line (``launches``: per training
-   step; ``launches_by_path``: per forward, training, remat and sp step),
-   the card's line, and last ``{"ok": true, "device": {...}}``.
+11. Print one ``{"kernels": [...]}`` line (``launches``: per training
+   step; ``launches_by_path``: per forward, training, remat, sp, runtime
+   and long-context step), the card's line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
@@ -88,7 +114,13 @@ to compare two versions on one card.
 runs that measurement for OTHER_ROOT and for the port beside this script
 in PAIRS (default 10) alternating pairs of processes (other first in even
 pairs, this one first in odd pairs) and prints each version's median and
-quartiles of every number.
+quartiles of every number.  PORT_ROOT and OTHER_ROOT must hold the port's
+``bench.py``, whose headline width the wrappers are timed at.
+
+    python3 chip_smoke.py --bench-after
+
+runs every phase, and after phase 10 the bench's remat-off pair once more,
+in this process after the profiled phases, beside phase 5's reading.
 """
 
 from __future__ import annotations
@@ -108,11 +140,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
-# flagship width (bench.py's headline config) and its batch per chip
-HEADLINE = dict(vocab=8192, d_model=1024, n_heads=16, d_ff=4096, n_layers=4,
-                seq=512)
-BATCH = 16
-CE_CHUNK = 1024
+# flagship width (bench.py's headline config), its batch per chip and CE
+# chunk: main() takes them from the port's own zhpe_ompi_tpu_torch.bench
+HEADLINE: dict = {}
+BATCH = CE_CHUNK = 0
 N_BATCHES = 3
 TRAIN_STEPS = 5
 STEADY_STEPS = 12
@@ -188,6 +219,15 @@ EDGE_CASES = [((1, 4096, 2, 64), True, False), ((1, 4096, 2, 64), False, False),
 # device function names of the port's kernels, as the profiler lists them
 PORT_KERNELS = ("ln_fwd_", "ln_bwd_", "flash_fwd_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkv_kernel")
+
+
+def _take_widths() -> None:
+    """HEADLINE, BATCH and CE_CHUNK from ``zhpe_ompi_tpu_torch.bench`` of
+    the port first on ``sys.path``."""
+    global HEADLINE, BATCH, CE_CHUNK
+    from zhpe_ompi_tpu_torch import bench
+
+    HEADLINE, BATCH, CE_CHUNK = bench.HEADLINE, bench.BATCH, bench.CE_CHUNK
 
 
 def _card_line() -> str:
@@ -532,27 +572,6 @@ def check_flash_bwd(torch, F, fa):
     ]
 
 
-def _numpy_params(np, cfg, seed):
-    """Parameters in the JAX package's init_params layout and scales,
-    drawn with numpy from ``seed``."""
-    rng = np.random.default_rng(seed)
-    D, H, Fd, V, L = cfg.d_model, cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
-
-    def nrm(shape, scale):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
-
-    return {
-        "embed": nrm((V, D), 0.02),
-        "wqkv": nrm((L, D, 3, H), D ** -0.5),
-        "wo": nrm((L, H, D), H ** -0.5),
-        "w1": nrm((L, D, Fd), D ** -0.5),
-        "w2": nrm((L, Fd, D), Fd ** -0.5),
-        "ln1": np.ones((L, D), np.float32),
-        "ln2": np.ones((L, D), np.float32),
-        "lnf": np.ones((D,), np.float32),
-    }
-
-
 def steady_times(torch, tfm, params, cfg, tp_comm, tokens, targets, reps=20):
     """Host-clock times of ``forward`` and ``loss_fn`` on one batch after
     warm-up, each call ended by a synchronize: median, quartiles, extremes
@@ -625,7 +644,9 @@ def drive_main_path(torch, np, tfm, fused_ce, fused_norm, fa, tp_comm):
     cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
     plain_cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK,
                            fused_ln=False, flash=False)
-    params = tfm.params_from_numpy(_numpy_params(np, cfg, seed=0), cfg)
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+
+    params = tfm.params_from_numpy(numpy_params(cfg, seed=0), cfg)
     rng = np.random.default_rng(1)
     batches = [(rng.integers(0, cfg.vocab, (BATCH, cfg.seq)),
                 rng.integers(0, cfg.vocab, (BATCH, cfg.seq)))
@@ -774,10 +795,13 @@ def steady_steps(torch, step, state, tokens, targets, label):
     return steady
 
 
-def _train_inputs(torch, np, tfm, cfg):
-    params0 = tfm.params_from_numpy(_numpy_params(np, cfg, seed=0), cfg)
+def _train_inputs(torch, np, tfm, cfg, batch=None):
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+
+    batch = BATCH if batch is None else batch
+    params0 = tfm.params_from_numpy(numpy_params(cfg, seed=0), cfg)
     rng = np.random.default_rng(2)
-    tokens, targets = (torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, cfg.seq)),
+    tokens, targets = (torch.as_tensor(rng.integers(0, cfg.vocab, (batch, cfg.seq)),
                                        device="cuda") for _ in range(2))
     return params0, tokens, targets
 
@@ -895,6 +919,199 @@ def drive_sp(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, sp_comm, flash_lo
         steady = steady_steps(torch, step, state, tokens, targets, label)
         out[label] = (launches, steady)
     return out
+
+
+def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
+    """Phase 5: the MPI entry point, the monitored train step, the ULFM
+    methods on CUDA tensors, the device probe, the bench, finalize."""
+    import contextlib
+    import io
+
+    from zhpe_ompi_tpu_torch import bench
+    from zhpe_ompi_tpu_torch.comm.communicator import Communicator
+    from zhpe_ompi_tpu_torch.core import errhandler as errh
+    from zhpe_ompi_tpu_torch.core import errors
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.parallel import mesh as mesh_mod
+    from zhpe_ompi_tpu_torch.runtime import init as rt
+    from zhpe_ompi_tpu_torch.runtime import spc
+
+    if dist.is_initialized():
+        raise SystemExit("runtime phase: a process group is already up")
+    mca_var.set_var("hook_comm_method_enable", True)
+    mca_var.set_var("coll_monitoring_enable", True)
+    hook_err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(hook_err):
+        world = rt.init()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    hook_lines = [ln for ln in hook_err.getvalue().splitlines() if "comm_method" in ln]
+    for ln in hook_lines:
+        print(f"hook: {ln}")
+    cs = rt.comm_self()
+    print(f"runtime.init(): {init_ms} ms; world {world.name} rank {world.rank} of "
+          f"{world.size} on {world.backend}, self {cs.name} size {cs.size} on "
+          f"{cs.backend}; {card_line}")
+    if not (world.size == 1 and world.backend == "nccl" and cs.size == 1
+            and cs.backend == "nccl" and dist.is_initialized()):
+        raise SystemExit("runtime.init() did not make a one-rank NCCL world")
+    want_hook = "comm_method: world of 1 rank(s) [0] on cuda device(s), backend nccl"
+    if not (hook_lines and want_hook in hook_lines[0]
+            and sum("-> tuned" in ln for ln in hook_lines) == 12):
+        raise SystemExit("the comm_method hook did not print the world's layout")
+
+    mesh = mesh_mod.make_mesh({"dp": 1, "tp": 1, "sp": 1})
+    dp_comm = Communicator(mesh.get_group("dp"), name="dp")
+    tp_comm = world.split([0], name="tp")
+    sp_comm = Communicator(mesh.get_group("sp"), name="sp_mesh").dup(name="sp")
+    one = torch.ones(4, device="cuda")
+    for comm in (dp_comm, tp_comm, sp_comm):
+        if comm.allreduce(one).tolist() != [1.0] * 4 or comm.backend != "nccl":
+            raise SystemExit(f"{comm.name}: a one-rank NCCL allreduce went wrong")
+
+    # the monitored train step
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    step, _ = tfm.make_train_step(cfg, dp_comm, tp_comm, lr=TRAIN_LR)
+    params, tokens, targets = _train_inputs(torch, np, tfm, cfg)
+    L = cfg.n_layers
+    n_dp = len(params) + 1                                   # grads, loss
+    n_tp = len(tfm._TP_REPLICATED & set(params)) + 1 + 4 * L  # + f/g pair
+    want_calls = {"coll_allreduce_calls": n_dp + n_tp,
+                  "comm_dp_coll_calls": n_dp, "comm_tp_coll_calls": n_tp}
+    counted = _kernel_counters(fused_norm, fa)
+    want = {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    losses = []
+    for i in range(3):
+        for fn in counted.values():
+            fn.launches = 0
+        before = spc.snapshot()
+        params, loss = step(params, tokens, targets)
+        loss = float(loss)
+        after = spc.snapshot()
+        launches = {name: fn.launches for name, fn in counted.items()}
+        calls = {k: after.get(k, 0) - before.get(k, 0) for k in want_calls}
+        print(f"runtime step {i}: loss {loss}, launches {launches} (expected "
+              f"{want}), allreduce calls {calls} (expected {want_calls})")
+        if launches != want:
+            raise SystemExit("the monitored step did not launch the kernels as expected")
+        if calls != want_calls:
+            raise SystemExit("coll_allreduce_calls did not rise by the step's "
+                             "Communicator.allreduce calls")
+        losses.append(loss)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise SystemExit(f"runtime: the loss did not fall with finite values: {losses}")
+    del params
+    mca_var.unset("coll_monitoring_enable")
+
+    # ULFM on CUDA tensors
+    rv = world.dup(name="rv")
+    rv.set_errhandler(errh.ERRORS_RETURN)
+    rv.allreduce(one)
+    rv.revoke()
+    try:
+        rv.allreduce(one)
+        raise SystemExit("an allreduce on a revoked communicator did not raise")
+    except errors.Revoked as e:
+        print(f"revoked: allreduce raised Revoked ({e})")
+    shrunk = rv.shrink(failed=[])
+    got = shrunk.allreduce(torch.full((4,), 2.0, device="cuda")).tolist()
+    agreed = (rv.agree(True), shrunk.agree(True), shrunk.agree(False))
+    print(f"shrink(failed=[]): allreduce {got}, revoked {shrunk.is_revoked()}; "
+          f"agree True/True/False on revoked/shrunk/shrunk: {agreed}")
+    if got != [2.0] * 4 or shrunk.is_revoked() or agreed != (True, True, False):
+        raise SystemExit("shrink or agree went wrong on CUDA tensors")
+
+    # the device probe
+    probes = {}
+    t0 = time.perf_counter()
+    kind, detail = mesh_mod.probe_device_plane()
+    probes["ok"] = (kind, detail, time.perf_counter() - t0)
+    for wedge in ("all", str(world.rank)):
+        t0 = time.perf_counter()
+        env = dict(os.environ, ZMPI_DEVICE_WEDGE=wedge)
+        kind, detail = mesh_mod.probe_device_plane(timeout=30, deadline=12, env=env,
+                                                   rank=world.rank)
+        probes[f"wedge={wedge}"] = (kind, detail, time.perf_counter() - t0)
+    print(json.dumps({"device_probe": probes, "card": card_line}))
+    if probes["ok"][0] != "ok":
+        raise SystemExit(f"probe_device_plane() did not answer: {probes['ok']}")
+    print(f"device probe: ok in {probes['ok'][2]} s; the child's seconds by stage "
+          f"{json.loads(probes['ok'][1])['seconds']}")
+    for key, (kind, _, secs) in probes.items():
+        if key != "ok" and (kind not in ("deadline", "hung") or secs > 35):
+            raise SystemExit(f"the wedged probe ({key}) was not caught: {kind}")
+
+    # the bench, on fresh communicators with monitoring off
+    b_dp, b_tp = bench.mesh_comms()
+    name = bench.card_name(torch.cuda.current_device())
+    peak, known = bench.card_peak(name)
+    t0 = time.perf_counter()
+    result = bench.run(b_dp, b_tp, peak, known)
+    result["card"] = card_line
+    result["bench_s"] = time.perf_counter() - t0
+    print(json.dumps({"bench": result}))
+    for r in (result, result["remat_off"]):
+        print(f"bench remat={r is result}: framework {r['step_ms']} ms "
+              f"({r['value']} tokens/s), plain {r['plain_step_ms']} ms "
+              f"({r['plain_tokens_per_s']} tokens/s), vs_baseline "
+              f"{r['vs_baseline']}, mfu {r['mfu']} on {card_line}")
+        if not (math.isfinite(r["vs_baseline"]) and 0 < r["mfu"] < 1 and known):
+            raise SystemExit("the bench's measurement is not sane")
+    # one long-context step (the bench's configuration) between counts
+    lc_cfg = tfm.Config(**{**HEADLINE, "seq": bench.LONG_CONTEXT["seq"]},
+                        dtype=torch.bfloat16, ce_chunk=CE_CHUNK, remat=True)
+    lc_step, _ = tfm.make_train_step(lc_cfg, b_dp, b_tp, lr=bench.LR)
+    lc_params, lc_tok, lc_tgt = _train_inputs(torch, np, tfm, lc_cfg,
+                                              batch=bench.LONG_CONTEXT["batch"])
+    for fn in counted.values():
+        fn.launches = 0
+    _, lc_loss = lc_step(lc_params, lc_tok, lc_tgt)
+    lc_loss = float(lc_loss)
+    lc_launches = {name: fn.launches for name, fn in counted.items()}
+    lc_want = {"layernorm_fwd": 4 * L + 1, "layernorm_bwd": 2 * L + 1,
+               "flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+               "flash_attention_bwd_dkv": L}
+    print(f"long-context step (seq {lc_cfg.seq}, batch {bench.LONG_CONTEXT['batch']}, "
+          f"remat): loss {lc_loss}, launches {lc_launches} (expected {lc_want})")
+    if lc_launches != lc_want or not math.isfinite(lc_loss):
+        raise SystemExit("the long-context step did not launch the kernels as expected")
+    del lc_params
+    print(f"bench long context: seq {result['long_ctx_seq']}, "
+          f"{result['long_ctx_step_ms']} ms, {result['long_ctx_tokens_per_s']} "
+          f"tokens/s, mfu {result['long_ctx_mfu']} on {card_line}")
+
+    fin_err = io.StringIO()
+    with contextlib.redirect_stderr(fin_err):
+        rt.finalize()
+    for ln in fin_err.getvalue().splitlines():
+        if "comm_method" in ln:
+            print(f"hook: {ln}")
+    mca_var.unset("hook_comm_method_enable")
+    if dist.is_initialized() or not rt.is_finalized():
+        raise SystemExit("finalize() left the process group up")
+    return launches, lc_launches, {"init_ms": init_ms,
+                                   "allreduce_calls_per_step": want_calls,
+                                   "bench": result}
+
+
+def bench_after_profiling(torch, tfm, dp_comm, tp_comm, runtime, card_line):
+    """The bench's remat-off pair once more, in this process after the
+    profiled phases, beside phase 5's reading taken before them: how much
+    the process's history moves the host-bound step."""
+    from zhpe_ompi_tpu_torch import bench
+
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    peak, known = bench.card_peak(bench.card_name(torch.cuda.current_device()))
+    late = bench.measure_pair(cfg, dp_comm, tp_comm, BATCH, peak, known)
+    early = runtime["bench"]["remat_off"]
+    print(f"bench remat off after the profiled phases: framework {late['step_ms']} ms, "
+          f"plain {late['plain_step_ms']} ms, vs_baseline {late['vs_baseline']} "
+          f"(before them: {early['step_ms']}, {early['plain_step_ms']}, "
+          f"{early['vs_baseline']}) on {card_line}")
+    return {k: late[k] for k in ("step_ms", "plain_step_ms", "vs_baseline",
+                                 "pair_ratios")}
 
 
 def check_ring_recurrence(torch, ra):
@@ -1102,18 +1319,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     args = sys.argv[1:]
+    bench_after = args == ["--bench-after"]
+    if bench_after:
+        args = []
     if args and args[0] == "--compare-host-us" and len(args) in (2, 3):
         result = compare_host_us(args[1], int(args[2]) if len(args) == 3 else 10)
         print(json.dumps({"host_us_pairs": result, "card": _card_line()}))
         return 0
     if args and (args[0] != "--wrapper-host-us" or len(args) != 2):
-        print("usage: chip_smoke.py [--wrapper-host-us PORT_ROOT | "
-              "--compare-host-us OTHER_ROOT [PAIRS]]", file=sys.stderr)
+        print("usage: chip_smoke.py [--bench-after | --wrapper-host-us PORT_ROOT "
+              "| --compare-host-us OTHER_ROOT [PAIRS]]", file=sys.stderr)
         return 2
     if args:
         # the wrappers' and the communicator's host cost of the port found
         # under PORT_ROOT (for example an unpacked older commit), on this card
         sys.path.insert(0, os.path.abspath(args[1]))
+        _take_widths()
         import torch.distributed as dist
 
         import zhpe_ompi_tpu_torch as zmpi
@@ -1125,6 +1346,7 @@ def main() -> int:
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    _take_widths()
     import numpy as np
     import torch.distributed as dist
     import torch.nn.functional as F
@@ -1169,6 +1391,10 @@ def main() -> int:
         elif k["name"] == "flash_attention_bwd_dkv":
             k["host_us_per_call"] = host_us["flash_bwd_dkv"]
 
+    # the MPI entry point first: no process group is up yet, and the bench
+    # it runs times steps in a process no profiler session has touched
+    rt_launches, lc_launches, runtime = drive_runtime(torch, np, dist, tfm, fused_norm,
+                                                      fa, card_line)
     with tempfile.TemporaryDirectory() as store_dir:
         dist.init_process_group(
             "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
@@ -1196,6 +1422,8 @@ def main() -> int:
                 torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, steady)
             sp = drive_sp(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, sp_comm,
                           flash_loss)
+            late = (bench_after_profiling(torch, tfm, dp_comm, tp_comm, runtime,
+                                          card_line) if bench_after else None)
         finally:
             dist.destroy_process_group()
     for k in kernels:
@@ -1204,7 +1432,9 @@ def main() -> int:
         k["launches_by_path"] = {
             "forward": fwd_launches[k["name"]] // (2 * N_BATCHES),
             "train": launches[k["name"]], "remat": remat_launches[k["name"]],
-            **{label: sp[label][0][k["name"]] for label in sp}}
+            **{label: sp[label][0][k["name"]] for label in sp},
+            "runtime": rt_launches[k["name"]],
+            "long_context": lc_launches[k["name"]]}
     steps = {"train": steady, "remat": remat_steady,
              **{label: sp[label][1] for label in sp}}
     print(json.dumps({"steps": steps, "card": card_line}))
@@ -1212,7 +1442,8 @@ def main() -> int:
                       "forward_s": t_fwd, "loss_fn_s": t_loss,
                       "train_step_median_ms": steady["median_ms"],
                       "ring_recurrence": ring, "collectives_checked": checked,
-                      "allreduce_host_us_per_call": allreduce_host}))
+                      "allreduce_host_us_per_call": allreduce_host,
+                      "runtime": runtime, "bench_after_profiling": late}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -381,6 +381,158 @@ def _sp_train(rank, world, out, workdir):
     out["at"] = np.array([at["dp"], at["tp"], at["sp"]])
 
 
+# -- runtime, communicator construction and mesh (slice 6) -------------------
+
+# (name, colors, keys) of the split checks; the JAX side reads the same table
+SPLIT_CASES = [
+    ("even_odd", [0, 1, 0, 1], None),
+    ("keys_reversed", [0, 0, 1, 1], [3, 2, 1, 0]),
+    ("uneven", [2, 2, 2, 5], [0, 1, 2, 3]),
+    ("one_group_keys", [0, 0, 0, 0], [1, 1, 0, 0]),
+]
+# (name, contributions, failed) of the agree checks
+AGREE_CASES = [
+    ("dead_false_ignored", [1, 1, 0, 1], [2]),
+    ("live_false", [1, 0, 1, 1], [2]),
+    ("all_true", [1, 1, 1, 1], []),
+]
+SHRINK_FAILED = [2]
+CREATE_GROUP = [1, 3]
+
+
+def flat_partition(partition):
+    """A partition as one int array, its groups separated by -1."""
+    out = []
+    for g in partition:
+        out.extend(g.ranks)
+        out.append(-1)
+    return np.array(out)
+
+
+def _comm_facts(comm, prefix, rank, out):
+    out[f"{prefix}_ranks"] = np.array(comm.group.ranks)
+    out[f"{prefix}_rank"] = np.array(comm.rank)
+    out[f"{prefix}_partition"] = flat_partition(comm.partition)
+    out[f"{prefix}_sum"] = comm.allreduce(torch.tensor([rank + 1.0])).numpy()
+
+
+def _split(rank, world, out):
+    """C1 (dups of disjoint sub-communicators), split/create_from_group/
+    split_type/shrink/agree against the JAX package's tables, revoke seen
+    by every rank."""
+    import time
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.comm.group import Group
+    from zhpe_ompi_tpu_torch.core import errhandler as errh
+    from zhpe_ompi_tpu_torch.core import errors
+    from zhpe_ompi_tpu_torch.runtime import init as rt
+
+    # C1: each rank dups its own half, twice; the dups must not meet
+    halves = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    own = zmpi.Communicator(halves[rank // 2], name="half")
+    d1, d2 = own.dup(), own.dup()
+    x = torch.tensor([rank + 1.0])
+    out["c1_dup1"] = d1.allreduce(x).numpy()
+    out["c1_dup2"] = d2.allreduce(x).numpy()
+    out["c1_dup1_again"] = d1.allreduce(x * 10).numpy()
+    # wrapping a group is local: an extra wrapper on rank 0 alone must not
+    # shift the names of a later wrapper's dup (which would hang)
+    if rank == 0:
+        zmpi.Communicator(halves[0], name="diagnostic")
+    late = zmpi.Communicator(halves[rank // 2], name="late")
+    out["c1_after_extra_wrapper"] = late.dup().allreduce(x).numpy()
+
+    world_comm = rt.init(device="cpu")  # adopts this process group
+    for name, colors, keys in SPLIT_CASES:
+        _comm_facts(world_comm.split(colors, keys), name, rank, out)
+    _comm_facts(world_comm.create_from_group(Group(CREATE_GROUP)), "create",
+                rank, out)
+    _comm_facts(world_comm.split_type("shared"), "shared", rank, out)
+    _comm_facts(world_comm.shrink(failed=SHRINK_FAILED), "shrink", rank, out)
+    out["run"] = world_comm.run(lambda v: world_comm.allreduce(v) * 2,
+                                torch.arange(8.0)).numpy()
+    out["put"] = world_comm.device_put_sharded(np.arange(8.0)).numpy()
+
+    # revoke: rank 0 revokes a dup; every rank must see it and raise
+    rv = world_comm.dup(name="rv")
+    rv.set_errhandler(errh.ERRORS_RETURN)
+    rv.barrier()
+    t0 = time.monotonic()
+    if rank == 0:
+        rv.revoke()
+    while not rv.is_revoked() and time.monotonic() - t0 < 10.0:
+        time.sleep(0.01)
+    out["revoke_seen_s"] = np.array(time.monotonic() - t0)
+    out["revoke_seen"] = np.array(rv.is_revoked())
+    try:
+        rv.allreduce(x)
+        out["revoke_raised"] = np.array(False)
+    except errors.Revoked:
+        out["revoke_raised"] = np.array(True)
+
+    # agree last: a rank named failed takes no further part
+    for name, contributions, failed in AGREE_CASES:
+        if rank in failed:
+            continue
+        out[f"agree_{name}"] = np.array(world_comm.agree(
+            bool(contributions[rank]), failed=failed))
+        out[f"agree_{name}_table"] = np.array(world_comm.agree(
+            True, contributions=contributions, failed=failed))
+    world_comm.barrier()
+    rt.finalize()
+
+
+def _runtime(rank, world, out):
+    """runtime.init through torchrun's environment contract."""
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.runtime import init as rt
+    from zhpe_ompi_tpu_torch.runtime import spc
+
+    out["before"] = np.array(rt.initialized())
+    w = rt.init(device="cpu")  # WORLD_SIZE > 1: joins without being told
+    out["idempotent"] = np.array(rt.init(device="cpu") is w)
+    out["world"] = np.array([w.rank, w.size])
+    out["world_sum"] = w.allreduce(torch.tensor([rank + 1.0])).numpy()
+    cs = rt.comm_self()
+    out["self"] = np.array([cs.rank, cs.size, len(cs.partition), cs.uniform_size])
+    out["self_sum"] = cs.allreduce(torch.tensor([rank + 1.0])).numpy()
+    out["mesh"] = rt.world_mesh().mesh.numpy()
+    out["init_count"] = np.array(spc.read("init_count"))
+    out["is_zmpi_world"] = np.array(isinstance(w, zmpi.Communicator))
+    rt.finalize()
+    out["after"] = np.array([rt.initialized(), rt.is_finalized(),
+                             dist.is_initialized()])
+
+
+def _mesh(rank, world, out):
+    """make_mesh's groups against _groups' (the layout make_train_step
+    uses), world_mesh, and survivor_mesh's layouts."""
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.parallel import mesh as mesh_mod
+
+    dims = MESH_DIMS[world]
+    mesh = mesh_mod.make_mesh(dims)
+    comms, at = _groups(rank, dims)
+    for name in dims:
+        pg = mesh.get_group(name)
+        out[f"mesh_{name}"] = np.array(dist.get_process_group_ranks(pg))
+        out[f"groups_{name}"] = np.array(comms[name].group.ranks)
+        c = zmpi.Communicator(pg, name=name)
+        out[f"sum_{name}"] = c.allreduce(torch.tensor([rank + 1.0])).numpy()
+    out["coord"] = np.array(mesh.get_coordinate())
+    out["at"] = np.array([at[n] for n in dims])
+    out["world_mesh"] = mesh_mod.world_mesh().mesh.numpy()
+    for axis, failed in SURVIVOR_CASES[world]:
+        out[f"survivor_{axis}"] = mesh_mod.survivor_mesh(
+            mesh, failed, axis).mesh.numpy()
+
+
+MESH_DIMS = {4: {"dp": 2, "tp": 2}, 8: {"dp": 2, "tp": 2, "sp": 2}}
+SURVIVOR_CASES = {4: [("dp", [1]), ("tp", [0])],
+                  8: [("dp", [0]), ("tp", [1]), ("sp", [0])]}
+
+
 def run_ranks(mode: str, world: int, workdir, env=None, timeout: float = 120):
     """Start ``world`` ranks of this script in ``workdir`` and wait for them
     (each join bounded by ``timeout``).  Returns ``[(rc, output), ...]``
@@ -416,6 +568,14 @@ def run_ranks(mode: str, world: int, workdir, env=None, timeout: float = 120):
 def main() -> int:
     mode, rank, world, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if mode == "runtime":
+        # the runtime joins from torchrun's environment contract itself
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank))
+        out = {}
+        _runtime(rank, world, out)
+        np.savez(os.path.join(workdir, f"out{rank}.npz"), **out)
+        return 0
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
         rank=rank, world_size=world)
@@ -438,6 +598,10 @@ def main() -> int:
             _ring(comm, rank, world, out)
         elif mode == "sp_train":
             _sp_train(rank, world, out, workdir)
+        elif mode == "split":
+            _split(rank, world, out)
+        elif mode == "mesh":
+            _mesh(rank, world, out)
         elif mode == "select":
             out["coll_components"] = np.array(
                 sorted({c for _, c in comm.coll.values()}))

@@ -6,21 +6,29 @@ never jax, and nothing of ``zhpe_ompi_tpu``.  The kernels the JAX package
 wrote in Pallas for the TPU are hand-written CUDA here (``csrc/``), built
 by ``nvcc`` on first use.
 
-It carries the flagship transformer's forward pass and training step
-(tensor, data and sequence parallelism, remat) through the framework
-communicator, whose collectives compose ``coll/tuned`` over the
-algorithm layer and the process group's native collectives::
+It carries the MPI entry point (``init``/``finalize``, COMM_WORLD and
+COMM_SELF, the world mesh, the hooks), communicator construction
+(``dup``, ``split``, ``create_from_group``) and the ULFM methods
+(``revoke``, ``shrink``, ``agree``), and the flagship transformer's forward
+pass and training step (tensor, data and sequence parallelism, remat)
+through the framework communicator, whose collectives compose
+``coll/tuned`` over the algorithm layer and the process group's native
+collectives::
 
-    import torch.distributed as dist
     import zhpe_ompi_tpu_torch as zmpi
     from zhpe_ompi_tpu_torch.models import transformer as tfm
 
-    dist.init_process_group("nccl", ...)
-    tp_comm = zmpi.Communicator()              # the world group
+    world = zmpi.init()          # joins torchrun's job when WORLD_SIZE > 1,
+                                 # else a one-rank NCCL world
+    mesh = zmpi.mesh.make_mesh({"dp": world.size, "tp": 1})
+    dp_comm = zmpi.Communicator(mesh.get_group("dp"))
+    tp_comm = zmpi.Communicator(mesh.get_group("tp"))
     params = tfm.params_from_numpy(np_params, cfg)   # on CUDA
-    logits = tfm.forward(params, tokens, cfg, tp_comm=tp_comm)
+    step, _ = tfm.make_train_step(cfg, dp_comm, tp_comm)
+    params, loss = step(params, tokens, targets)
+    zmpi.finalize()
 
-``init``/``host_init`` need the runtime layer and are not ported yet.
+``host_init`` needs the host plane (``pt2pt/tcp.py``) and is not ported yet.
 """
 
 from . import ops
@@ -30,6 +38,17 @@ from .core import errors
 from .mca import component as mca_component
 from .mca import output as mca_output
 from .mca import var as mca_var
+from .parallel import mesh
+from .runtime import spc
+from .runtime.init import (
+    comm_self,
+    finalize,
+    init,
+    initialized,
+    is_finalized,
+    world,
+    world_mesh,
+)
 from .ops import (
     BAND,
     BOR,
@@ -49,7 +68,8 @@ from .ops import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "Communicator", "Group", "ops", "errors", "mca_var", "mca_component",
+    "init", "finalize", "initialized", "is_finalized", "world", "comm_self",
+    "world_mesh", "mesh", "spc", "Communicator", "Group", "ops", "errors", "mca_var", "mca_component",
     "mca_output", "SUM", "MAX", "MIN", "PROD", "LAND", "LOR", "LXOR", "BAND",
     "BOR", "BXOR", "MAXLOC", "MINLOC", "create_op",
 ]

@@ -9,9 +9,9 @@ a per-communicator module; the communicator's collective table then takes each
 Three components, as in the JAX package: ``tuned`` (priority 50, the
 decision layer over ``coll/algorithms.py``), ``nccl`` (40, the counterpart
 of the JAX package's ``coll/tpu``: the process group's native collectives,
-and ``tuned``'s ``xla`` route) and ``basic`` (10, linear algorithms).  The
-monitoring interposition needs ``coll/monitoring.py``, which a later slice
-ports.
+and ``tuned``'s ``xla`` route) and ``basic`` (10, linear algorithms).  When
+``coll_monitoring_enable`` is set, ``coll/monitoring.py`` wraps every entry
+of the composed table, whichever component won it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,9 +65,11 @@ def coll_framework() -> mca_component.Framework:
     from .nccl import NcclCollComponent
     from .tuned import TunedCollComponent
 
-    return mca_component.build_framework(
+    fw = mca_component.build_framework(
         "coll", "collective operations",
         [NcclCollComponent, TunedCollComponent, BasicCollComponent])
+    fw.open()
+    return fw
 
 
 def comm_select(comm) -> dict[str, tuple[Callable, str]]:
@@ -93,4 +95,13 @@ def comm_select(comm) -> dict[str, tuple[Callable, str]]:
             if fn is not None:
                 table[opname] = (fn, comp.name)
                 break
+    # monitoring interposition (coll/monitoring analog): wrap the composed
+    # table so counters see every call regardless of which component won
+    from . import monitoring
+
+    if monitoring.enabled():
+        table = {
+            opname: (monitoring.wrap(opname, fn, comm.name), comp_name)
+            for opname, (fn, comp_name) in table.items()
+        }
     return table

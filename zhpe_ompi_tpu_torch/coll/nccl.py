@@ -40,6 +40,61 @@ from .framework import CollComponent, CollModule
 
 _NATIVE_BACKENDS = ("nccl", "gloo")
 
+# The one-element all-reduce the device-plane fault loop runs
+# (parallel/mesh.py arms it through utils/deadline.run_probe, which
+# prepends the internal-watchdog preamble, so ``os``, ``sys``, ``time``
+# are in scope): a wedged GPU participant surfaces as an indefinite hang,
+# so the probe lives where it can be killed — a subprocess — and dies from
+# the inside at its deadline even if the outer kill is delayed.  The child
+# makes a one-rank group of its own on the card PROBE_DEVICE_ENV names
+# (NCCL), or on the CPU (gloo) when it says "cpu".  ``ZMPI_DEVICE_WEDGE``
+# is the fault-injection hook: the child wedges INSIDE the collective
+# region, after the group is up and before the all-reduce, so the whole
+# classification ladder is drillable without real hardware loss.
+
+#: wedge-injection hook read by the probe child.  WEDGE_ALL wedges every
+#: probe child of the process; a rank number wedges only probes launched
+#: FOR that rank (PROBE_RANK_ENV).  The all-sentinel is non-numeric, so a
+#: rank-number value never doubles as the process-wide switch.
+WEDGE_ENV = "ZMPI_DEVICE_WEDGE"
+WEDGE_ALL = "all"
+PROBE_RANK_ENV = "ZMPI_PROBE_RANK"
+PROBE_DEVICE_ENV = "ZMPI_PROBE_DEVICE"
+
+PROBE_SRC = (
+    "import json\n"
+    "_t=[time.perf_counter()]\n"
+    "def _lap():\n"
+    "    _t.append(time.perf_counter())\n"
+    "    return _t[-1]-_t[-2]\n"
+    "import torch\n"
+    "import torch.distributed as dist\n"
+    "_s={'import': _lap()}\n"
+    f"_d=os.environ.get({PROBE_DEVICE_ENV!r}, 'cpu')\n"
+    "if _d=='cpu':\n"
+    "    backend, dev = 'gloo', torch.device('cpu')\n"
+    "else:\n"
+    "    backend, dev = 'nccl', torch.device('cuda', int(_d))\n"
+    "    torch.cuda.set_device(dev)\n"
+    "x=torch.ones(1, device=dev)\n"
+    "_s['context']=_lap()\n"
+    "dist.init_process_group(backend, store=dist.HashStore(), rank=0, "
+    "world_size=1)\n"
+    "_s['group']=_lap()\n"
+    f"_w=os.environ.get({WEDGE_ENV!r})\n"
+    f"if _w is not None and _w in ({WEDGE_ALL!r}, os.environ.get("
+    f"{PROBE_RANK_ENV!r}, '')):\n"
+    "    time.sleep(3600)  # the injected wedge: hang mid-collective\n"
+    "dist.all_reduce(x)\n"
+    "total=float(x.item())\n"
+    "_s['allreduce']=_lap()\n"
+    "name=torch.cuda.get_device_name(dev) if dev.type=='cuda' else 'cpu'\n"
+    "dist.destroy_process_group()\n"
+    "_s['destroy']=_lap()\n"
+    "print(json.dumps({'n':1,'backend':backend,'device':name,"
+    "'allreduce':total,'seconds':_s}))\n"
+)
+
 
 def _all_reduce(comm, x, reduce_op):
     if x.dtype == torch.bool:

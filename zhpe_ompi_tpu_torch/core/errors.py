@@ -169,3 +169,68 @@ class NotInitializedError(MpiError):
 
 class UnsupportedError(MpiError):
     errclass = ERR_UNSUPPORTED
+
+
+class ProcFailed(MpiError):
+    """MPIX_ERR_PROC_FAILED: a named peer the operation depends on is dead
+    (the ULFM live-failure path — distinct from a stall/timeout).  Carries
+    the set of global ranks known failed when it was raised."""
+
+    errclass = ERR_PROC_FAILED
+
+    def __init__(self, message: str = "", failed_ranks=(),
+                 errclass: int | None = None):
+        super().__init__(message, errclass)
+        self.failed_ranks = tuple(sorted(int(r) for r in failed_ranks))
+
+
+class ProcFailedPending(ProcFailed):
+    """MPIX_ERR_PROC_FAILED_PENDING: a wildcard (ANY_SOURCE) receive
+    cannot complete because an unacknowledged failure means the awaited
+    sender may be dead.  ``failure_ack`` re-enables wildcard receives
+    (the ULFM pending contract)."""
+
+    errclass = ERR_PROC_FAILED_PENDING
+
+
+class DeviceFault(ProcFailed):
+    """ZMPIX_ERR_DEVICE_FAULT: a device-plane participant missed its
+    liveness deadline — the device-plane twin of :class:`ProcFailed`
+    (a subclass, so every host-plane recovery path that catches typed
+    process failure recovers device faults too).  Carries the probe's
+    structured outcome (``kind`` in "hung"/"deadline"/"error") so a
+    postmortem can tell an outer kill from an internal watchdog expiry."""
+
+    errclass = ERR_DEVICE_FAULT
+
+    def __init__(self, message: str = "", failed_ranks=(),
+                 kind: str = "deadline"):
+        super().__init__(message, failed_ranks)
+        self.kind = str(kind)
+
+
+class PlacementViolation(InternalError):
+    """A multi-tenant placement audit failed: two live jobs on one DVM
+    tree were caught sharing state that the tenancy contract requires
+    disjoint — sm-segment session prefixes, PMIx namespaces, or (for
+    exclusive placements) daemon subtrees.  Typed so the daemon can
+    count it (``dvm_placement_audit_failures``) and fail the offending
+    launch loudly rather than let two tenants corrupt each other.
+    Carries the two job ids and which property collided."""
+
+    def __init__(self, message: str = "", jobs=(),
+                 prop: str = "unknown"):
+        super().__init__(message)
+        self.jobs = tuple(str(j) for j in jobs)
+        self.prop = str(prop)
+
+
+class Revoked(MpiError):
+    """MPIX_ERR_REVOKED: the communicator (cid) was revoked — every
+    pending and future operation on it must raise on all live ranks."""
+
+    errclass = ERR_REVOKED
+
+    def __init__(self, message: str = "", cid: int = -1):
+        super().__init__(message)
+        self.cid = cid

@@ -20,7 +20,7 @@ class Info:
     """MPI_Info: ordered string->string hints."""
 
     # The singleton "no info" object (MPI_INFO_NULL analog) is module-level
-    # NULL below.
+    # NULL below; MPI_INFO_ENV is create_env().
 
     def __init__(self, items: dict[str, str] | None = None):
         self._kv: dict[str, str] = {}
@@ -94,3 +94,15 @@ def coerce(info) -> Info:
     if isinstance(info, dict):
         return Info({k: str(v) for k, v in info.items()})
     raise errors.ArgError(f"expected Info/dict/None, got {type(info)}")
+
+
+def create_env() -> Info:
+    """MPI_INFO_ENV analog: execution-environment facts."""
+    import os
+    import sys
+
+    info = Info()
+    info.set("command", sys.argv[0] if sys.argv else "")
+    info.set("maxprocs", os.environ.get("ZMPI_MAXPROCS", "1"))
+    info.set("arch", sys.platform)
+    return info

@@ -61,6 +61,11 @@ class Datatype:
     def ub(self) -> int:
         return self.lb + self.extent
 
+    def typemap(self) -> list[tuple[torch.dtype, int]]:
+        """Flattened (basic ``torch.dtype``, byte displacement) list for ONE
+        element."""
+        raise NotImplementedError
+
     @property
     def is_contiguous(self) -> bool:
         """True when one element's payload is a single gap-free run and
@@ -87,6 +92,9 @@ class BasicDatatype(Datatype):
     def extent(self) -> int:
         return self.size
 
+    def typemap(self):
+        return [(self.torch_dtype, 0)]
+
     @property
     def is_contiguous(self) -> bool:
         return True
@@ -110,6 +118,10 @@ class PairDatatype(Datatype):
     @property
     def extent(self) -> int:
         return self.size
+
+    def typemap(self):
+        return [(self.value_dtype, 0),
+                (self.index_dtype, _itemsize(self.value_dtype))]
 
     @property
     def is_contiguous(self) -> bool:
@@ -184,3 +196,18 @@ def from_torch_dtype(dt: torch.dtype) -> BasicDatatype:
     if dt not in _BY_DTYPE:
         raise KeyError(f"no predefined datatype for torch dtype {dt}")
     return _BY_DTYPE[dt]
+
+
+def from_np_dtype(dt) -> BasicDatatype:
+    """Map a numpy dtype (or a dtype name such as ``"bfloat16"``, which
+    numpy knows only through ml_dtypes) to the canonical predefined basic
+    type."""
+    import numpy as np
+
+    if str(dt) == "bfloat16" or getattr(dt, "__name__", None) == "bfloat16":
+        return BFLOAT16
+    try:
+        t = torch.from_numpy(np.empty(0, dtype=np.dtype(dt))).dtype
+    except TypeError:
+        raise KeyError(f"no predefined datatype for numpy dtype {dt}") from None
+    return from_torch_dtype(t)

@@ -27,6 +27,7 @@ time, the analog of DSO component discovery
 from __future__ import annotations
 
 import threading
+from typing import Any
 
 from ..core import errors
 from . import output as mca_output
@@ -42,6 +43,8 @@ class Component:
     name: str = ""
     #: Default selection priority; overridable via <fw>_<name>_priority.
     default_priority: int = 0
+    #: Version triple for introspection (ompi_info analog).
+    version: tuple[int, int, int] = (1, 0, 0)
 
     def __init__(self) -> None:
         self._priority_var = mca_var.register(
@@ -54,6 +57,9 @@ class Component:
     @property
     def priority(self) -> int:
         return int(mca_var.get(self._priority_var.name, self.default_priority))
+
+    def register_params(self) -> None:
+        """Register this component's MCA variables (called at framework open)."""
 
     def available(self) -> bool:
         """Hardware/environment probe; False removes the component from
@@ -95,6 +101,7 @@ class Framework:
         self.description = description
         self._components: dict[str, Component] = {}
         self._lock = threading.RLock()
+        self._opened = False
         self._stream = mca_output.open_stream(name)
         self._select_var = mca_var.register(
             name,
@@ -113,6 +120,18 @@ class Framework:
                 10, self._stream, "registered component %s", component.name
             )
             return component
+
+    def open(self) -> None:
+        with self._lock:
+            if self._opened:
+                return
+            for comp in self._components.values():
+                comp.register_params()
+            self._opened = True
+
+    def close(self) -> None:
+        with self._lock:
+            self._opened = False
 
     def components(self) -> list[Component]:
         with self._lock:
@@ -139,6 +158,18 @@ class Framework:
         out.sort(key=lambda c: -c.priority)
         return out
 
+    def select_one(self) -> Component:
+        """Select exactly one component (the pml-style exclusive selection,
+        ``mca_pml_base_select``)."""
+        adm = self.admitted()
+        if not adm:
+            raise errors.InternalError(
+                f"no available component in framework {self.name!r}"
+            )
+        winner = adm[0]
+        mca_output.verbose(1, self._stream, "selected component %s", winner.name)
+        return winner
+
 
 class FrameworkRegistry:
     def __init__(self) -> None:
@@ -153,6 +184,10 @@ class FrameworkRegistry:
                 self._frameworks[name] = fw
             return fw
 
+    def all_frameworks(self) -> list[Framework]:
+        with self._lock:
+            return sorted(self._frameworks.values(), key=lambda f: f.name)
+
 
 registry = FrameworkRegistry()
 framework = registry.framework
@@ -161,10 +196,34 @@ framework = registry.framework
 def build_framework(name: str, description: str,
                     component_factories) -> Framework:
     """Memoized framework construction: the first call registers the
-    components (built from the zero-arg factories); later calls return
-    the populated framework without reconstructing anything."""
+    components (built from the zero-arg factories); later calls return the
+    populated framework without reconstructing anything.  The caller
+    opens it, as the ``<fw>_framework()`` helpers do."""
     fw = registry.framework(name, description)
     if not fw.components():
         for factory in component_factories:
             fw.register(factory())
     return fw
+
+
+def info() -> list[dict[str, Any]]:
+    """Introspection dump (the ompi_info analog): every framework with
+    its components' priority, version and availability."""
+    out = []
+    for fw in registry.all_frameworks():
+        out.append(
+            {
+                "framework": fw.name,
+                "description": fw.description,
+                "components": [
+                    {
+                        "name": c.name,
+                        "priority": c.priority,
+                        "version": ".".join(map(str, c.version)),
+                        "available": c.available(),
+                    }
+                    for c in fw.components()
+                ],
+            }
+        )
+    return out

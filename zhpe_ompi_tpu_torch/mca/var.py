@@ -145,6 +145,13 @@ class VarRegistry:
             self._override_values = self._read_param_file(OVERRIDE_FILE)
         return self._override_values
 
+    def reload_files(self) -> None:
+        """Drop the cached file layers (used by tests)."""
+        with self._lock:
+            self.generation += 1
+            self._file_values = None
+            self._override_values = None
+
     # -- registration ----------------------------------------------------
 
     def register(
@@ -242,6 +249,19 @@ class VarRegistry:
             if ovr_val is not None:
                 var._value, var._source = var.validate(ovr_val), VarSource.OVERRIDE
 
+    def all_vars(self) -> list[MCAVar]:
+        with self._lock:
+            return sorted(self._vars.values(), key=lambda v: v.name)
+
+    def reset(self) -> None:
+        """Forget everything (test isolation only)."""
+        with self._lock:
+            self.generation += 1
+            self._vars.clear()
+            self._pending_api.clear()
+            self._file_values = None
+            self._override_values = None
+
 
 #: The process-global registry, like the reference's single var system.
 registry = VarRegistry()
@@ -251,3 +271,46 @@ get = registry.get
 lookup = registry.lookup
 set_var = registry.set
 unset = registry.unset
+
+
+# -- framework prefix table (category derivation) ---------------------------
+#
+# Variables are named <framework>_<component>_<param>, but a bare
+# first-`_`-segment split cannot tell `coll_han_enable` (framework coll,
+# component han) from `collective_thing`.  Subsystems therefore register
+# their name prefixes here, next to their var registrations: the category
+# of a name is its longest registered prefix's family, with the first
+# segment as the unregistered fallback.
+
+_family_lock = threading.Lock()
+_families: dict[str, str] = {}
+
+
+def register_family(prefix: str, family: str | None = None) -> None:
+    """Map every name under ``prefix`` (exact, or ``prefix_*``) to
+    ``family`` (default: the prefix itself).  Idempotent; last
+    registration wins (subsystems re-register on re-import)."""
+    with _family_lock:
+        _families[str(prefix)] = str(family if family is not None
+                                     else prefix)
+
+
+def family_of(name: str) -> str:
+    """Family of a var/counter name: the LONGEST registered prefix
+    matching at a ``_`` boundary; unregistered names fall back to their
+    first ``_`` segment."""
+    name = str(name)
+    best: tuple[int, str] | None = None
+    with _family_lock:
+        for prefix, family in _families.items():
+            if name == prefix or name.startswith(prefix + "_"):
+                if best is None or len(prefix) > best[0]:
+                    best = (len(prefix), family)
+    if best is not None:
+        return best[1]
+    return name.split("_", 1)[0]
+
+
+def family_table() -> dict[str, str]:
+    with _family_lock:
+        return dict(_families)
