@@ -95,10 +95,33 @@ Phases, each of which exits non-zero on failure:
    contiguous and then zigzag: no flash launch, 9 layernorm forward and
    backward launches per step, the first loss within 2e-2 of the flash
    path's.
-11. Print one ``{"kernels": [...]}`` line (``launches``: per training
-   step; ``launches_by_path``: per forward, training, remat, sp, runtime
-   and long-context step), the card's line, and last ``{"ok": true, "device":
-   {...}}``.
+11. The Adam step at the same width: ``make_train_step_optax`` (foreach
+   ``torch.optim.Adam`` with optax's defaults) over ``dp_comm`` and
+   ``tp_comm``, three steps on one batch, each between launch counts
+   (9/9/4/4/4); the same three steps through the plain versions must agree
+   in loss and in each parameter's first moment (``ADAM_UPDATE``); then the
+   steady step time, tokens/s and peak memory beside the SGD step's, and
+   ADAM_SGD_TURNS alternating turns of one synchronised SGD and one Adam
+   step (both in the same process state).
+12. Checkpoint and resume: after the second Adam step, ``Checkpointer.save``
+   of the parameters and ``optimizer.state_dict()`` (704,753,664 bytes of
+   f32) into a temporary directory, written in the background, then
+   ``wait``; after the live third step, ``restore`` into fresh tensors and a
+   fresh optimizer, whose third step must equal the live one in its bits.
+   Snapshot, write and restore ms and the bytes on disk are printed; the
+   directory is removed.
+13. ``moe_ffn`` on 8192 tokens of d_model 1024 and d_ff 4096 (f32, capacity
+   1.25, ep 1 over a one-rank NCCL communicator) against
+   ``moe_reference_dense`` (``MOE_REL_TOL``), and ``pipeline_apply`` of
+   ``t @ w + 1`` (D 1024, 4 microbatches) against the sequential loop.
+14. At one rank on CUDA tensors: ``DeviceWindow`` put, get and accumulate,
+   a ``DeviceHeap`` put and fetch-add epoch, ``neighbor_allgather`` on a
+   periodic (1,) cart, and ``device_pack``/``device_unpack`` of a vector
+   type on a 64 MiB tensor against the host convertor, with µs and GB/s.
+15. Print one ``{"kernels": [...]}`` line (``launches``: per training
+   step; ``launches_by_path``: per forward, training, remat, sp, runtime,
+   long-context and Adam step), the card's line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
@@ -119,7 +142,7 @@ quartiles of every number.  PORT_ROOT and OTHER_ROOT must hold the port's
 
     python3 chip_smoke.py --bench-after
 
-runs every phase, and after phase 10 the bench's remat-off pair once more,
+runs every phase, and after phase 14 the bench's remat-off pair once more,
 in this process after the profiled phases, beside phase 5's reading.
 """
 
@@ -206,6 +229,29 @@ RING_BLOCKS = 4
 # rounds of the in-process comparison of allreduce's host cost with and
 # without tuned
 HOST_US_TURNS = 10
+# Adam: counted steps (the checkpoint is taken after the one before last).
+# ADAM_UPDATE: the Adam steps are held to the plain path's by their losses
+# (TRAIN_LOSS_TOL) and by each parameter's first moment, the running mean of
+# the gradients each path computed (UPDATE_REL_TOL, the train phase's bound
+# on lr * g).  The parameter update itself is printed, not gated: Adam moves
+# each element by about lr * m / sqrt(v), +-lr whatever the gradient's size,
+# so an element whose gradient is smaller than the two paths' difference
+# moves +lr on one and -lr on the other.  On an H100 the updates after three
+# steps differed by 0.043-0.071 (relative Frobenius norm) while the losses
+# agreed within 1e-4.
+ADAM_STEPS = 3
+# turns of the alternating Adam-against-SGD step timing
+ADAM_SGD_TURNS = 8
+# - moe_ffn at ep 1 against moe_reference_dense: the same f32 products (TF32
+#   off), the dispatch path's on a capacity-padded buffer, so cuBLAS may sum
+#   the d_model and d_ff terms in another order: 1e-4 of the largest |y|.
+MOE_TOKENS = 8192
+MOE_REL_TOL = 1e-4
+# pipeline_apply: microbatches and their rows (at one stage the pipeline is
+# the stage over each microbatch: the same products, compared exactly)
+PIPE_M, PIPE_MB = 4, 2048
+# device_pack's source tensor (f32), of which a vector type packs half
+PACK_BYTES = 64 << 20
 RING_TOL = 2e-2
 
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
@@ -921,6 +967,257 @@ def drive_sp(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, sp_comm, flash_lo
     return out
 
 
+def _adam_steps(torch, step, params, opt, tokens, targets, n, counted=None, want=None,
+                label="adam"):
+    """``n`` Adam steps (in place), each between launch counts set to 0 just
+    before and read just after when ``counted`` is given; the losses and the
+    last step's launches."""
+    losses, launches = [], None
+    for i in range(n):
+        if counted is not None:
+            for fn in counted.values():
+                fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, targets)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if counted is not None:
+            launches = {name: fn.launches for name, fn in counted.items()}
+            print(f"{label} step: loss {loss} in {dt * 1e3} ms, launches {launches} "
+                  f"(expected {want})")
+            if launches != want:
+                raise SystemExit(f"an {label} step did not launch the kernels as expected")
+        losses.append(loss)
+    return losses, launches
+
+
+def _turns_vs_sgd(torch, tfm, cfg, dp_comm, tp_comm, adam_step, params, params0, tokens,
+                  targets, card_line):
+    """The Adam step against the SGD step in ADAM_SGD_TURNS alternating turns
+    (SGD first in even turns), each step synchronised: both read the same
+    host and the same process history, which the steady phases, run at
+    other times, do not."""
+    sgd_step, _ = tfm.make_train_step(cfg, dp_comm, tp_comm, lr=TRAIN_LR)
+    state = {"sgd": {k: v.clone() for k, v in params0.items()}, "adam": params}
+    steps = {"sgd": sgd_step, "adam": adam_step}
+    ms = {"sgd": [], "adam": []}
+    for name in ("sgd", "adam"):  # warm-up
+        state[name], _ = steps[name](state[name], tokens, targets)
+    for i in range(ADAM_SGD_TURNS):
+        for name in (("sgd", "adam") if i % 2 == 0 else ("adam", "sgd")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state[name], _ = steps[name](state[name], tokens, targets)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    ratios = sorted(a / b for a, b in zip(ms["adam"], ms["sgd"]))
+    out = {"sgd": _quartiles(ms["sgd"]), "adam": _quartiles(ms["adam"]),
+           "adam_over_sgd_median": ratios[len(ratios) // 2], "ratios": ratios}
+    print(json.dumps({"adam_vs_sgd_turns": out, "card": card_line}))
+    return out
+
+
+def drive_adam(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, train_steady, card_line):
+    """The Adam step (``make_train_step_optax``, torch.optim.Adam with optax's
+    defaults) at the headline width: ADAM_STEPS counted steps, a checkpoint
+    of the parameters and optimizer state after step 2 restored into fresh
+    tensors whose step 3 must equal the live step 3 in its bits, the same
+    steps through the plain versions, then steady steps."""
+    from dataclasses import replace
+
+    from zhpe_ompi_tpu_torch.runtime.checkpoint import Checkpointer
+
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    init, step, _ = tfm.make_train_step_optax(cfg, dp_comm, tp_comm)
+    pinit, plain_step, _ = tfm.make_train_step_optax(
+        replace(cfg, fused_ln=False, flash=False), dp_comm, tp_comm)
+    params0, tokens, targets = _train_inputs(torch, np, tfm, cfg)
+    counted = _kernel_counters(fused_norm, fa)
+    L = cfg.n_layers
+    want = {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    params = {k: v.clone() for k, v in params0.items()}
+    opt = init(params)
+    losses, _ = _adam_steps(torch, step, params, opt, tokens, targets, ADAM_STEPS - 1,
+                            counted, want)
+    # the checkpoint after step ADAM_STEPS - 1, written in the background
+    with tempfile.TemporaryDirectory() as ckdir:
+        ck = Checkpointer(ckdir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(ADAM_STEPS - 1, {"params": params, "opt": opt.state_dict()})
+        t1 = time.perf_counter()
+        ck.wait()
+        t2 = time.perf_counter()
+        step_dir = os.path.join(ckdir, f"step_{ADAM_STEPS - 1}")
+        disk = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        more, launches = _adam_steps(torch, step, params, opt, tokens, targets, 1,
+                                     counted, want)
+        losses += more
+        t3 = time.perf_counter()
+        state, at = ck.restore(placements={"params": "cuda", "opt": "cpu"})
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    fresh = state["params"]
+    fresh_opt = init(fresh)
+    fresh_opt.load_state_dict(state["opt"])
+    resumed, _ = _adam_steps(torch, step, fresh, fresh_opt, tokens, targets, 1)
+    same = resumed[0] == losses[-1] and all(torch.equal(fresh[k], params[k]) for k in params)
+    ckpt = {"snapshot_ms": (t1 - t0) * 1e3, "write_ms": (t2 - t1) * 1e3,
+            "restore_ms": (t4 - t3) * 1e3, "bytes_on_disk": disk, "step": at,
+            "resumed_loss": resumed[0], "live_loss": losses[-1], "bits_equal": same}
+    print(json.dumps({"checkpoint": ckpt, "card": card_line}))
+    if not same:
+        raise SystemExit("the step resumed from the checkpoint differs from the live step")
+    del fresh, fresh_opt, state
+
+    # the same steps through the plain versions, from the same parameters
+    plain = {k: v.clone() for k, v in params0.items()}
+    plain_opt = pinit(plain)
+    plain_losses, _ = _adam_steps(torch, plain_step, plain, plain_opt, tokens, targets,
+                                  ADAM_STEPS)
+    lerr = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    rel = _update_rel(params0, params, plain)
+    m_rel = {name: float((opt.state[p]["exp_avg"] - plain_opt.state[plain[name]]["exp_avg"])
+                         .norm() / plain_opt.state[plain[name]]["exp_avg"].norm())
+             for name, p in params.items()}
+    print(f"adam, kernel path vs plain path over {ADAM_STEPS} steps: losses {losses} vs "
+          f"{plain_losses} (max |diff| {lerr}, tol {TRAIN_LOSS_TOL}), relative first-"
+          f"moment difference {m_rel} (tol {UPDATE_REL_TOL}), relative update difference "
+          f"{rel} (not gated: see ADAM_UPDATE)")
+    finite = all(bool(torch.isfinite(p).all()) for p in params.values())
+    if not (finite and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise SystemExit(f"adam: the loss did not fall with finite values: {losses}")
+    if not (lerr <= TRAIN_LOSS_TOL and all(r <= UPDATE_REL_TOL for r in m_rel.values())):
+        raise SystemExit("the kernel path's Adam steps disagree with the plain path")
+    del plain, plain_opt
+
+    def adam_step(p, tok, tgt):
+        p, _, loss = step(p, opt, tok, tgt)
+        return p, loss
+
+    steady = steady_steps(torch, adam_step, {"params": params}, tokens, targets, "adam")
+    steady["turns_vs_sgd"] = _turns_vs_sgd(torch, tfm, cfg, dp_comm, tp_comm, adam_step,
+                                           params, params0, tokens, targets, card_line)
+    moments = 2 * sum(p.numel() * p.element_size() for p in params0.values())
+    print(f"adam: step median {steady['median_ms']} ms (SGD {train_steady['median_ms']} "
+          f"ms), peak {steady['max_memory_allocated_bytes']} bytes (SGD "
+          f"{train_steady['max_memory_allocated_bytes']} + moments {moments} = "
+          f"{train_steady['max_memory_allocated_bytes'] + moments}) on {card_line}")
+    return launches, steady, ckpt, {"losses": losses, "plain_losses": plain_losses,
+                                    "exp_avg_rel": m_rel, "update_rel": rel}
+
+
+def check_moe_pipeline(torch, np, comm, card_line):
+    """``moe_ffn`` on MOE_TOKENS tokens of the headline d_model and d_ff at
+    capacity 1.25 and ep = 1, against ``moe_reference_dense``; then
+    ``pipeline_apply`` of ``t @ w + 1`` over PIPE_M microbatches at D =
+    d_model against the sequential loop."""
+    from zhpe_ompi_tpu_torch.models import moe, pipeline
+
+    D, F = HEADLINE["d_model"], HEADLINE["d_ff"]
+    rng = np.random.default_rng(8)
+    prm = moe.moe_params_from_numpy({
+        "router": rng.standard_normal((D, 1)) * D ** -0.5,
+        "w_in": rng.standard_normal((1, D, F)) * D ** -0.5,
+        "w_out": rng.standard_normal((1, F, D)) * F ** -0.5}, ep_rank=0)
+    x = torch.as_tensor(rng.standard_normal((MOE_TOKENS, D)), dtype=torch.float32,
+                        device="cuda")
+    y, keep = moe.moe_ffn(comm, prm, x, capacity_factor=1.25)
+    cap = max(1, int(1.25 * MOE_TOKENS))
+    dense = moe.moe_reference_dense(prm, x, 1, cap)
+    err = _max_err(y, dense) / float(dense.abs().max())
+    res = {"moe_ms": _event_ms(torch, lambda: moe.moe_ffn(comm, prm, x, 1.25), reps=5),
+           "dense_ms": _event_ms(torch, lambda: moe.moe_reference_dense(prm, x, 1, cap),
+                                 reps=5),
+           "moe_rel_err": err, "kept": int(keep.sum())}
+    if not (err <= MOE_REL_TOL and res["kept"] == MOE_TOKENS and bool(torch.isfinite(y).all())):
+        raise SystemExit(f"moe_ffn disagrees with moe_reference_dense: {res}")
+    w = torch.as_tensor(rng.standard_normal((1, D, D)) * D ** -0.5, dtype=torch.float32,
+                        device="cuda")
+    xs = torch.as_tensor(rng.standard_normal((PIPE_M, PIPE_MB, D)), dtype=torch.float32,
+                         device="cuda")
+    stage = lambda ww, t: t @ ww[0] + 1.0  # noqa: E731
+    out = pipeline.pipeline_apply(comm, stage, w, xs)
+    seq = torch.stack([t @ w[0] + 1.0 for t in xs])
+    res["pipeline_ms"] = _event_ms(torch, lambda: pipeline.pipeline_apply(comm, stage, w, xs),
+                                   reps=5)
+    res["pipeline_equal"] = torch.equal(out, seq)
+    print(json.dumps({"moe_pipeline": res, "card": card_line}))
+    if not res["pipeline_equal"]:
+        raise SystemExit("pipeline_apply disagrees with the sequential loop")
+    return res
+
+
+def check_device_plane(torch, np, comm, card_line):
+    """At one rank on CUDA tensors: DeviceWindow put, get and accumulate; a
+    DeviceHeap put and fetch-add epoch; neighbor_allgather on a periodic
+    (1,) cart; device_pack and device_unpack of a vector type on a tensor
+    of PACK_BYTES against the host convertor, with µs and GB/s."""
+    from zhpe_ompi_tpu_torch import datatype as dt
+    from zhpe_ompi_tpu_torch import topo
+    from zhpe_ompi_tpu_torch.datatype import convertor
+    from zhpe_ompi_tpu_torch.osc import DeviceWindow
+    from zhpe_ompi_tpu_torch.shmem import spml
+
+    res = {}
+    win = DeviceWindow(comm, torch.zeros(1 << 20, device="cuda"))
+    vals = torch.arange(16, dtype=torch.float32, device="cuda")
+    win = win.put(vals, [0], [100]).fence()
+    got = win.get([0], [100], count=16)
+    win = win.accumulate(vals, [0], [100])
+    res["window"] = (torch.equal(got, vals)
+                     and torch.equal(win.shard[100:116], 2 * vals)
+                     and float(win.shard.sum()) == float(2 * vals.sum()))
+    heap = spml.shmem_pe(comm, heap_bytes=1 << 12)
+    sym = heap.shmalloc(2, torch.float32)
+
+    def prog(pe, _):
+        pe = pe.local_set(sym, float(pe.my_pe()) + 5.0).barrier()
+        pe = pe.put(sym, torch.full((2,), 3.0, device="cuda"), pe_of=lambda r, n: (r + 1) % n)
+        old, pe = pe.fadd(sym, 1.0, pe_of=lambda r, n: (r + 1) % n, index=0)
+        return pe, old[None]
+
+    old = heap.epoch(prog, torch.zeros((1, 1), device="cuda"))
+    res["heap"] = heap.read(sym).tolist() == [[4.0, 3.0]] and old.tolist() == [[3.0]]
+    heap.finalize()
+    cart = topo.CartTopology(comm, (1,), periods=(True,))
+    x = torch.arange(6, dtype=torch.float32, device="cuda").reshape(2, 3)
+    nb = topo.neighbor_allgather(cart, x)
+    res["neighbor"] = tuple(nb.shape) == (2, 2, 3) and torch.equal(nb[0], x) \
+        and torch.equal(nb[1], x)
+    # a vector type tiling the buffer: 2 blocks of 2 floats, stride 4, an
+    # instance every 8 floats (half the bytes are packed)
+    vec = dt.create_resized(dt.create_vector(2, 2, 4, dt.FLOAT), 0, 32).commit()
+    n = PACK_BYTES // 4
+    count = n // 8
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    src = torch.randn(n, generator=gen, device="cuda")
+    packed = convertor.device_pack(src, vec, count)
+    host = convertor.pack(src.cpu().numpy(), vec, count)
+    same_pack = bool((packed.cpu().numpy().view(np.uint8) == host).all())
+    out = torch.zeros_like(src)
+    convertor.device_unpack(packed, vec, count, out)
+    want = np.zeros(n, np.float32)
+    convertor.unpack(host, vec, count, out=want)
+    same_unpack = bool((out.cpu().numpy() == want).all())
+    moved = 2 * packed.numel() * packed.element_size()  # read once, written once
+    pack_ms = _event_ms(torch, lambda: convertor.device_pack(src, vec, count), reps=20)
+    unpack_ms = _event_ms(torch, lambda: convertor.device_unpack(packed, vec, count, out),
+                          reps=20)
+    res["pack"] = {"source_bytes": n * 4, "packed_bytes": packed.numel() * 4,
+                   "pack_us": pack_ms * 1e3, "pack_gb_per_s": moved / pack_ms / 1e6,
+                   "unpack_us": unpack_ms * 1e3, "unpack_gb_per_s": moved / unpack_ms / 1e6,
+                   "equal_to_host_pack": same_pack, "equal_to_host_unpack": same_unpack}
+    print(json.dumps({"device_plane": res, "card": card_line}))
+    if not (res["window"] and res["heap"] and res["neighbor"] and same_pack and same_unpack):
+        raise SystemExit(f"the device plane at one rank gave a wrong result: {res}")
+    return res
+
+
 def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
     """Phase 5: the MPI entry point, the monitored train step, the ULFM
     methods on CUDA tensors, the device probe, the bench, finalize."""
@@ -1363,6 +1660,7 @@ def main() -> int:
     # the reference comparisons run f32 products in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card_line = _card_line()
     print(f"card: {card_line}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1422,6 +1720,10 @@ def main() -> int:
                 torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, steady)
             sp = drive_sp(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, sp_comm,
                           flash_loss)
+            adam_launches, adam_steady, ckpt, adam_cmp = drive_adam(
+                torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, steady, card_line)
+            moe_pipe = check_moe_pipeline(torch, np, tp_comm, card_line)
+            device_plane = check_device_plane(torch, np, dp_comm, card_line)
             late = (bench_after_profiling(torch, tfm, dp_comm, tp_comm, runtime,
                                           card_line) if bench_after else None)
         finally:
@@ -1434,16 +1736,20 @@ def main() -> int:
             "train": launches[k["name"]], "remat": remat_launches[k["name"]],
             **{label: sp[label][0][k["name"]] for label in sp},
             "runtime": rt_launches[k["name"]],
-            "long_context": lc_launches[k["name"]]}
+            "long_context": lc_launches[k["name"]],
+            "adam": adam_launches[k["name"]]}
     steps = {"train": steady, "remat": remat_steady,
-             **{label: sp[label][1] for label in sp}}
+             **{label: sp[label][1] for label in sp}, "adam": adam_steady}
     print(json.dumps({"steps": steps, "card": card_line}))
     print(json.dumps({"kernels": kernels, "card": card_line,
                       "forward_s": t_fwd, "loss_fn_s": t_loss,
                       "train_step_median_ms": steady["median_ms"],
                       "ring_recurrence": ring, "collectives_checked": checked,
                       "allreduce_host_us_per_call": allreduce_host,
-                      "runtime": runtime, "bench_after_profiling": late}))
+                      "runtime": runtime, "bench_after_profiling": late,
+                      "checkpoint": ckpt, "adam_vs_plain": adam_cmp,
+                      "moe_pipeline": moe_pipe, "device_plane": device_plane,
+                      "smoke_s": time.perf_counter() - t_start}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

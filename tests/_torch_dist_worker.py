@@ -3,8 +3,11 @@
 Run by the ``tests/test_torch_*.py`` files as ``python _torch_dist_worker.py
 MODE RANK WORLD DIR``: it joins a gloo group through a ``FileStore`` in
 DIR, does MODE, and writes ``DIR/out<RANK>.npz``.  Imports the port, never
-jax.  ``coll_inputs`` and ``coll_cases`` define the collective checks, so
-that the tests can feed the same inputs to the JAX package.
+jax.  ``coll_inputs`` and ``coll_cases`` define the collective checks,
+``moe_pipe_inputs`` the MoE and pipeline inputs, ``shmem_cases`` the
+device-heap programs (run by either package through ``run_shmem_case``)
+and ``topo_cases`` the neighbor exchanges (built by ``build_topology``),
+so that the tests can feed the same inputs to the JAX package.
 """
 
 from __future__ import annotations
@@ -528,6 +531,397 @@ def _mesh(rank, world, out):
             mesh, failed, axis).mesh.numpy()
 
 
+def _optax(rank, world, out, workdir):
+    """Two ``make_train_step_optax`` Adam steps at dp x tp = (world // 2) x
+    2, laid out as ``_train``'s."""
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.models import transformer as tfm
+
+    tp = 2
+    dp = world // tp
+    tp_groups = [dist.new_group([d * tp + t for t in range(tp)]) for d in range(dp)]
+    dp_groups = [dist.new_group([d * tp + t for d in range(dp)]) for t in range(tp)]
+    dp_rank, tp_rank = rank // tp, rank % tp
+    tp_comm = zmpi.Communicator(tp_groups[dp_rank], name="tp")
+    dp_comm = zmpi.Communicator(dp_groups[tp_rank], name="dp")
+
+    data = np.load(os.path.join(workdir, "inputs.npz"))
+    cfg = tfm.Config(vocab=int(data["vocab"]), d_model=int(data["d_model"]),
+                     n_heads=int(data["n_heads"]), d_ff=int(data["d_ff"]),
+                     n_layers=int(data["n_layers"]), seq=int(data["seq"]),
+                     dtype=torch.float32, flash=False, fused_ln=False)
+    np_params = {k[2:]: data[k] for k in data.files if k.startswith("p_")}
+    params = tfm.params_from_numpy(np_params, cfg, device="cpu",
+                                   tp_rank=tp_rank, tp=tp)
+    b = data["tokens"].shape[0] // dp
+    rows = slice(dp_rank * b, (dp_rank + 1) * b)
+    lr = float(data["lr"])
+    init, step, _ = tfm.make_train_step_optax(
+        cfg, dp_comm, tp_comm, optimizer=lambda ps: torch.optim.Adam(ps, lr=lr))
+    opt = init(params)
+    for i in (1, 2):
+        params, opt, loss = step(params, opt, data["tokens"][rows],
+                                 data["targets"][rows])
+        out.update({f"s{i}_{k}": v.numpy().copy() for k, v in params.items()})
+        out[f"s{i}_loss"] = loss.numpy()
+    out["dp_tp"] = np.array([dp_rank, tp_rank])
+
+
+def moe_pipe_inputs() -> dict:
+    """The MoE and pipeline checks' inputs (the tests feed the same ones to
+    the JAX package): ``moe_*`` at ep 4 (and ``moe2_*`` at ep 2) with T
+    tokens per rank, D 8, F 16; ``pp_*`` for pp 4."""
+    rng = np.random.default_rng(77)
+    D, F, T = 8, 16, 16
+    out = {}
+    for tag, n in (("moe", 4), ("moe2", 2)):
+        out[f"{tag}_router"] = (rng.standard_normal((D, n)) * D ** -0.5).astype(np.float32)
+        out[f"{tag}_w_in"] = (rng.standard_normal((n, D, F)) * D ** -0.5).astype(np.float32)
+        out[f"{tag}_w_out"] = (rng.standard_normal((n, F, D)) * F ** -0.5).astype(np.float32)
+        out[f"{tag}_x"] = rng.standard_normal((n * T, D)).astype(np.float32)
+        out[f"{tag}_cot"] = rng.standard_normal((n * T, D)).astype(np.float32)
+    out["pp_w"] = (rng.standard_normal((4, D, D)) * 0.3).astype(np.float32)
+    out["pp_x"] = rng.standard_normal((5, 3, D)).astype(np.float32)
+    return out
+
+
+MOE_CAPACITY = (1.25, 0.5)
+
+
+def _moe_pipe(comm, rank, world, out, workdir):
+    """moe_ffn at ep 4 (and ep 2 on each half) with gradients, pipeline_apply
+    at pp 4 and pp 1, and the port's form of the dryrun's phase 2."""
+    from zhpe_ompi_tpu_torch.models import moe, pipeline
+
+    inp = moe_pipe_inputs()
+    halves = comm.split([0, 0, 1, 1])
+    for tag, c in (("moe", comm), ("moe2", halves)):
+        n = c.size
+        T = inp[f"{tag}_x"].shape[0] // n
+        blk = slice(c.rank * T, (c.rank + 1) * T)
+        for cf in MOE_CAPACITY:
+            prm = moe.moe_params_from_numpy(
+                {k: inp[f"{tag}_{k}"] for k in ("router", "w_in", "w_out")},
+                device="cpu", ep_rank=c.rank)
+            for t in prm.values():
+                t.requires_grad_(True)
+            x = torch.from_numpy(inp[f"{tag}_x"][blk].copy()).requires_grad_(True)
+            y, keep = moe.moe_ffn(c, prm, x, capacity_factor=cf)
+            (y * torch.from_numpy(inp[f"{tag}_cot"][blk])).sum().backward()
+            key = f"{tag}@{cf}"
+            out[f"{key}/y"], out[f"{key}/keep"] = y.detach().numpy(), keep.numpy()
+            out[f"{key}/dx"] = x.grad.numpy()
+            for k, t in prm.items():
+                out[f"{key}/d{k}"] = t.grad.numpy()
+    W = torch.from_numpy(inp["pp_w"][rank:rank + 1].copy())
+    xs = torch.from_numpy(inp["pp_x"])
+    stage = lambda w, t: t @ w[0] + 1.0  # noqa: E731
+    out["pp4"] = pipeline.pipeline_apply(comm, stage, W, xs).numpy()
+    selfc = comm.split([0, 1, 2, 3])
+    out["pp1"] = pipeline.pipeline_apply(selfc, stage, W, xs).numpy()
+    # the dryrun's phase 2 (__graft_entry__.py), per process
+    data = np.load(os.path.join(workdir, "inputs.npz"))
+    prm = moe.moe_params_from_numpy(
+        {k: data[f"dry_{k}"] for k in ("router", "w_in", "w_out")},
+        device="cpu", ep_rank=rank)
+    y = comm.run(lambda xs: moe.moe_ffn(comm, prm, xs,
+                                        capacity_factor=float(world))[0],
+                 torch.from_numpy(data["dry_x"]))
+    out["dry_moe"] = y.numpy()
+    Ws = torch.from_numpy(data["dry_ws"])
+    out["dry_pp"] = comm.run(
+        lambda W, x: pipeline.pipeline_apply(
+            comm, lambda w, t: t @ w[0] + 1.0, W, x),
+        Ws, torch.from_numpy(data["dry_xs"]), in_specs=(0, None)).numpy()
+
+
+# Device-heap programs, one per case, run by both packages: a case is
+# (heap bytes, allocations [(shape, dtype)], epochs [[step, ...], ...]).
+# Steps: ("set", sym, value), ("barrier",), ("put", sym, value, pe_of),
+# ("get", sym, pe_of), ("fadd", sym, value, pe_of, index),
+# ("add", sym, value, pe_of, index), ("bcast", sym, root),
+# ("fcollect", dest, src), ("reduce", dest, src, op), ("alltoall", dest, src).
+# Values: ("me", scale, offsets) = my_pe * scale + offsets (a number or a
+# list), or ("local", sym).  pe_of: ("shift", k) = (r + k) % n, or a list.
+def shmem_cases(n: int) -> dict:
+    me = lambda scale=1.0, off=0.0: ("me", scale, off)  # noqa: E731
+    const = lambda v: ("me", 0.0, v)  # noqa: E731
+    f32, i32 = "float32", "int32"
+    return {
+        "put_shift": (1 << 14, [((4,), f32)], [[
+            ("set", 0, me()), ("barrier",), ("put", 0, me(), ("shift", 1))]]),
+        "get_neighbor": (1 << 14, [((2,), f32)], [[
+            ("set", 0, me(10.0)), ("barrier",), ("get", 0, ("shift", -1))]]),
+        "fadd_ring": (1 << 14, [((1,), f32)], [[
+            ("set", 0, const(100.0)), ("barrier",),
+            ("fadd", 0, me(1.0, 1.0), ("shift", 1), 0)]]),
+        "state_across_epochs": (1 << 14, [((2,), i32)], [
+            [("set", 0, me(2.0))], [("put", 0, ("local", 0), ("shift", 1))]]),
+        "mixed_dtypes": (1 << 14, [((4,), f32), ((4,), i32)], [[
+            ("set", 0, const(1.5)), ("set", 1, const(7.0))]]),
+        "broadcast": (1 << 14, [((3,), f32)], [[
+            ("set", 0, me()), ("bcast", 0, n - 1)]]),
+        "fcollect": (1 << 14, [((2,), f32), ((2 * n,), f32)], [[
+            ("set", 0, me(1.0, [0.0, 0.5])), ("fcollect", 1, 0)]]),
+        "reduce_max": (1 << 14, [((4,), f32), ((4,), f32)], [[
+            ("set", 0, me()), ("reduce", 1, 0, "MAX")]]),
+        "alltoall": (1 << 14, [((n,), f32), ((n,), f32)], [[
+            ("set", 0, me(10.0, [float(j) for j in range(n)])),
+            ("alltoall", 1, 0)]]),
+        "fadd_one_counter": (1 << 14, [((1,), f32)], [[
+            ("set", 0, const(100.0)), ("barrier",),
+            ("fadd", 0, me(1.0, 1.0), [0] * n, 0)]]),
+        "add_two_groups_idle": (1 << 14, [((2,), i32)], [[
+            ("set", 0, const(0.0)), ("barrier",),
+            ("add", 0, me(1.0, 1.0), [0, 0, 2, -1][:n], 1)]]),
+        "fadd_idle_fetch_zero": (1 << 14, [((1,), f32)], [[
+            ("set", 0, const(100.0)), ("barrier",),
+            ("fadd", 0, const(1.0), [0, 0] + [-1] * (n - 2), 0)]]),
+        "barrier_orders": (1 << 14, [((1,), f32)], [[
+            ("set", 0, me()), ("barrier",), ("get", 0, ("shift", 1))]]),
+        # __graft_entry__.py's third phase
+        "dryrun_phase3": (1 << 12, [((2,), f32)], [[
+            ("set", 0, me()), ("barrier",),
+            ("put", 0, ("me", 1.0, [0.0, 0.0]), ("shift", 1)),
+            ("fadd", 0, const(1.0), ("shift", 1), 0)]]),
+    }
+
+
+def run_shmem_case(heap, case, value, pe_of, op_of, stack, zeros):
+    """Run one ``shmem_cases`` program on ``heap`` (either package's
+    DeviceHeap): ``value(pe, spec, sym)`` makes a value, ``pe_of(spec)`` a
+    schedule, ``op_of(name)`` an op, ``stack(outs)`` one (1, k) output per
+    epoch and ``zeros()`` the epoch's dim-0 argument.  Returns the syms
+    and each epoch's output."""
+    _, allocs, epochs = case
+    syms = [heap.shmalloc(shape, dtype) for shape, dtype in allocs]
+    outs = []
+    for steps in epochs:
+        def prog(pe, _, steps=steps):
+            got = []
+            for st in steps:
+                kind = st[0]
+                if kind == "set":
+                    pe = pe.local_set(syms[st[1]], value(pe, st[2], syms[st[1]]))
+                elif kind == "barrier":
+                    pe = pe.barrier()
+                elif kind == "put":
+                    pe = pe.put(syms[st[1]], value(pe, st[2], syms[st[1]]), pe_of(st[3]))
+                elif kind == "get":
+                    got.append(pe.get(syms[st[1]], pe_of(st[2])))
+                elif kind == "fadd":
+                    old, pe = pe.fadd(syms[st[1]], value(pe, st[2], syms[st[1]]),
+                                      pe_of(st[3]), index=st[4])
+                    got.append(old)
+                elif kind == "add":
+                    pe = pe.add(syms[st[1]], value(pe, st[2], syms[st[1]]),
+                                pe_of(st[3]), index=st[4])
+                elif kind == "bcast":
+                    pe = pe.broadcast(syms[st[1]], root=st[2])
+                elif kind == "fcollect":
+                    pe = pe.fcollect(syms[st[1]], syms[st[2]])
+                elif kind == "reduce":
+                    pe = pe.reduce_to_all(syms[st[1]], syms[st[2]], op_of(st[3]))
+                elif kind == "alltoall":
+                    pe = pe.alltoall(syms[st[1]], syms[st[2]])
+            return pe, stack(got)
+        outs.append(heap.epoch(prog, zeros()))
+    return syms, outs
+
+
+def _osc_shmem(comm, rank, world, out):
+    """DeviceWindow schedules and the device heap (``shmem_cases``), and
+    their errors, at ``world`` ranks."""
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.core import errors
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.osc import DeviceWindow
+    from zhpe_ompi_tpu_torch.runtime import spc
+    from zhpe_ompi_tpu_torch.shmem import spml
+    from zhpe_ompi_tpu_torch.shmem.device import DeviceHeap
+
+    n = world
+    ring = [(i + 1) % n for i in range(n)]
+    me = torch.tensor([float(rank)])
+    win = DeviceWindow(comm, torch.zeros(2))
+    out["win_put"] = win.put(me, ring, [0] * n).shard.numpy()
+    out["win_put_untouched"] = win.shard.numpy()
+    win = DeviceWindow(comm, me * 10)
+    out["win_get"] = win.get(ring, [0] * n, count=1).numpy()
+    win = DeviceWindow(comm, torch.full((3,), 100.0))
+    out["win_acc_sum"] = win.accumulate(me + 1, ring, [1] * n).shard.numpy()
+    out["win_acc_max"] = win.accumulate(me * 60, ring, [2] * n, zmpi.MAX).shard.numpy()
+    out["win_fence"] = win.fence().shard.numpy()
+    errs = []
+    for call in (lambda: win.put(torch.zeros(2), ring, [2] * n),
+                 lambda: win.get(ring, [0] * n, count=4),
+                 lambda: win.accumulate(torch.zeros(3), ring, [1] * n),
+                 lambda: win.put(me, [0] * n, [0] * n),
+                 lambda: win.accumulate(me, [0] * n, [0] * n),
+                 lambda: win.get([0] * n, [0] * n, count=1),
+                 lambda: win.put(me, ring[:-1], [0] * n)):
+        try:
+            call()
+            errs.append("none")
+        except errors.MpiError as e:
+            errs.append(type(e).__name__)
+    for meth in ("lock", "lock_all", "unlock", "unlock_all", "flush",
+                 "flush_all", "flush_local"):
+        try:
+            getattr(win, meth)(0)
+        except errors.WinError as e:
+            errs.append(f"{meth}:{'AM component' in str(e)}")
+    out["win_errors"] = np.array(errs)
+
+    # selection
+    out["spml_selected"] = np.array(spml.select_spml(comm).name)
+    heap = spml.shmem_pe(comm, heap_bytes=1 << 12)
+    out["shmem_pe"] = np.array([type(heap).__name__, heap.plane])
+    heap.finalize()
+    mca_var.set_var("spml", "^device")
+    try:
+        spml.select_spml(comm)
+        out["spml_excluded"] = np.array("selected")
+    except errors.InternalError:
+        out["spml_excluded"] = np.array("InternalError")
+    finally:
+        mca_var.unset("spml")
+    try:
+        spml.DirectSpml().make(comm, 1 << 12)
+    except errors.UnsupportedError as e:
+        out["spml_direct"] = np.array(str(e))
+
+    # deterministic offsets and arenas
+    heap = DeviceHeap(comm, heap_bytes=1 << 14)
+    a = heap.shmalloc(4, torch.float32)
+    b = heap.shmalloc(8, np.float32)
+    heap.shfree(a)
+    c = heap.shmalloc(2, torch.float32)
+    i = heap.shmalloc(4, torch.int32)
+    out["offsets"] = np.array([a.offset, b.offset, c.offset, i.offset])
+    out["arenas"] = np.array(sorted(heap._arenas))
+    out["arena_elems"] = np.array([heap._arenas[a.arena].numel(),
+                                   heap._arenas[i.arena].numel()])
+    errs = []
+    for prog in (lambda pe, _: (pe.put(a, torch.zeros(1), [n] * n), None),
+                 lambda pe, _: (pe.put(a, torch.zeros(1), [0] * n), None),
+                 lambda pe, _: (pe.fcollect(c, a), None),
+                 lambda pe, _: (pe.put(c, torch.zeros(3), ring), None),
+                 lambda pe, _: (pe.broadcast(a, root=n), None),
+                 lambda pe, _: (pe.add(a, 1.0, ring, index=4), None)):
+        try:
+            heap.epoch(prog, torch.zeros((n, 1)))
+            errs.append("none")
+        except errors.MpiError as e:
+            errs.append(type(e).__name__)
+    out["heap_errors"] = np.array(errs)
+    heap.finalize()
+
+    # the programs both packages run
+    before = spc.read("pgas_device_epochs")
+
+    def value(pe, spec, sym):
+        if spec[0] == "local":
+            return pe.local(sym)
+        return pe.my_pe() * spec[1] + torch.as_tensor(spec[2])
+
+    def pe_of(spec):
+        return (lambda r, m: (r + spec[1]) % m) if isinstance(spec, tuple) else spec
+
+    def stack(got):
+        if not got:
+            return None
+        return torch.cat([g.reshape(-1).float() for g in got])[None]
+
+    epochs = 0
+    for name, case in shmem_cases(n).items():
+        heap = DeviceHeap(comm, heap_bytes=case[0])
+        syms, outs = run_shmem_case(
+            heap, case, value, pe_of, lambda op: getattr(zmpi, op), stack,
+            lambda: torch.zeros((n, 1)))
+        for j, sym in enumerate(syms):
+            out[f"heap/{name}/read{j}"] = heap.read(sym)
+        for j, o in enumerate(outs):
+            out[f"heap/{name}/out{j}"] = o.numpy()
+        epochs += len(case[2])
+        heap.finalize()
+    out["epochs_counted"] = np.array(spc.read("pgas_device_epochs") - before - epochs)
+
+
+def topo_cases(n: int) -> dict:
+    """Neighbor-collective and shift cases at comm size ``n`` (4 or 8):
+    name -> (topology, operation, per-rank input).  Topologies:
+    ("cart", dims, periods), ("graph", index, edges), ("dist", edges), or
+    ("split_cart", colors, dims, periods) on ``comm.split(colors)``.
+    Operations: "allgather", "alltoall", ("shift", dim, disp)."""
+    rng = np.random.default_rng(400 + n)
+    ring_index, ring_edges = [], []
+    for r in range(n):
+        ring_edges += [(r - 1) % n, (r + 1) % n]
+        ring_index.append(len(ring_edges))
+    rand_edges = sorted({(int(a), int(b)) for a, b in rng.integers(0, n, (2 * n, 2))
+                         if a != b})
+    deg = lambda edges: max([sum(1 for a, _ in edges if a == r) for r in range(n)] + [1])  # noqa: E731
+    col = np.arange(n, dtype=np.float32).reshape(n, 1)
+
+    def blocks(k):
+        return (np.arange(n)[:, None, None] * 10 + np.arange(k)[None, :, None]
+                ).astype(np.float32)
+
+    half = (n // 2, 2)
+    return {
+        "cart_ring_allgather": (("cart", (n,), (True,)), "allgather", col),
+        "cart_nonperiodic_allgather": (("cart", (n,), (False,)), "allgather", col + 1),
+        "cart_2d_alltoall": (("cart", half, (True, True)), "alltoall", blocks(4)),
+        "cart_2d_mixed_allgather": (("cart", half, (True, False)), "allgather", col),
+        "graph_star_allgather": (("dist", [(r, 0) for r in range(1, n)]), "allgather", col),
+        "graph_ring_alltoall": (("graph", ring_index, ring_edges), "alltoall", blocks(2)),
+        "dist_random_alltoall": (("dist", rand_edges), "alltoall", blocks(deg(rand_edges))),
+        "dist_random_allgather": (("dist", rand_edges), "allgather", col),
+        "size2_duplicate_alltoall": (("split_cart", [r // 2 for r in range(n)], (2,), (True,)),
+                                     "alltoall", blocks(2)),
+        "shift_periodic": (("cart", (n,), (True,)), ("shift", 0, 1), col),
+        "shift_nonperiodic": (("cart", (n,), (False,)), ("shift", 0, 1), col + 1),
+        "shift_2d_dim1": (("cart", half, (False, True)), ("shift", 1, 1), col),
+        "shift_2d_back2": (("cart", half, (True, False)), ("shift", 0, -2), col),
+    }
+
+
+def build_topology(topo_mod, comm, spec):
+    """One ``topo_cases`` topology over ``comm`` with either package's
+    ``topo`` module; returns (topology, the communicator it is over)."""
+    kind = spec[0]
+    if kind == "cart":
+        return topo_mod.CartTopology(comm, spec[1], periods=spec[2]), comm
+    if kind == "graph":
+        return topo_mod.GraphTopology(comm, spec[1], spec[2]), comm
+    if kind == "dist":
+        return topo_mod.DistGraphTopology.from_edges(comm, spec[1]), comm
+    sub = comm.split(spec[1])
+    return topo_mod.CartTopology(sub, spec[2], periods=spec[3]), sub
+
+
+def _topo(comm, rank, world, out):
+    from zhpe_ompi_tpu_torch import topo
+
+    for name, (spec, op, x) in topo_cases(world).items():
+        t, c = build_topology(topo, comm, spec)
+        xs = torch.from_numpy(x[rank])
+        if op == "allgather":
+            res = topo.neighbor_allgather(t, xs)
+        elif op == "alltoall":
+            res = topo.neighbor_alltoall(t, xs)
+        else:
+            res = t.shift_exchange(xs, op[1], op[2])
+        out[name] = res.numpy()
+    if world == 8:
+        cart = topo.CartTopology(comm, (4, 2), periods=(True, False))
+        rows, rtopo = cart.sub([True, False])
+        out["sub_partition"] = np.array([g.ranks for g in rows.partition])
+        out["sub_topo"] = np.array([rows.size, rows.rank, *rtopo.dims, *rtopo.periods])
+        out["sub_shift"] = rtopo.shift_exchange(torch.tensor([float(rank)]), 0, 1).numpy()
+
+
 MESH_DIMS = {4: {"dp": 2, "tp": 2}, 8: {"dp": 2, "tp": 2, "sp": 2}}
 SURVIVOR_CASES = {4: [("dp", [1]), ("tp", [0])],
                   8: [("dp", [0]), ("tp", [1]), ("sp", [0])]}
@@ -602,6 +996,14 @@ def main() -> int:
             _split(rank, world, out)
         elif mode == "mesh":
             _mesh(rank, world, out)
+        elif mode == "optax":
+            _optax(rank, world, out, workdir)
+        elif mode == "moe_pipe":
+            _moe_pipe(comm, rank, world, out, workdir)
+        elif mode == "osc_shmem":
+            _osc_shmem(comm, rank, world, out)
+        elif mode == "topo":
+            _topo(comm, rank, world, out)
         elif mode == "select":
             out["coll_components"] = np.array(
                 sorted({c for _, c in comm.coll.values()}))

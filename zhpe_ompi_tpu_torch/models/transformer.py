@@ -25,7 +25,9 @@ gains ``ln1``/``ln2`` (L, D) and ``lnf`` (D,), ``embed`` (V, D), all
 float32 masters cast to the model dtype at use.  The JAX package's
 ``lax.scan`` over layers is a Python loop over layer slices here.
 
-Not ported yet: ``make_train_step_optax``.
+``make_train_step_optax`` takes a ``torch.optim`` optimizer in place of an
+optax transformation (default Adam with optax's defaults), which updates
+the parameters in place where the JAX package donates them.
 """
 
 from __future__ import annotations
@@ -298,3 +300,73 @@ def make_train_step(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
         return new_params, loss
 
     return step, param_specs
+
+
+def _adam(params):
+    """optax.adam(1e-3)'s defaults: b1 0.9, b2 0.999, eps 1e-8, eps_root 0.
+    optax adds eps after sqrt(nu_hat) and torch after sqrt(v)/sqrt(1 - b2^t):
+    the same update in exact arithmetic, not in bits."""
+    return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_train_step_optax(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
+                          optimizer=None, dcn_proc=None,
+                          dcn_weight: float | None = None,
+                          dcn_sharded: bool = False):
+    """Stateful-optimizer training step: the gradients of
+    :func:`make_train_step` (autograd of :func:`loss_fn`, then
+    :func:`_sync_grads` over dp, sp and tp) handed to a ``torch.optim``
+    optimizer.
+
+    ``optimizer`` is a factory ``params -> torch.optim.Optimizer`` (default:
+    Adam, lr 1e-3, with optax's defaults).  Returns ``(init_opt_state, step,
+    param_specs)``: ``init_opt_state(params)`` builds the optimizer over the
+    tensors of ``params``, and ``step(params, opt_state, tokens, targets) ->
+    (params, opt_state, loss)`` updates those tensors and the optimizer's
+    state **in place** (each parameter keeps its storage dtype) and returns
+    the same objects.  The JAX package donates the old parameters and state
+    instead; here a caller that keeps a tensor of either sees the next
+    step's values, so a checkpoint must snapshot before the next step
+    (``runtime/checkpoint.py`` copies at ``save``).  Since the optimizer
+    owns the parameters' tensors, ``step`` refuses a ``params`` whose
+    tensors are not the ones ``opt_state`` was built over.
+
+    ``dcn_proc`` (with ``dcn_weight`` and ``dcn_sharded``), the multi-slice
+    host-plane sync, waits for ``parallel/hybrid.py`` and raises
+    ``UnsupportedError``."""
+    if dcn_proc is not None or dcn_weight is not None or dcn_sharded:
+        raise errors.UnsupportedError(
+            "make_train_step_optax: the dcn_proc multi-slice gradient sync "
+            "needs parallel/hybrid.py, which the port does not have yet")
+    factory = _adam if optimizer is None else optimizer
+    dp = dp_comm.size
+    tp = tp_comm.size if tp_comm is not None else 1
+    sp = sp_comm.size if sp_comm is not None else 1
+    param_specs = {name: _TP_AXIS.get(name) for name in
+                   ("embed", "wqkv", "wo", "w1", "w2", "ln1", "ln2", "lnf")}
+
+    def init_opt_state(params):
+        return factory([params[n] for n in params])
+
+    def step(params, opt_state, tokens, targets):
+        names = list(params)
+        owned = {id(p) for g in opt_state.param_groups for p in g["params"]}
+        if owned != {id(params[n]) for n in names}:
+            raise errors.ArgError(
+                "opt_state was not built over these parameter tensors "
+                "(init_opt_state(params))")
+        leaves = {n: params[n].detach().requires_grad_(True) for n in names}
+        with torch.enable_grad():
+            loss = loss_fn(leaves, tokens, targets, cfg, tp_comm, sp_comm)
+            grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        synced, loss = _sync_grads(dict(zip(names, grads)), loss.detach(),
+                                   dp_comm, tp_comm, sp_comm, dp, tp, sp)
+        for n in names:
+            params[n].grad = synced[n].to(params[n].dtype)
+        with torch.no_grad():
+            opt_state.step()
+        for n in names:
+            params[n].grad = None
+        return params, opt_state, loss
+
+    return init_opt_state, step, param_specs

@@ -32,6 +32,11 @@ Fault-tolerance counters (``comm/communicator.py``, ``ft/ulfm.py``):
 - ``comm_revokes_received`` — communicators marked revoked here because
   another rank revoked them (the revocation watcher's store reads).
 
+One-sided and PGAS counters (``shmem/device.py``):
+
+- ``pgas_device_epochs`` — device-heap epoch advances (the PGAS
+  quiet/fence boundary on the device plane).
+
 Observability-plane counters (``runtime/flightrec.py``):
 
 - ``flightrec_events_dropped`` — flight-recorder ring overwrites: typed
