@@ -118,7 +118,31 @@ Phases, each of which exits non-zero on failure:
    a ``DeviceHeap`` put and fetch-add epoch, ``neighbor_allgather`` on a
    periodic (1,) cart, and ``device_pack``/``device_unpack`` of a vector
    type on a 64 MiB tensor against the host convertor, with µs and GB/s.
-15. Print one ``{"kernels": [...]}`` line (``launches``: per training
+15. The host plane in this process (``check_host_plane``): a 4-rank
+   thread ``LocalUniverse`` and a 4-rank ``TcpProc`` universe in threads
+   over loopback (``sm=False``).  On each: a barrier, an ``allreduce`` SUM
+   of int64 CPU tensors at 1 KiB, 1 MiB and 64 MiB (the last two above
+   ``host_coll_large_msg``: the ring must run), checked exactly against
+   numpy, an ``alltoall``, an ``iallreduce`` and a 4 MiB point-to-point
+   message (above ``tcp_eager_limit``: rendezvous); the median µs per
+   call.  ``TcpProc.send`` and ``isend`` of a CUDA tensor must raise
+   dss's typed error.
+16. The host-plane MoE path through its entry point (``drive_host_moe``):
+   this script starts 4 child processes of itself, each with the
+   ``ZMPI_*`` coordinator contract (this process hosts the rendezvous,
+   ``ZMPI_COORD_EXTERNAL=1``) and ``ZMPI_MCA_sm=0``.  Each calls
+   ``zmpi.host_init()``, builds its expert on ``cuda`` from a seeded numpy
+   generator, and runs ``moe_host_ffn`` at d_model 1024, d_ff 4096, 2048
+   f32 tokens per rank, 4 experts, capacity factor 1.25, TF32 off: the
+   median ms of 5 calls, then 5 calls split into routing, device-to-host
+   staging, the two alltoalls on the wire, host-to-device, the expert
+   products (host clock and CUDA events) and the combine; the kernels'
+   launch counts over the calls (the path launches none of them) and the
+   wire bytes per call.  Rank 0 gathers every rank's ``y`` and ``keep``
+   over the host plane and holds them against ``moe_reference_dense``
+   over all 8192 tokens (``MOE_REL_TOL``) and the reference's kept mask.
+   A child that exits non-zero, or prints no result, fails the smoke.
+17. Print one ``{"kernels": [...]}`` line (``launches``: per training
    step; ``launches_by_path``: per forward, training, remat, sp, runtime,
    long-context and Adam step), the card's line, and last ``{"ok": true,
    "device": {...}}``.
@@ -139,6 +163,17 @@ in PAIRS (default 10) alternating pairs of processes (other first in even
 pairs, this one first in odd pairs) and prints each version's median and
 quartiles of every number.  PORT_ROOT and OTHER_ROOT must hold the port's
 ``bench.py``, whose headline width the wrappers are timed at.
+
+    python3 chip_smoke.py --host-plane
+
+runs only phases 15 and 16 (no kernel build), printing the card's line
+and their results.
+
+    python3 chip_smoke.py --host-moe-child
+
+is phase 16's child (started by the smoke itself, with the ``ZMPI_*``
+environment); run alone it fails, as ``host_init`` does without that
+contract.
 
     python3 chip_smoke.py --bench-after
 
@@ -252,6 +287,19 @@ MOE_REL_TOL = 1e-4
 PIPE_M, PIPE_MB = 4, 2048
 # device_pack's source tensor (f32), of which a vector type packs half
 PACK_BYTES = 64 << 20
+# host plane: ranks of the in-process universes, allreduce sizes with the
+# calls timed at each, the point-to-point message (above tcp_eager_limit)
+HOST_RANKS = 4
+HOST_SIZES = {"1KiB": (1 << 10, 20), "1MiB": (1 << 20, 10), "64MiB": (64 << 20, 3)}
+HOST_P2P_BYTES = 4 << 20
+HOST_TIMEOUT_S = 300.0
+# host-plane MoE: ranks (one expert each), tokens per rank, timed calls,
+# capacity factor, and the seed of the experts and tokens
+HOST_MOE_RANKS = 4
+HOST_MOE_TOKENS = 2048
+HOST_MOE_CALLS = 5
+HOST_MOE_CAPACITY = 1.25
+HOST_MOE_SEED = 1808
 RING_TOL = 2e-2
 
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
@@ -1218,6 +1266,314 @@ def check_device_plane(torch, np, comm, card_line):
     return res
 
 
+def _in_threads(n, fn, timeout):
+    """fn(r) in n threads; the results by rank, or the first error."""
+    import threading
+
+    results, excs = [None] * n, [None] * n
+
+    def main(r):
+        try:
+            results[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            excs[r] = e
+
+    threads = [threading.Thread(target=main, args=(r,), daemon=True) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+        if t.is_alive():
+            raise SystemExit("host plane: a rank hung")
+    for e in excs:
+        if e is not None:
+            raise e
+    return results
+
+
+def _tcp_run(n, prog, timeout):
+    """prog(proc) on an n-rank TcpProc universe in threads over loopback
+    (sm off); rank 0 binds the coordinator on port 0."""
+    import threading
+
+    from zhpe_ompi_tpu_torch.pt2pt.tcp import TcpProc
+
+    ready, addr = threading.Event(), [None]
+
+    def publish(a):
+        addr[0] = a
+        ready.set()
+
+    def rank(r):
+        if r == 0:
+            proc = TcpProc(0, n, coordinator=("127.0.0.1", 0), on_coordinator_bound=publish,
+                           sm=False, timeout=timeout)
+        else:
+            if not ready.wait(timeout):
+                raise SystemExit("host plane: no coordinator address")
+            proc = TcpProc(r, n, coordinator=addr[0], sm=False, timeout=timeout)
+        try:
+            return prog(proc)
+        finally:
+            proc.close()
+
+    return _in_threads(n, rank, timeout)
+
+
+def _host_plane_prog(torch, np, zmpi, torch_sum):
+    """The per-rank body of check_host_plane: rank 0's µs per call (a
+    barrier before each call), and exact checks against numpy."""
+    def timed(ep, fn, reps):
+        times, out = [], None
+        for _ in range(reps):
+            ep.barrier()
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        times.sort()
+        return out, times[len(times) // 2]
+
+    def prog(ep):
+        r, n = ep.rank, ep.size
+        us = {}
+        _, us["barrier"] = timed(ep, ep.barrier, 20)
+        for label, (nbytes, reps) in HOST_SIZES.items():
+            count = nbytes // 8
+            x = torch.from_numpy(np.arange(count, dtype=np.int64) * (r + 1) + r)
+            got, us[f"allreduce_{label}"] = timed(ep, lambda: ep.allreduce(x, torch_sum), reps)
+            want = np.arange(count, dtype=np.int64) * (n * (n + 1) // 2) + n * (n - 1) // 2
+            if not (isinstance(got, torch.Tensor) and got.dtype == torch.int64
+                    and np.array_equal(got.numpy(), want)):
+                raise SystemExit(f"host plane: allreduce {label} is wrong on rank {r}")
+        blocks = [torch.full((128,), 1000 * r + d, dtype=torch.int64) for d in range(n)]
+        got, us["alltoall_1KiB"] = timed(ep, lambda: ep.alltoall(blocks), 20)
+        if [int(b[0]) for b in got] != [1000 * s + r for s in range(n)]:
+            raise SystemExit(f"host plane: alltoall is wrong on rank {r}")
+        small = torch.full((128,), r + 1, dtype=torch.int64)
+        got, us["iallreduce_1KiB"] = timed(
+            ep, lambda: ep.iallreduce(small, torch_sum).wait(HOST_TIMEOUT_S), 20)
+        if not bool((got == n * (n + 1) // 2).all()):
+            raise SystemExit(f"host plane: iallreduce is wrong on rank {r}")
+        big = torch.arange(HOST_P2P_BYTES // 4, dtype=torch.float32)
+
+        def p2p():
+            if r == 0:
+                ep.send(big, 1, tag=77)
+            elif r == 1:
+                got = ep.recv(0, tag=77, timeout=HOST_TIMEOUT_S)
+                if not torch.equal(got, big):
+                    raise SystemExit("host plane: the rendezvous message is wrong")
+
+        _, us["p2p_4MiB"] = timed(ep, p2p, 10)
+        refused = None
+        if hasattr(ep, "address_book") and r == 0:
+            refused = []
+            cuda = torch.ones(4, device="cuda")
+            for call in (lambda: ep.send(cuda, 1, tag=78), lambda: ep.isend(cuda, 1, tag=78)):
+                try:
+                    call()
+                    refused.append(None)
+                except zmpi.errors.TypeError_ as e:
+                    refused.append(str(e))
+        ep.barrier()
+        return us, refused
+
+    return prog
+
+
+def check_host_plane(torch, np, card_line):
+    """Phase 15: the host plane's collectives and messages at 4 thread
+    ranks and 4 TCP ranks (threads over loopback, sm off), exact against
+    numpy, with rank 0's median µs per call; a CUDA tensor sent over TCP
+    must raise dss's typed error."""
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.coll import host as coll_host
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.pt2pt import tcp  # noqa: F401 - registers tcp_*
+    from zhpe_ompi_tpu_torch.pt2pt.universe import LocalUniverse
+
+    prog = _host_plane_prog(torch, np, zmpi, zmpi.SUM)
+    ring_calls = [0]
+    ring = coll_host._allreduce_ring
+
+    def counted_ring(*a):
+        ring_calls[0] += 1
+        return ring(*a)
+
+    coll_host._allreduce_ring = counted_ring
+    res = {"large_msg": mca_var.get("host_coll_large_msg"),
+           "tcp_eager_limit": mca_var.get("tcp_eager_limit")}
+    try:
+        uni = LocalUniverse(HOST_RANKS)
+        try:
+            ring_calls[0] = 0
+            t0 = time.perf_counter()
+            out = uni.run(prog, timeout=HOST_TIMEOUT_S)
+            res["thread"] = {"us_per_call": out[0][0], "ring_calls": ring_calls[0],
+                             "s": time.perf_counter() - t0}
+        finally:
+            uni.close()
+        ring_calls[0] = 0
+        t0 = time.perf_counter()
+        out = _tcp_run(HOST_RANKS, prog, HOST_TIMEOUT_S)
+        res["tcp"] = {"us_per_call": out[0][0], "ring_calls": ring_calls[0],
+                      "s": time.perf_counter() - t0, "cuda_send_refused": out[0][1]}
+    finally:
+        coll_host._allreduce_ring = ring
+    print(json.dumps({"host_plane": res, "card": card_line}))
+    # the two sizes above host_coll_large_msg take the ring on every rank,
+    # once per timed call
+    want_ring = HOST_RANKS * sum(reps for nbytes, reps in HOST_SIZES.values()
+                                 if nbytes >= res["large_msg"])
+    for plane in ("thread", "tcp"):
+        if res[plane]["ring_calls"] != want_ring:
+            raise SystemExit(f"host plane ({plane}): {res[plane]['ring_calls']} ring "
+                             f"allreduces, expected {want_ring}")
+    refused = res["tcp"]["cuda_send_refused"]
+    if not (refused and all(m is not None and ".cpu()" in m for m in refused)):
+        raise SystemExit(f"host plane: TcpProc sent a CUDA tensor: {refused}")
+    return res
+
+
+def _host_rendezvous(srv, size):
+    """The launcher-hosted coordinator of ZMPI_COORD_EXTERNAL: gather every
+    rank's modex card, hand back the address book."""
+    from zhpe_ompi_tpu_torch.pt2pt import tcp
+    from zhpe_ompi_tpu_torch.utils import dss
+
+    book, conns = [None] * size, []
+    for _ in range(size):
+        conn, _ = srv.accept()
+        rank, card = dss.unpack(tcp._recv_frame(conn))
+        book[rank] = card
+        conns.append(conn)
+    for conn in conns:
+        tcp._send_frame(conn, dss.pack(book))
+        conn.close()
+
+
+def host_moe_child() -> int:
+    """Phase 16's child: one rank of the host-plane MoE job (see the module
+    doc), through ``zmpi.host_init``; prints one JSON line."""
+    import numpy as np
+    import torch
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.models import moe
+    from zhpe_ompi_tpu_torch.ops import flash_attention as fa
+    from zhpe_ompi_tpu_torch.ops import fused_norm
+    from zhpe_ompi_tpu_torch.runtime import spc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ep = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    r, n = ep.rank, ep.size
+    D, F, T = HEADLINE["d_model"], HEADLINE["d_ff"], HOST_MOE_TOKENS
+    rng = np.random.default_rng(HOST_MOE_SEED)
+    full = {"router": rng.standard_normal((D, n), dtype=np.float32) * D ** -0.5,
+            "w_in": rng.standard_normal((n, D, F), dtype=np.float32) * D ** -0.5,
+            "w_out": rng.standard_normal((n, F, D), dtype=np.float32) * F ** -0.5}
+    x_all = rng.standard_normal((n * T, D), dtype=np.float32)
+    params = moe.moe_params_from_numpy(full, device="cuda", ep_rank=r)
+    x = torch.from_numpy(x_all[r * T:(r + 1) * T]).to("cuda")
+    counted = _kernel_counters(fused_norm, fa)
+    moe.moe_host_ffn(ep, params, x, HOST_MOE_CAPACITY)  # warm-up
+    for fn in counted.values():
+        fn.launches = 0
+    wire0 = spc.read("tcp_bytes_sent")
+    times = []
+    for _ in range(HOST_MOE_CALLS):
+        ep.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, keep = moe.moe_host_ffn(ep, params, x, HOST_MOE_CAPACITY)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wire = (spc.read("tcp_bytes_sent") - wire0) / HOST_MOE_CALLS
+    split: dict = {}
+    for _ in range(HOST_MOE_CALLS):
+        ep.barrier()
+        moe.moe_host_ffn(ep, params, x, HOST_MOE_CAPACITY, timings=split)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    times.sort()
+    out = {"rank": r, "size": n, "median_ms": times[len(times) // 2], "ms": times,
+           "split_ms": {k: v * 1e3 / HOST_MOE_CALLS for k, v in split.items()},
+           "launches": launches, "wire_bytes_sent_per_call": wire,
+           "kept": int(keep.sum())}
+    ys = ep.gather(y.cpu(), root=0)
+    keeps = ep.gather(keep.cpu(), root=0)
+    if r == 0:
+        cap = max(1, int(HOST_MOE_CAPACITY * T / n))
+        full_t = moe.moe_params_from_numpy(full, device="cuda")
+        xa = torch.from_numpy(x_all).to("cuda")
+        dense = moe.moe_reference_dense(full_t, xa, n, cap, block_tokens=T)
+        # the reference's kept mask: first come, first served per (block,
+        # expert), as moe_reference_dense computes it
+        expert = torch.argmax(torch.softmax(xa @ full_t["router"], dim=-1), dim=-1)
+        blocks = torch.nn.functional.one_hot(expert, n).reshape(n, T, n)
+        keep_ref = (((torch.cumsum(blocks, dim=1) - 1) * blocks).sum(-1) < cap).reshape(-1)
+        y_all = torch.cat([torch.as_tensor(v) for v in ys]).to("cuda")
+        keep_all = torch.cat([torch.as_tensor(v) for v in keeps]).to("cuda")
+        out["rel_err"] = float((y_all - dense).abs().max() / dense.abs().max())
+        out["keep_equal"] = bool(torch.equal(keep_all, keep_ref))
+        out["kept_total"] = int(keep_all.sum())
+        out["finite"] = bool(torch.isfinite(y_all).all())
+        out["cap"] = cap
+    zmpi.host_finalize()
+    print(json.dumps(out))
+    if r == 0 and not (out["rel_err"] <= MOE_REL_TOL and out["keep_equal"]
+                       and out["finite"]):
+        return 1
+    if any(launches.values()):
+        return 1
+    return 0
+
+
+def drive_host_moe(torch, card_line):
+    """Phase 16: start HOST_MOE_RANKS children of this script with the
+    ZMPI_* contract (this process hosts the rendezvous) and collect their
+    results; any child that fails or prints nothing fails the smoke."""
+    import socket
+
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(HOST_MOE_RANKS)
+    srv.settimeout(HOST_TIMEOUT_S)
+    host, port = srv.getsockname()
+    env = dict(os.environ, ZMPI_SIZE=str(HOST_MOE_RANKS), ZMPI_COORD_HOST=host,
+               ZMPI_COORD_PORT=str(port), ZMPI_COORD_EXTERNAL="1", ZMPI_MCA_sm="0")
+    for k in ("ZMPI_PMIX", "ZMPI_FT"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    children = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--host-moe-child"],
+        env=dict(env, ZMPI_RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(HOST_MOE_RANKS)]
+    try:
+        _host_rendezvous(srv, HOST_MOE_RANKS)
+        outs = [c.communicate(timeout=HOST_TIMEOUT_S) for c in children]
+    finally:
+        srv.close()
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    results = []
+    for r, (c, (out, err)) in enumerate(zip(children, outs)):
+        lines = out.strip().splitlines()
+        if c.returncode != 0 or not lines:
+            raise SystemExit(f"host moe: rank {r} exited {c.returncode}\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+        results.append(json.loads(lines[-1]))
+    res = {"ranks": results, "s": time.perf_counter() - t0,
+           "median_ms": max(x["median_ms"] for x in results)}
+    print(json.dumps({"host_moe": res, "card": card_line}))
+    head = results[0]
+    print(f"host moe: moe_host_ffn median {res['median_ms']} ms (slowest rank), rank 0 "
+          f"split {head['split_ms']} ms, rel err {head['rel_err']} (tol {MOE_REL_TOL}), "
+          f"kept {head['kept_total']} of {HOST_MOE_RANKS * HOST_MOE_TOKENS} on {card_line}")
+    return res
+
+
 def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
     """Phase 5: the MPI entry point, the monitored train step, the ULFM
     methods on CUDA tensors, the device probe, the bench, finalize."""
@@ -1623,9 +1979,26 @@ def main() -> int:
         result = compare_host_us(args[1], int(args[2]) if len(args) == 3 else 10)
         print(json.dumps({"host_us_pairs": result, "card": _card_line()}))
         return 0
+    if args == ["--host-moe-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        return host_moe_child()
+    if args == ["--host-plane"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        import numpy as np
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card_line = _card_line()
+        print(f"card: {card_line}")
+        check_host_plane(torch, np, card_line)
+        drive_host_moe(torch, card_line)
+        print(card_line)
+        return 0
     if args and (args[0] != "--wrapper-host-us" or len(args) != 2):
         print("usage: chip_smoke.py [--bench-after | --wrapper-host-us PORT_ROOT "
-              "| --compare-host-us OTHER_ROOT [PAIRS]]", file=sys.stderr)
+              "| --compare-host-us OTHER_ROOT [PAIRS] | --host-plane "
+              "| --host-moe-child]", file=sys.stderr)
         return 2
     if args:
         # the wrappers' and the communicator's host cost of the port found
@@ -1728,6 +2101,8 @@ def main() -> int:
                                           card_line) if bench_after else None)
         finally:
             dist.destroy_process_group()
+    host_plane = check_host_plane(torch, np, card_line)
+    host_moe = drive_host_moe(torch, card_line)
     for k in kernels:
         # ``launches``: per training step; the other paths beside it
         k["launches"] = launches[k["name"]]
@@ -1749,6 +2124,7 @@ def main() -> int:
                       "runtime": runtime, "bench_after_profiling": late,
                       "checkpoint": ckpt, "adam_vs_plain": adam_cmp,
                       "moe_pipeline": moe_pipe, "device_plane": device_plane,
+                      "host_plane": host_plane, "host_moe": host_moe,
                       "smoke_s": time.perf_counter() - t_start}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -208,8 +208,63 @@ def test_flight_recorder_records_begin_and_commit(tmp_path):
     assert kinds == [(flightrec.CKPT_BEGIN, 8), (flightrec.CKPT_COMMIT, 8)]
 
 
+def _quiesce_trace(uni_mod, quiesce, errs):
+    """quiesce_check on an idle universe, with one posted receive, with one
+    unexpected message, and after both drain (one package's side)."""
+    uni = uni_mod.LocalUniverse(2)
+    try:
+        out = [quiesce()]
+        req = uni.contexts[1].irecv(source=0, tag=3)
+        with pytest.raises(errs.InternalError) as posted:
+            quiesce()
+        uni.contexts[0].send(np.arange(2.0), dest=1, tag=3)
+        out.append(list(np.asarray(req.wait(5.0))))
+        uni.contexts[0].send(np.zeros(2), dest=1, tag=4)
+        uni.contexts[1].progress()  # parks on the unexpected queue
+        with pytest.raises(errs.InternalError) as unexpected:
+            quiesce()
+        uni.contexts[1].recv(source=0, tag=4, timeout=5.0)
+        out.append(quiesce())
+    finally:
+        if hasattr(uni, "close"):
+            uni.close()
+    return out, str(posted.value), str(unexpected.value)
+
+
 def test_quiesce_check_has_no_queues_to_read():
+    """Since the host plane is ported, ``quiesce_check`` reads the live port
+    universes' queues: one posted receive, then one unexpected message,
+    raise the namesake's ``InternalError`` with its message; drained, it
+    passes (the namesake, on its own universe, in step)."""
+    from zhpe_ompi_tpu.core import errors as jerrors
+    from zhpe_ompi_tpu.pt2pt import universe as juni
+    from zhpe_ompi_tpu.runtime.checkpoint import quiesce_check as jquiesce
+    from zhpe_ompi_tpu_torch.pt2pt import universe as tuni
+
     assert ckpt.quiesce_check() is None
+    port = _quiesce_trace(tuni, ckpt.quiesce_check, errors)
+    ref = _quiesce_trace(juni, jquiesce, jerrors)
+    assert port == ref
+    assert port[1] == ("checkpoint at non-quiescent point: 1 posted recvs, "
+                       "0 unexpected messages in flight")
+    assert ckpt.quiesce_check() is None
+
+
+def test_checkpointer_save_waits_for_quiescence(tmp_path):
+    from zhpe_ompi_tpu_torch.pt2pt.universe import LocalUniverse
+
+    uni = LocalUniverse(2)
+    try:
+        uni.contexts[0].send(torch.zeros(2), dest=1, tag=2)
+        uni.contexts[1].progress()
+        ck = ckpt.Checkpointer(str(tmp_path))
+        with pytest.raises(errors.InternalError, match="1 unexpected"):
+            ck.save(0, {"x": torch.zeros(2)}, blocking=True)
+        uni.contexts[1].recv(source=0, tag=2, timeout=5.0)
+        ck.save(0, {"x": torch.zeros(2)}, blocking=True)
+        assert ck.restore()[1] == 0
+    finally:
+        uni.close()
 
 
 def test_placements_and_plain_leaves(tmp_path):

@@ -235,9 +235,95 @@ def test_moe_params_from_numpy_slices_the_expert():
         tmoe.moe_params_from_numpy(prm, device="cpu", ep_rank=4)
 
 
+def _host_moe_inputs():
+    """moe_host_ffn's case: 4 thread ranks, D 64, d_ff 128, 32 f32 tokens
+    per rank, a fixed seed."""
+    rng = np.random.default_rng(808)
+    n, D, F, T = 4, 64, 128, 32
+    return {
+        "router": (rng.standard_normal((D, n)) * D ** -0.5).astype(np.float32),
+        "w_in": (rng.standard_normal((n, D, F)) * D ** -0.5).astype(np.float32),
+        "w_out": (rng.standard_normal((n, F, D)) * F ** -0.5).astype(np.float32),
+        "x": rng.standard_normal((n * T, D)).astype(np.float32),
+    }, n, T
+
+
 def test_moe_host_ffn_waits_for_host_collectives():
-    with pytest.raises(errors.UnsupportedError, match="coll/host.py"):
-        tmoe.moe_host_ffn(None, {}, torch.zeros(2, 2))
+    """``moe_host_ffn`` over the port's host plane (a 4-rank thread
+    universe, both transposes through ``RankContext.alltoall``) against the
+    namesake's ``moe_host_ffn`` on its own ``LocalUniverse`` and against
+    ``moe_reference_dense``, at capacity factors 1.25 and 0.5 (the second
+    drops tokens).  The name dates from when the port waited for
+    ``coll/host.py``."""
+    from zhpe_ompi_tpu.pt2pt.universe import LocalUniverse as JUniverse
+    from zhpe_ompi_tpu_torch.pt2pt.universe import LocalUniverse as TUniverse
+
+    inp, n, T = _host_moe_inputs()
+    x = inp["x"]
+    for cf in MOE_CAPACITY:
+        tuni = TUniverse(n)
+        try:
+            port = tuni.run(lambda ctx: tmoe.moe_host_ffn(
+                ctx, tmoe.moe_params_from_numpy(inp, device="cpu", ep_rank=ctx.rank),
+                torch.from_numpy(x[ctx.rank * T:(ctx.rank + 1) * T]),
+                capacity_factor=cf), timeout=60.0)
+        finally:
+            tuni.close()
+        juni = JUniverse(n)
+
+        def jprog(ctx):
+            r = ctx.rank
+            prm = {"router": jnp.asarray(inp["router"]),
+                   "w_in": jnp.asarray(inp["w_in"][r:r + 1]),
+                   "w_out": jnp.asarray(inp["w_out"][r:r + 1])}
+            y, keep = jmoe.moe_host_ffn(ctx, prm, jnp.asarray(x[r * T:(r + 1) * T]),
+                                        capacity_factor=cf)
+            return np.asarray(y), np.asarray(keep)
+
+        ref = juni.run(jprog, timeout=60.0)
+        y = np.concatenate([p[0].numpy() for p in port])
+        keep = np.concatenate([p[1].numpy() for p in port])
+        assert keep.tolist() == np.concatenate([r[1] for r in ref]).tolist()
+        np.testing.assert_allclose(y, np.concatenate([r[0] for r in ref]),
+                                   rtol=RTOL, atol=ATOL)
+        cap = max(1, int(cf * T / n))
+        dense = tmoe.moe_reference_dense(tmoe.moe_params_from_numpy(inp, device="cpu"),
+                                         torch.from_numpy(x), n, cap, block_tokens=T)
+        np.testing.assert_allclose(y, dense.numpy(), rtol=RTOL, atol=ATOL)
+        assert 0 < keep.sum() <= n * n * cap
+
+
+def test_moe_host_ffn_timings_and_han_route():
+    """The ``timings`` split covers the call, and ``coll_han_enable=on``
+    raises naming ``coll/han.py`` instead of taking a flat route."""
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.pt2pt.universe import LocalUniverse
+
+    inp, n, T = _host_moe_inputs()
+    uni = LocalUniverse(n)
+
+    def prog(ctx):
+        t = {}
+        y, _ = tmoe.moe_host_ffn(
+            ctx, tmoe.moe_params_from_numpy(inp, device="cpu", ep_rank=ctx.rank),
+            torch.from_numpy(inp["x"][:T]), timings=t)
+        return t, y.shape
+
+    try:
+        res = uni.run(prog, timeout=60.0)
+        for t, shape in res:
+            assert shape == (T, 64)
+            assert set(t) == {"route", "d2h", "alltoall", "h2d", "expert", "combine"}
+            assert all(v >= 0.0 for v in t.values())
+        old = mca_var.get("coll_han_enable")
+        mca_var.set_var("coll_han_enable", "on")
+        try:
+            with pytest.raises(errors.UnsupportedError, match="coll/han.py"):
+                uni.contexts[0].alltoall([0] * n)
+        finally:
+            mca_var.set_var("coll_han_enable", old)
+    finally:
+        uni.close()
 
 
 def test_pipeline_single_stage_without_a_process_group():

@@ -28,7 +28,10 @@ collectives::
     params, loss = step(params, tokens, targets)
     zmpi.finalize()
 
-``host_init`` needs the host plane (``pt2pt/tcp.py``) and is not ported yet.
+The host plane runs without ``torch.distributed``: a launcher starts the
+processes with the ``ZMPI_*`` coordinator contract, and each calls
+``zmpi.host_init()`` for its ``pt2pt/tcp.TcpProc`` endpoint (send/recv and
+the host collectives; ``ZMPI_MCA_sm=0`` until ``pt2pt/sm.py`` is ported).
 """
 
 from . import ops
@@ -43,6 +46,9 @@ from .runtime import spc
 from .runtime.init import (
     comm_self,
     finalize,
+    host_finalize,
+    host_init,
+    host_world,
     init,
     initialized,
     is_finalized,
@@ -69,7 +75,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "init", "finalize", "initialized", "is_finalized", "world", "comm_self",
-    "world_mesh", "mesh", "spc", "Communicator", "Group", "ops", "errors", "mca_var", "mca_component",
+    "world_mesh", "host_init", "host_world", "host_finalize", "mesh", "spc", "Communicator", "Group", "ops", "errors", "mca_var", "mca_component",
     "mca_output", "SUM", "MAX", "MIN", "PROD", "LAND", "LOR", "LXOR", "BAND",
     "BOR", "BXOR", "MAXLOC", "MINLOC", "create_op",
 ]

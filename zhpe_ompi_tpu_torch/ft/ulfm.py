@@ -1,7 +1,9 @@
 """ULFM: the revoked-communicator registry (namesake:
 ``zhpe_ompi_tpu/ft/ulfm.py``, of which only ``revoke_cid``, ``is_revoked``
-and ``reset_revocations`` (``:114-130``) are ported; the failure detector,
-``FailureState`` and the host-plane agreement wait for the host plane).
+and ``reset_revocations`` (``:114-130``) are ported, plus the host-plane endpoints' ULFM surface
+:class:`UlfmEndpointAPI`, whose methods raise until ``FailureState``, the
+failure detector and the host-plane agreement are ported (ROADMAP queue A
+item 4)).
 
 In the JAX package one controller dispatches every device's operation, so
 its process-global set of revoked cids is the complete revocation view.
@@ -32,6 +34,7 @@ from __future__ import annotations
 import threading
 import weakref
 
+from ..core import errors
 from ..mca import output as mca_output
 from ..runtime import flightrec, spc
 
@@ -158,3 +161,37 @@ class RevocationWatcher:
         self._halt.set()
         if self._thread is not threading.current_thread():
             self._thread.join(timeout)
+
+
+# -- the host-plane endpoints' ULFM surface -----------------------------------
+
+
+def _waits_for_ft(what: str) -> errors.UnsupportedError:
+    return errors.UnsupportedError(
+        f"{what} needs fault tolerance on the host plane (FailureState, the "
+        "ring detector and the agreement of ft/ulfm.py), which the PyTorch "
+        "port has not ported yet")
+
+
+class UlfmEndpointAPI:
+    """The ULFM user surface of a host-plane endpoint (namesake:
+    ``zhpe_ompi_tpu/ft/ulfm.py``'s ``UlfmEndpointAPI``:
+    MPIX_Comm_failure_ack/_get_acked/_agree/_shrink/_revoke).  The port's
+    endpoints cannot be built with ``ft=True`` yet, and the namesake's
+    methods raise ``UnsupportedError`` on an endpoint without ft, so every
+    method here raises it, naming ``ft/ulfm.py``."""
+
+    def failure_ack(self) -> None:
+        raise _waits_for_ft("failure_ack")
+
+    def failure_get_acked(self):
+        raise _waits_for_ft("failure_get_acked")
+
+    def agree(self, flag: bool = True, timeout: float | None = None) -> bool:
+        raise _waits_for_ft("agree")
+
+    def shrink(self, consensus: bool = True):
+        raise _waits_for_ft("shrink")
+
+    def revoke(self, cid: int) -> None:
+        raise _waits_for_ft("revoke")

@@ -9,8 +9,10 @@ model's hot path.  :func:`moe_ffn` is differentiable: the backward of each
 transpose is the alltoall of the cotangent (the transpose of an alltoall
 is itself), as JAX differentiates through ``all_to_all``.
 
-``init_moe_params`` draws from the JAX PRNG; the port takes its numpy
-arrays through :func:`moe_params_from_numpy`.
+:func:`moe_host_ffn` is the same layer over the host plane's alltoall
+(a ``RankContext`` or ``TcpProc`` endpoint).  ``init_moe_params`` draws
+from the JAX PRNG; the port takes its numpy arrays through
+:func:`moe_params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -92,13 +94,104 @@ def moe_ffn(comm, params, x, capacity_factor: float = 1.25):
     return y * gate[:, None].to(y.dtype), keep
 
 
-def moe_host_ffn(ep, params, x, capacity_factor: float = 1.25):
-    """:func:`moe_ffn` on the host plane (both transposes through a host
-    endpoint's alltoall, han-hierarchical where the topology qualifies).
-    The port has no host collectives yet: waits for ``coll/host.py``."""
-    raise errors.UnsupportedError(
-        "moe_host_ffn needs the host-plane collectives (coll/host.py), "
-        "which the port does not have yet")
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def moe_host_ffn(ep, params, x, capacity_factor: float = 1.25,
+                 timings: dict | None = None):
+    """:func:`moe_ffn` on the HOST plane: the same top-1 routing and
+    static-capacity math, but both ep transposes ride the host endpoint's
+    ``alltoall`` (``coll/host.py``), the serving plane's expert-dispatch
+    path.  ``ep`` is any host endpoint carrying ``HostCollectives`` (a
+    ``RankContext``, a ``TcpProc``); one expert per rank.  Returns
+    ``(y, keep)`` exactly like :func:`moe_ffn`.
+
+    The router, the capacity math and the expert products run on ``x``'s
+    device.  The host plane moves host payloads, so the dispatch buffer is
+    staged explicitly with one ``.cpu()`` (its per-expert rows go out as
+    views of that copy, where the namesake makes ``np.asarray`` blocks),
+    and each received block is copied back with ``.to(x.device)``.  The
+    alltoall is the flat one (the namesake's han route waits for
+    ``coll/han.py``: with ``coll_han_enable=on`` it raises).
+
+    ``timings``, when given a dict, accumulates this call's host seconds
+    per phase — ``"route"``, ``"d2h"``, ``"alltoall"`` (both transposes),
+    ``"h2d"``, ``"expert"`` and ``"combine"`` — synchronizing the device
+    at each phase boundary (so the phases do not overlap while timed), and
+    ``"expert_device"``, the expert products' device seconds from CUDA
+    events (on a CUDA ``x`` only)."""
+    import time
+
+    dev = x.device
+    clock = [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        if timings is None:
+            return
+        _sync(dev)
+        now = time.perf_counter()
+        timings[phase] = timings.get(phase, 0.0) + now - clock[0]
+        clock[0] = now
+
+    if timings is not None:
+        _sync(dev)
+        clock[0] = time.perf_counter()
+    n = ep.size
+    T, D = x.shape
+    cap = max(1, int(capacity_factor * T / n))
+
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)  # (T, E)
+    expert = torch.argmax(probs, dim=-1)
+    gate = probs.gather(1, expert[:, None])[:, 0]
+    onehot = F.one_hot(expert, n)
+    pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(-1)
+    keep = pos < cap
+    slot = torch.where(keep, expert * cap + pos, n * cap)
+    buf = x.new_zeros((n * cap + 1, D)).index_copy(0, slot, x)[:n * cap]
+    mark("route")
+
+    # ep transpose #1 on the host plane: one rank-indexed block per
+    # destination expert, rows of one explicit host copy
+    staged = buf.reshape(n, cap, D).cpu()
+    mark("d2h")
+    dispatched = ep.alltoall([staged[e] for e in range(n)])
+    mark("alltoall")
+    blocks = torch.empty((n, cap, D), dtype=x.dtype, device=dev)
+    for s, blk in enumerate(dispatched):
+        blocks[s].copy_(torch.as_tensor(blk))
+    mark("h2d")
+
+    if timings is not None and dev.type == "cuda":
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+    h = F.gelu(blocks.float() @ params["w_in"][0], approximate="tanh")
+    out = (h @ params["w_out"][0]).to(x.dtype)  # (n, cap, D)
+    if timings is not None and dev.type == "cuda":
+        ev1.record()
+    mark("expert")
+    if timings is not None and dev.type == "cuda":
+        timings["expert_device"] = timings.get("expert_device", 0.0) \
+            + ev0.elapsed_time(ev1) / 1e3
+
+    # ep transpose #2: results ride back to their source ranks
+    out_host = out.cpu()
+    mark("d2h")
+    returned = ep.alltoall([out_host[s] for s in range(n)])
+    mark("alltoall")
+    flat = torch.empty((n, cap, D), dtype=x.dtype, device=dev)
+    for s, blk in enumerate(returned):
+        flat[s].copy_(torch.as_tensor(blk))
+    mark("h2d")
+
+    y = flat.reshape(n * cap, D).index_select(0, slot.clamp(0, n * cap - 1))
+    y = torch.where(keep[:, None], y,
+                    torch.zeros((), dtype=y.dtype, device=dev))
+    y = y * gate[:, None].to(y.dtype)
+    mark("combine")
+    return y, keep
 
 
 def moe_reference_dense(params, x_all, n_experts: int, capacity: int,

@@ -48,12 +48,20 @@ _PLAIN = (bool, int, float, str, type(None))
 
 def quiesce_check() -> None:
     """Raise if host-plane pt2pt queues are non-empty (the checkable form
-    of crcp/bkmrk's 'drain in-flight messages first' protocol).  The port
-    has no host-plane universe yet, so there are no queues to read and it
-    returns, as the namesake does on empty queues; it reads
-    ``pt2pt/universe``'s posted and unexpected queues once that module is
-    ported (ROADMAP queue A item 3)."""
-    return None
+    of crcp/bkmrk's 'drain in-flight messages first' protocol): the posted
+    and unexpected queues of every live ``pt2pt/universe`` universe, read
+    as the namesake reads them (``_queue_depth(...,
+    exempt_acked_failed=True)``; a port universe has no failure state, so
+    nothing is exempt)."""
+    from ..pt2pt import universe as uni_mod
+
+    posted = uni_mod._queue_depth("posted", exempt_acked_failed=True)
+    unexpected = uni_mod._queue_depth("unexpected", exempt_acked_failed=True)
+    if posted or unexpected:
+        raise errors.InternalError(
+            f"checkpoint at non-quiescent point: {posted} posted recvs, "
+            f"{unexpected} unexpected messages in flight"
+        )
 
 
 def _snapshot(leaf):

@@ -13,8 +13,14 @@ collapses to:
 is lazy, and so is NCCL's communicator creation (no group is bound to a
 device), so ``init`` costs one process group and one one-rank group.
 
-Not ported yet: ``host_init`` (and ``host_world``/``host_finalize``), the
-host-plane universe, which needs ``pt2pt/tcp.py``.
+The host plane (launcher-started multi-process jobs) has its own entry:
+:func:`host_init` reads the ``ZMPI_*`` coordinator contract and wires the
+process into a ``pt2pt/tcp.TcpProc`` universe (``host_world``,
+``host_finalize``).  Against the namesake: ``ZMPI_PMIX`` (the daemon-hosted
+store) raises ``UnsupportedError`` naming ``runtime/pmix.py``,
+``ZMPI_FT=1`` raises naming ``ft/ulfm.py``, and the ``ZMPI_LIFELINE``
+watch (``_arm_lifeline``) comes with the DVM (ROADMAP queue A item 4).
+Until ``pt2pt/sm.py`` lands, a host-plane job runs with ``ZMPI_MCA_sm=0``.
 """
 
 from __future__ import annotations
@@ -200,3 +206,75 @@ def finalize() -> None:
 
 def is_finalized() -> bool:
     return _global["finalized"]
+
+
+# -- host plane (launcher-started multi-process jobs) ----------------------
+
+_host = {"proc": None}
+_host_lock = threading.Lock()
+
+
+def host_init(timeout: float = 30.0):
+    """Wire this process into a launcher-started host-plane universe.
+
+    Reads the ``ZMPI_RANK``/``ZMPI_SIZE``/``ZMPI_COORD_HOST``/
+    ``ZMPI_COORD_PORT`` environment contract (``ZMPI_COORD_EXTERNAL=1``:
+    the launcher hosts the rendezvous, so rank 0 joins it as a client) —
+    the one the namesake's ``zmpirun`` exports — and performs the TcpProc
+    modex, mirroring the reference's ``ompi_rte_init`` → PMIx_Init
+    connect step (``ompi_mpi_init.c:508``).  A missing or malformed
+    variable raises ``NotInitializedError``.  Idempotent; returns this
+    process's :class:`~zhpe_ompi_tpu_torch.pt2pt.tcp.TcpProc` endpoint.
+    ``ZMPI_PMIX`` and ``ZMPI_FT=1`` raise ``UnsupportedError`` (see the
+    module doc); the ``sm`` MCA var applies as to any ``TcpProc``.
+    """
+    with _host_lock:
+        if _host["proc"] is not None:
+            return _host["proc"]
+        if os.environ.get("ZMPI_PMIX") is not None:
+            raise errors.UnsupportedError(
+                "host_init: ZMPI_PMIX names a daemon-hosted job, whose "
+                "store-served wire-up needs runtime/pmix.py, which the "
+                "PyTorch port has not ported yet; use the ZMPI_COORD_HOST/"
+                "ZMPI_COORD_PORT contract")
+        if os.environ.get("ZMPI_FT") == "1":
+            raise errors.UnsupportedError(
+                "host_init: ZMPI_FT=1 asks for fault tolerance, which needs "
+                "ft/ulfm.py, not yet ported to the PyTorch port")
+        try:
+            rank = int(os.environ["ZMPI_RANK"])
+            size = int(os.environ["ZMPI_SIZE"])
+            chost = os.environ["ZMPI_COORD_HOST"]
+            cport = int(os.environ["ZMPI_COORD_PORT"])
+        except (KeyError, ValueError) as e:
+            raise errors.NotInitializedError(
+                f"host_init: bad ZMPI_* contract ({e}) — export "
+                "ZMPI_RANK/SIZE/COORD_HOST/COORD_PORT"
+            ) from None
+        from ..pt2pt.tcp import TcpProc
+
+        t0 = time.perf_counter()
+        proc = TcpProc(
+            rank, size, coordinator=(chost, cport), timeout=timeout,
+            external_coordinator=os.environ.get(
+                "ZMPI_COORD_EXTERNAL") == "1",
+        )
+        _host["proc"] = proc
+        spc.record("init_count", 1)
+        mca_output.verbose(
+            1, _stream, "host plane up: rank %d/%d in %.1fms", rank, size,
+            (time.perf_counter() - t0) * 1e3,
+        )
+        return proc
+
+
+def host_world():
+    """The TcpProc endpoint created by :func:`host_init` (or None)."""
+    return _host["proc"]
+
+
+def host_finalize() -> None:
+    with _host_lock:
+        proc, _host["proc"] = _host["proc"], None
+        if proc is not None:
+            proc.close()

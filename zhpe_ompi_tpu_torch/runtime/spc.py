@@ -15,7 +15,47 @@ of the JAX package's ``tools/zlint/rules.parse_counter_doc``).
 API-surface counters:
 
 - ``init_count`` — runtime initializations (``runtime/init.py``'s
-  ``init()``; an idempotent second call does not count).
+  ``init()`` and ``host_init()``; an idempotent second call does not
+  count).
+
+Host-plane matching counters (``pt2pt/matching.py``):
+
+- ``match_comparisons`` — posted/unexpected entry inspections performed
+  while matching (the bin walks' actual work).
+- ``match_unexpected_max_depth`` — WATERMARK: the deepest the
+  unexpected backlog ever got (recorded at insert).
+- ``pt2pt_sends`` / ``pt2pt_bytes_sent`` — thread-plane
+  (``RankContext``) isends and their payload bytes; the wire plane's
+  twin is the ``tcp_*`` family.
+
+Wire-plane counters (``pt2pt/tcp.py``):
+
+- ``tcp_bytes_sent`` / ``tcp_bytes_recvd`` — on-wire bytes: every
+  length-framed message including its 4-byte header (eager frames,
+  rendezvous RTS/CTS/data, modex and hello frames; rank-to-self delivery
+  never hits the wire and is not counted).
+- ``tcp_zero_copy_sends`` — sends whose array/bytes payload left as
+  out-of-band segments (``dss.pack_frames`` + vectored ``sendmsg``).
+- ``tcp_copy_bytes_avoided`` — payload bytes that skipped the pack-side
+  serialization copy (OOB segment bytes, plus loopback payload bytes).
+- ``tcp_loopback_fast_deliveries`` — rank-to-self sends delivered by the
+  single-defensive-copy shortcut instead of a full DSS round trip.
+- ``tcp_rndv_sends`` — rendezvous (RTS/CTS) transfers initiated.
+- ``tcp_isend_deferred`` — isends that entered the deferred-contract
+  progress engine (eager frames queued for the push-pool workers,
+  rendezvous descriptors parked without the copy).
+- ``rndv_park_bytes_avoided`` — payload bytes a rendezvous isend parked
+  as the caller's own pinned buffers instead of the blocking path's
+  defensive ``bytes()`` copy.
+- ``tcp_rndv_park_copy_bytes`` — payload bytes the blocking send path
+  copied at park time (its buffer-reuse contract holds at return).
+- ``tcp_lazy_connects`` — outbound wire sockets actually dialed (a modex
+  card costs no socket until first traffic).
+- ``tcp_push_rr_rotations`` — rendezvous push-pool drains that hit the
+  fair-share quantum with other destination channels waiting and
+  rotated to the back of the pool queue.
+- ``trace_wire_context_bytes`` — bytes of ``(trace_id, parent_sid,
+  seq)`` context appended to DSS frame headers while tracing is armed.
 
 Device-plane liveness counters (``parallel/mesh.py``):
 
