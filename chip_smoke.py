@@ -119,29 +119,43 @@ Phases, each of which exits non-zero on failure:
    periodic (1,) cart, and ``device_pack``/``device_unpack`` of a vector
    type on a 64 MiB tensor against the host convertor, with µs and GB/s.
 15. The host plane in this process (``check_host_plane``): a 4-rank
-   thread ``LocalUniverse`` and a 4-rank ``TcpProc`` universe in threads
-   over loopback (``sm=False``).  On each: a barrier, an ``allreduce`` SUM
-   of int64 CPU tensors at 1 KiB, 1 MiB and 64 MiB (the last two above
-   ``host_coll_large_msg``: the ring must run), checked exactly against
-   numpy, an ``alltoall``, an ``iallreduce`` and a 4 MiB point-to-point
-   message (above ``tcp_eager_limit``: rendezvous); the median µs per
-   call.  ``TcpProc.send`` and ``isend`` of a CUDA tensor must raise
-   dss's typed error.
-16. The host-plane MoE path through its entry point (``drive_host_moe``):
-   this script starts 4 child processes of itself, each with the
-   ``ZMPI_*`` coordinator contract (this process hosts the rendezvous,
-   ``ZMPI_COORD_EXTERNAL=1``) and ``ZMPI_MCA_sm=0``.  Each calls
-   ``zmpi.host_init()``, builds its expert on ``cuda`` from a seeded numpy
-   generator, and runs ``moe_host_ffn`` at d_model 1024, d_ff 4096, 2048
-   f32 tokens per rank, 4 experts, capacity factor 1.25, TF32 off: the
-   median ms of 5 calls, then 5 calls split into routing, device-to-host
-   staging, the two alltoalls on the wire, host-to-device, the expert
-   products (host clock and CUDA events) and the combine; the kernels'
-   launch counts over the calls (the path launches none of them) and the
-   wire bytes per call.  Rank 0 gathers every rank's ``y`` and ``keep``
-   over the host plane and holds them against ``moe_reference_dense``
-   over all 8192 tokens (``MOE_REL_TOL``) and the reference's kept mask.
-   A child that exits non-zero, or prints no result, fails the smoke.
+   thread ``LocalUniverse``, then four 4-rank ``TcpProc`` universes in
+   threads over loopback: ``tcp`` (``sm=False``: every frame on the
+   wire), ``sm`` (the ``sm`` var at its default, one boot id: the
+   shared-memory rings carry the data and the wire only the modex),
+   ``han`` (``sm_boot_id`` pinned so ranks 0-1 and 2-3 are two emulated
+   hosts: ``coll_han_enable=auto`` takes the two-level schedules, intra
+   and inter bytes both rise, no flat fallback) and ``numa`` (one boot id,
+   ``sm_numa_id`` pinned to two domains of two ranks: allreduce, bcast and
+   barrier run three-level).  On each: a barrier, an ``allreduce`` SUM of
+   int64 CPU tensors at 1 KiB, 1 MiB and 64 MiB (the last two above
+   ``host_coll_large_msg``: the flat planes must take the ring), checked
+   exactly against numpy, an ``alltoall``, an ``iallreduce``, a ``bcast``
+   and a 4 MiB point-to-point message; rank 0's median µs per call and the
+   plane's SPC counters.  ``TcpProc.send`` and ``isend`` of a CUDA tensor
+   must raise dss's typed error on every TcpProc plane.  The han plane
+   also runs one ``moe_host_ffn`` at the host-moe width (below), experts
+   on ``cuda``, held against ``moe_reference_dense`` (``MOE_REL_TOL``)
+   with the kept mask equal.  After each plane no ring file, poll thread,
+   segment audit failure or han tag window may be left.
+16. The host-plane MoE path through its entry point
+   (``drive_host_moe_both``), twice: with ``ZMPI_MCA_sm`` unset (the
+   default: the rings carry both alltoalls) and with ``ZMPI_MCA_sm=0``
+   (all on the loopback wire).  For each this script starts 4 child
+   processes of itself, each with the ``ZMPI_*`` coordinator contract
+   (this process hosts the rendezvous, ``ZMPI_COORD_EXTERNAL=1``), the
+   second job after the first.  Each calls ``zmpi.host_init()``, builds its
+   expert on ``cuda`` from a seeded numpy generator, and runs
+   ``moe_host_ffn`` at d_model 1024, d_ff 4096, 2048 f32 tokens per rank,
+   4 experts, capacity factor 1.25, TF32 off: the median ms of 5 calls,
+   then 5 calls split into routing, device-to-host staging, the two
+   alltoalls, host-to-device, the expert products (host clock and CUDA
+   events) and the combine; the kernels' launch counts over the calls (the
+   path launches none of them) and the bytes per call on the rings and on
+   the wire.  Rank 0 gathers every rank's ``y`` and ``keep`` over the host
+   plane and holds them against ``moe_reference_dense`` over all 8192
+   tokens (``MOE_REL_TOL``) and the reference's kept mask.  A child that
+   exits non-zero, or prints no result, fails the smoke.
 17. Print one ``{"kernels": [...]}`` line (``launches``: per training
    step; ``launches_by_path``: per forward, training, remat, sp, runtime,
    long-context and Adam step), the card's line, and last ``{"ok": true,
@@ -290,7 +304,9 @@ PACK_BYTES = 64 << 20
 # host plane: ranks of the in-process universes, allreduce sizes with the
 # calls timed at each, the point-to-point message (above tcp_eager_limit)
 HOST_RANKS = 4
-HOST_SIZES = {"1KiB": (1 << 10, 20), "1MiB": (1 << 20, 10), "64MiB": (64 << 20, 3)}
+HOST_SIZES = {"1KiB": (1 << 10, 10), "1MiB": (1 << 20, 5), "64MiB": (64 << 20, 3)}
+# timed calls of the small collectives and of the 4 MiB message per plane
+HOST_REPS, HOST_P2P_REPS = 10, 5
 HOST_P2P_BYTES = 4 << 20
 HOST_TIMEOUT_S = 300.0
 # host-plane MoE: ranks (one expert each), tokens per rank, timed calls,
@@ -1291,9 +1307,10 @@ def _in_threads(n, fn, timeout):
     return results
 
 
-def _tcp_run(n, prog, timeout):
-    """prog(proc) on an n-rank TcpProc universe in threads over loopback
-    (sm off); rank 0 binds the coordinator on port 0."""
+def _tcp_run(n, prog, timeout, kwargs_by_rank=None):
+    """prog(proc) on an n-rank TcpProc universe in threads over loopback;
+    rank 0 binds the coordinator on port 0.  ``kwargs_by_rank[r]`` are
+    rank r's constructor overrides (``sm``, ``sm_boot_id``, ...)."""
     import threading
 
     from zhpe_ompi_tpu_torch.pt2pt.tcp import TcpProc
@@ -1305,13 +1322,14 @@ def _tcp_run(n, prog, timeout):
         ready.set()
 
     def rank(r):
+        kw = dict((kwargs_by_rank or {}).get(r, {}), timeout=timeout)
         if r == 0:
             proc = TcpProc(0, n, coordinator=("127.0.0.1", 0), on_coordinator_bound=publish,
-                           sm=False, timeout=timeout)
+                           **kw)
         else:
             if not ready.wait(timeout):
                 raise SystemExit("host plane: no coordinator address")
-            proc = TcpProc(r, n, coordinator=addr[0], sm=False, timeout=timeout)
+            proc = TcpProc(r, n, coordinator=addr[0], **kw)
         try:
             return prog(proc)
         finally:
@@ -1320,9 +1338,46 @@ def _tcp_run(n, prog, timeout):
     return _in_threads(n, rank, timeout)
 
 
-def _host_plane_prog(torch, np, zmpi, torch_sum):
+def _host_moe_inputs(np, n, tokens):
+    """The host-plane MoE's experts and tokens at the headline width, from
+    HOST_MOE_SEED (numpy; every rank takes its expert and its tokens)."""
+    D, F = HEADLINE["d_model"], HEADLINE["d_ff"]
+    rng = np.random.default_rng(HOST_MOE_SEED)
+    full = {"router": rng.standard_normal((D, n), dtype=np.float32) * D ** -0.5,
+            "w_in": rng.standard_normal((n, D, F), dtype=np.float32) * D ** -0.5,
+            "w_out": rng.standard_normal((n, F, D), dtype=np.float32) * F ** -0.5}
+    return full, rng.standard_normal((n * tokens, D), dtype=np.float32)
+
+
+def _host_moe_check(torch, moe, full, x_all, ys, keeps, n, tokens) -> dict:
+    """Every rank's ``y`` and ``keep`` (gathered) against
+    ``moe_reference_dense`` over all tokens on the card, and the reference's
+    kept mask (first come, first served per (block, expert))."""
+    cap = max(1, int(HOST_MOE_CAPACITY * tokens / n))
+    full_t = moe.moe_params_from_numpy(full, device="cuda")
+    xa = torch.from_numpy(x_all).to("cuda")
+    dense = moe.moe_reference_dense(full_t, xa, n, cap, block_tokens=tokens)
+    expert = torch.argmax(torch.softmax(xa @ full_t["router"], dim=-1), dim=-1)
+    blocks = torch.nn.functional.one_hot(expert, n).reshape(n, tokens, n)
+    keep_ref = (((torch.cumsum(blocks, dim=1) - 1) * blocks).sum(-1) < cap).reshape(-1)
+    y_all = torch.cat([torch.as_tensor(v) for v in ys]).to("cuda")
+    keep_all = torch.cat([torch.as_tensor(v) for v in keeps]).to("cuda")
+    return {"rel_err": float((y_all - dense).abs().max() / dense.abs().max()),
+            "keep_equal": bool(torch.equal(keep_all, keep_ref)),
+            "kept_total": int(keep_all.sum()), "finite": bool(torch.isfinite(y_all).all()),
+            "cap": cap}
+
+
+def _moe_ok(res) -> bool:
+    return res["rel_err"] <= MOE_REL_TOL and res["keep_equal"] and res["finite"]
+
+
+def _host_plane_prog(torch, np, zmpi, torch_sum, moe_case=None):
     """The per-rank body of check_host_plane: rank 0's µs per call (a
-    barrier before each call), and exact checks against numpy."""
+    barrier before each call), and exact checks against numpy.  With
+    ``moe_case`` (experts, tokens), one ``moe_host_ffn`` call at the
+    host-moe width, experts on the card, held by rank 0 against the
+    dense reference."""
     def timed(ep, fn, reps):
         times, out = [], None
         for _ in range(reps):
@@ -1336,7 +1391,7 @@ def _host_plane_prog(torch, np, zmpi, torch_sum):
     def prog(ep):
         r, n = ep.rank, ep.size
         us = {}
-        _, us["barrier"] = timed(ep, ep.barrier, 20)
+        _, us["barrier"] = timed(ep, ep.barrier, HOST_REPS)
         for label, (nbytes, reps) in HOST_SIZES.items():
             count = nbytes // 8
             x = torch.from_numpy(np.arange(count, dtype=np.int64) * (r + 1) + r)
@@ -1346,14 +1401,18 @@ def _host_plane_prog(torch, np, zmpi, torch_sum):
                     and np.array_equal(got.numpy(), want)):
                 raise SystemExit(f"host plane: allreduce {label} is wrong on rank {r}")
         blocks = [torch.full((128,), 1000 * r + d, dtype=torch.int64) for d in range(n)]
-        got, us["alltoall_1KiB"] = timed(ep, lambda: ep.alltoall(blocks), 20)
+        got, us["alltoall_1KiB"] = timed(ep, lambda: ep.alltoall(blocks), HOST_REPS)
         if [int(b[0]) for b in got] != [1000 * s + r for s in range(n)]:
             raise SystemExit(f"host plane: alltoall is wrong on rank {r}")
         small = torch.full((128,), r + 1, dtype=torch.int64)
         got, us["iallreduce_1KiB"] = timed(
-            ep, lambda: ep.iallreduce(small, torch_sum).wait(HOST_TIMEOUT_S), 20)
+            ep, lambda: ep.iallreduce(small, torch_sum).wait(HOST_TIMEOUT_S), HOST_REPS)
         if not bool((got == n * (n + 1) // 2).all()):
             raise SystemExit(f"host plane: iallreduce is wrong on rank {r}")
+        got, us["bcast_1KiB"] = timed(
+            ep, lambda: ep.bcast(small if r == n - 1 else None, root=n - 1), HOST_REPS)
+        if not bool((got == n).all()):
+            raise SystemExit(f"host plane: bcast is wrong on rank {r}")
         big = torch.arange(HOST_P2P_BYTES // 4, dtype=torch.float32)
 
         def p2p():
@@ -1362,9 +1421,9 @@ def _host_plane_prog(torch, np, zmpi, torch_sum):
             elif r == 1:
                 got = ep.recv(0, tag=77, timeout=HOST_TIMEOUT_S)
                 if not torch.equal(got, big):
-                    raise SystemExit("host plane: the rendezvous message is wrong")
+                    raise SystemExit("host plane: the 4 MiB message is wrong")
 
-        _, us["p2p_4MiB"] = timed(ep, p2p, 10)
+        _, us["p2p_4MiB"] = timed(ep, p2p, HOST_P2P_REPS)
         refused = None
         if hasattr(ep, "address_book") and r == 0:
             refused = []
@@ -1375,63 +1434,149 @@ def _host_plane_prog(torch, np, zmpi, torch_sum):
                     refused.append(None)
                 except zmpi.errors.TypeError_ as e:
                     refused.append(str(e))
+        moe_res = None
+        if moe_case is not None:
+            from zhpe_ompi_tpu_torch.models import moe
+
+            full, x_all = moe_case
+            tokens = HOST_MOE_TOKENS
+            params = moe.moe_params_from_numpy(full, device="cuda", ep_rank=r)
+            x = torch.from_numpy(x_all[r * tokens:(r + 1) * tokens]).to("cuda")
+            ep.barrier()
+            t0 = time.perf_counter()
+            y, keep = moe.moe_host_ffn(ep, params, x, HOST_MOE_CAPACITY)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            ys, keeps = ep.gather(y.cpu(), root=0), ep.gather(keep.cpu(), root=0)
+            if r == 0:
+                moe_res = dict(_host_moe_check(torch, moe, full, x_all, ys, keeps, n,
+                                               tokens), ms=ms)
         ep.barrier()
-        return us, refused
+        return us, refused, moe_res
 
     return prog
 
 
+# Phase 15's planes: the thread universe, then 4-rank TcpProc universes in
+# this process's threads — per rank constructor overrides.  "tcp": sm off
+# (every frame on the loopback wire); "sm": sm at its default (one boot
+# id, the rings carry the data); "han": sm_boot_id pinned so ranks 0-1 and
+# 2-3 are two emulated hosts (coll_han_enable auto engages); "numa": one
+# boot id, sm_numa_id pinned to two domains of two ranks (three-level han).
+HOST_TCP_PLANES = {
+    "tcp": {r: {"sm": False} for r in range(HOST_RANKS)},
+    "sm": {},
+    "han": {r: {"sm_boot_id": "smoke-host-a" if r < 2 else "smoke-host-b"}
+            for r in range(HOST_RANKS)},
+    "numa": {r: {"sm_numa_id": "d0" if r < 2 else "d1"} for r in range(HOST_RANKS)},
+}
+HOST_COUNTERS = ("sm_bytes_sent", "tcp_bytes_sent", "sm_fallback_tcp_sends",
+                 "coll_han_intra_bytes", "coll_han_inter_bytes", "han_flat_fallbacks",
+                 "coll_han_numa_collectives", "coll_han_alltoall_collectives")
+
+
 def check_host_plane(torch, np, card_line):
-    """Phase 15: the host plane's collectives and messages at 4 thread
-    ranks and 4 TCP ranks (threads over loopback, sm off), exact against
-    numpy, with rank 0's median µs per call; a CUDA tensor sent over TCP
-    must raise dss's typed error."""
+    """Phase 15: the host plane's collectives and messages on the thread
+    universe and the four TcpProc planes of HOST_TCP_PLANES, exact against
+    numpy, with rank 0's median µs per call and each plane's counters; a
+    CUDA tensor sent by a TcpProc must raise dss's typed error; the han
+    plane also runs moe_host_ffn against the dense reference; no ring file,
+    poll thread, audit failure or han tag window may outlive a plane."""
     import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.coll import han
     from zhpe_ompi_tpu_torch.coll import host as coll_host
     from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.pt2pt import groups, sm
     from zhpe_ompi_tpu_torch.pt2pt import tcp  # noqa: F401 - registers tcp_*
     from zhpe_ompi_tpu_torch.pt2pt.universe import LocalUniverse
+    from zhpe_ompi_tpu_torch.runtime import spc
 
-    prog = _host_plane_prog(torch, np, zmpi, zmpi.SUM)
-    ring_calls = [0]
-    ring = coll_host._allreduce_ring
+    moe_case = _host_moe_inputs(np, HOST_RANKS, HOST_MOE_TOKENS)
+    calls = {"ring": 0, "numa_allreduce": 0, "numa_bcast": 0, "numa_barrier": 0}
+    patched = [(coll_host, "_allreduce_ring", "ring"),
+               (han, "_allreduce_numa", "numa_allreduce"),
+               (han, "_bcast_numa", "numa_bcast"),
+               (han, "_barrier_numa", "numa_barrier")]
+    saved = []
+    for mod, name, key in patched:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
 
-    def counted_ring(*a):
-        ring_calls[0] += 1
-        return ring(*a)
+        def counted(*a, _fn=fn, _key=key):
+            calls[_key] += 1
+            return _fn(*a)
 
-    coll_host._allreduce_ring = counted_ring
+        setattr(mod, name, counted)
     res = {"large_msg": mca_var.get("host_coll_large_msg"),
-           "tcp_eager_limit": mca_var.get("tcp_eager_limit")}
+           "tcp_eager_limit": mca_var.get("tcp_eager_limit"),
+           "sm_ring_bytes": mca_var.get("sm_ring_bytes"),
+           "sm_max_frag": mca_var.get("sm_max_frag")}
     try:
-        uni = LocalUniverse(HOST_RANKS)
-        try:
-            ring_calls[0] = 0
+        for plane in ("thread", *HOST_TCP_PLANES):
+            prog = _host_plane_prog(torch, np, zmpi, zmpi.SUM,
+                                    moe_case if plane == "han" else None)
+            for k in calls:
+                calls[k] = 0
+            before = {k: spc.read(k) for k in HOST_COUNTERS}
             t0 = time.perf_counter()
-            out = uni.run(prog, timeout=HOST_TIMEOUT_S)
-            res["thread"] = {"us_per_call": out[0][0], "ring_calls": ring_calls[0],
-                             "s": time.perf_counter() - t0}
-        finally:
-            uni.close()
-        ring_calls[0] = 0
-        t0 = time.perf_counter()
-        out = _tcp_run(HOST_RANKS, prog, HOST_TIMEOUT_S)
-        res["tcp"] = {"us_per_call": out[0][0], "ring_calls": ring_calls[0],
-                      "s": time.perf_counter() - t0, "cuda_send_refused": out[0][1]}
+            if plane == "thread":
+                uni = LocalUniverse(HOST_RANKS)
+                try:
+                    out = uni.run(prog, timeout=HOST_TIMEOUT_S)
+                finally:
+                    uni.close()
+            else:
+                out = _tcp_run(HOST_RANKS, prog, HOST_TIMEOUT_S, HOST_TCP_PLANES[plane])
+            res[plane] = {"us_per_call": out[0][0], "s": time.perf_counter() - t0,
+                          "ring_calls": calls["ring"],
+                          "numa_calls": {k: v for k, v in calls.items() if k != "ring"},
+                          "counters": {k: spc.read(k) - before[k] for k in HOST_COUNTERS},
+                          "cuda_send_refused": out[0][1], "moe": out[0][2],
+                          "leftovers": [*sm.orphaned_ring_files(), *sm.live_poll_threads(),
+                                        *sm.segment_audit_failures(),
+                                        *groups.leaked_tag_windows()]}
     finally:
-        coll_host._allreduce_ring = ring
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     print(json.dumps({"host_plane": res, "card": card_line}))
     # the two sizes above host_coll_large_msg take the ring on every rank,
-    # once per timed call
+    # once per timed call, wherever the allreduce is flat
     want_ring = HOST_RANKS * sum(reps for nbytes, reps in HOST_SIZES.values()
                                  if nbytes >= res["large_msg"])
-    for plane in ("thread", "tcp"):
+    for plane in ("thread", "tcp", "sm"):
         if res[plane]["ring_calls"] != want_ring:
             raise SystemExit(f"host plane ({plane}): {res[plane]['ring_calls']} ring "
                              f"allreduces, expected {want_ring}")
-    refused = res["tcp"]["cuda_send_refused"]
-    if not (refused and all(m is not None and ".cpu()" in m for m in refused)):
-        raise SystemExit(f"host plane: TcpProc sent a CUDA tensor: {refused}")
+    for plane in HOST_TCP_PLANES:
+        got = res[plane]
+        refused = got["cuda_send_refused"]
+        if not (refused and all(m is not None and ".cpu()" in m for m in refused)):
+            raise SystemExit(f"host plane ({plane}): TcpProc sent a CUDA tensor: {refused}")
+        if got["leftovers"]:
+            raise SystemExit(f"host plane ({plane}): left behind {got['leftovers']}")
+    c = {plane: res[plane]["counters"] for plane in HOST_TCP_PLANES}
+    if c["tcp"]["sm_bytes_sent"] != 0:
+        raise SystemExit(f"host plane (tcp): ring bytes with sm off: {c['tcp']}")
+    # sm: the rings carry the data; the wire only the modex frames
+    if not (c["sm"]["sm_bytes_sent"] > HOST_RANKS * (64 << 20)
+            and c["sm"]["tcp_bytes_sent"] < 16 << 10 and c["sm"]["sm_fallback_tcp_sends"] == 0):
+        raise SystemExit(f"host plane (sm): the rings did not carry the data: {c['sm']}")
+    if not (c["han"]["coll_han_intra_bytes"] > 0 and c["han"]["coll_han_inter_bytes"] > 0
+            and c["han"]["han_flat_fallbacks"] == 0):
+        raise SystemExit(f"host plane (han): the two-level schedules did not run: {c['han']}")
+    moe_res = res["han"]["moe"]
+    if not (moe_res and _moe_ok(moe_res)
+            and c["han"]["coll_han_alltoall_collectives"] >= 2 * HOST_RANKS):
+        raise SystemExit(f"host plane (han): moe_host_ffn is wrong or flat: {moe_res}")
+    numa = res["numa"]["numa_calls"]
+    if not (all(v > 0 for v in numa.values())
+            and c["numa"]["coll_han_numa_collectives"] >= sum(numa.values())
+            and c["numa"]["han_flat_fallbacks"] == 0):
+        raise SystemExit(f"host plane (numa): the three-level schedules did not run: "
+                         f"{numa} {c['numa']}")
+    print(f"host plane: rank 0 µs per call by plane "
+          f"{ {p: res[p]['us_per_call'] for p in ('thread', *HOST_TCP_PLANES)} }; "
+          f"han moe_host_ffn {moe_res['ms']} ms, rel err {moe_res['rel_err']} on {card_line}")
     return res
 
 
@@ -1466,20 +1611,15 @@ def host_moe_child() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     ep = zmpi.host_init(timeout=HOST_TIMEOUT_S)
-    r, n = ep.rank, ep.size
-    D, F, T = HEADLINE["d_model"], HEADLINE["d_ff"], HOST_MOE_TOKENS
-    rng = np.random.default_rng(HOST_MOE_SEED)
-    full = {"router": rng.standard_normal((D, n), dtype=np.float32) * D ** -0.5,
-            "w_in": rng.standard_normal((n, D, F), dtype=np.float32) * D ** -0.5,
-            "w_out": rng.standard_normal((n, F, D), dtype=np.float32) * F ** -0.5}
-    x_all = rng.standard_normal((n * T, D), dtype=np.float32)
+    r, n, T = ep.rank, ep.size, HOST_MOE_TOKENS
+    full, x_all = _host_moe_inputs(np, n, T)
     params = moe.moe_params_from_numpy(full, device="cuda", ep_rank=r)
     x = torch.from_numpy(x_all[r * T:(r + 1) * T]).to("cuda")
     counted = _kernel_counters(fused_norm, fa)
     moe.moe_host_ffn(ep, params, x, HOST_MOE_CAPACITY)  # warm-up
     for fn in counted.values():
         fn.launches = 0
-    wire0 = spc.read("tcp_bytes_sent")
+    wire0, ring0 = spc.read("tcp_bytes_sent"), spc.read("sm_bytes_sent")
     times = []
     for _ in range(HOST_MOE_CALLS):
         ep.barrier()
@@ -1488,50 +1628,39 @@ def host_moe_child() -> int:
         y, keep = moe.moe_host_ffn(ep, params, x, HOST_MOE_CAPACITY)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    # the barriers' frames are counted too: a few hundred bytes a call
     wire = (spc.read("tcp_bytes_sent") - wire0) / HOST_MOE_CALLS
+    ring = (spc.read("sm_bytes_sent") - ring0) / HOST_MOE_CALLS
     split: dict = {}
     for _ in range(HOST_MOE_CALLS):
         ep.barrier()
         moe.moe_host_ffn(ep, params, x, HOST_MOE_CAPACITY, timings=split)
     launches = {name: fn.launches for name, fn in counted.items()}
     times.sort()
-    out = {"rank": r, "size": n, "median_ms": times[len(times) // 2], "ms": times,
+    out = {"rank": r, "size": n, "sm": ep._sm_seg is not None,
+           "median_ms": times[len(times) // 2], "ms": times,
            "split_ms": {k: v * 1e3 / HOST_MOE_CALLS for k, v in split.items()},
            "launches": launches, "wire_bytes_sent_per_call": wire,
-           "kept": int(keep.sum())}
+           "ring_bytes_sent_per_call": ring, "kept": int(keep.sum())}
     ys = ep.gather(y.cpu(), root=0)
     keeps = ep.gather(keep.cpu(), root=0)
     if r == 0:
-        cap = max(1, int(HOST_MOE_CAPACITY * T / n))
-        full_t = moe.moe_params_from_numpy(full, device="cuda")
-        xa = torch.from_numpy(x_all).to("cuda")
-        dense = moe.moe_reference_dense(full_t, xa, n, cap, block_tokens=T)
-        # the reference's kept mask: first come, first served per (block,
-        # expert), as moe_reference_dense computes it
-        expert = torch.argmax(torch.softmax(xa @ full_t["router"], dim=-1), dim=-1)
-        blocks = torch.nn.functional.one_hot(expert, n).reshape(n, T, n)
-        keep_ref = (((torch.cumsum(blocks, dim=1) - 1) * blocks).sum(-1) < cap).reshape(-1)
-        y_all = torch.cat([torch.as_tensor(v) for v in ys]).to("cuda")
-        keep_all = torch.cat([torch.as_tensor(v) for v in keeps]).to("cuda")
-        out["rel_err"] = float((y_all - dense).abs().max() / dense.abs().max())
-        out["keep_equal"] = bool(torch.equal(keep_all, keep_ref))
-        out["kept_total"] = int(keep_all.sum())
-        out["finite"] = bool(torch.isfinite(y_all).all())
-        out["cap"] = cap
+        out.update(_host_moe_check(torch, moe, full, x_all, ys, keeps, n, T))
     zmpi.host_finalize()
     print(json.dumps(out))
-    if r == 0 and not (out["rel_err"] <= MOE_REL_TOL and out["keep_equal"]
-                       and out["finite"]):
+    if r == 0 and not _moe_ok(out):
         return 1
     if any(launches.values()):
         return 1
     return 0
 
 
-def drive_host_moe(torch, card_line):
-    """Phase 16: start HOST_MOE_RANKS children of this script with the
-    ZMPI_* contract (this process hosts the rendezvous) and collect their
-    results; any child that fails or prints nothing fails the smoke."""
+def drive_host_moe(torch, card_line, sm=None):
+    """One phase-16 job: start HOST_MOE_RANKS children of this script with
+    the ZMPI_* contract (this process hosts the rendezvous) and collect
+    their results; any child that fails or prints nothing fails the smoke.
+    ``sm`` None leaves ``ZMPI_MCA_sm`` unset (the default: the rings carry
+    the alltoalls), else exports it."""
     import socket
 
     srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -1540,9 +1669,12 @@ def drive_host_moe(torch, card_line):
     srv.settimeout(HOST_TIMEOUT_S)
     host, port = srv.getsockname()
     env = dict(os.environ, ZMPI_SIZE=str(HOST_MOE_RANKS), ZMPI_COORD_HOST=host,
-               ZMPI_COORD_PORT=str(port), ZMPI_COORD_EXTERNAL="1", ZMPI_MCA_sm="0")
-    for k in ("ZMPI_PMIX", "ZMPI_FT"):
+               ZMPI_COORD_PORT=str(port), ZMPI_COORD_EXTERNAL="1")
+    for k in ("ZMPI_PMIX", "ZMPI_FT", "ZMPI_MCA_sm"):
         env.pop(k, None)
+    if sm is not None:
+        env["ZMPI_MCA_sm"] = str(sm)
+    label = "sm unset" if sm is None else f"ZMPI_MCA_sm={sm}"
     t0 = time.perf_counter()
     children = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--host-moe-child"],
@@ -1561,17 +1693,31 @@ def drive_host_moe(torch, card_line):
     for r, (c, (out, err)) in enumerate(zip(children, outs)):
         lines = out.strip().splitlines()
         if c.returncode != 0 or not lines:
-            raise SystemExit(f"host moe: rank {r} exited {c.returncode}\n"
+            raise SystemExit(f"host moe ({label}): rank {r} exited {c.returncode}\n"
                              f"{out[-2000:]}\n{err[-4000:]}")
         results.append(json.loads(lines[-1]))
-    res = {"ranks": results, "s": time.perf_counter() - t0,
+    want_sm = sm is None or int(sm) != 0
+    if any(x["sm"] != want_sm for x in results):
+        raise SystemExit(f"host moe ({label}): a rank's sm segment is not as configured")
+    if want_sm and any(x["ring_bytes_sent_per_call"] <= 0 for x in results):
+        raise SystemExit(f"host moe ({label}): the rings did not carry the alltoalls")
+    res = {"config": label, "ranks": results, "s": time.perf_counter() - t0,
            "median_ms": max(x["median_ms"] for x in results)}
     print(json.dumps({"host_moe": res, "card": card_line}))
     head = results[0]
-    print(f"host moe: moe_host_ffn median {res['median_ms']} ms (slowest rank), rank 0 "
-          f"split {head['split_ms']} ms, rel err {head['rel_err']} (tol {MOE_REL_TOL}), "
-          f"kept {head['kept_total']} of {HOST_MOE_RANKS * HOST_MOE_TOKENS} on {card_line}")
+    print(f"host moe ({label}): moe_host_ffn median {res['median_ms']} ms (slowest rank), "
+          f"rank 0 split {head['split_ms']} ms, ring {head['ring_bytes_sent_per_call']} B "
+          f"and wire {head['wire_bytes_sent_per_call']} B per call, rel err "
+          f"{head['rel_err']} (tol {MOE_REL_TOL}), kept {head['kept_total']} of "
+          f"{HOST_MOE_RANKS * HOST_MOE_TOKENS} on {card_line}")
     return res
+
+
+def drive_host_moe_both(torch, card_line) -> dict:
+    """Phase 16 in both configurations, one after the other (each in
+    processes of its own): sm at its default, then sm off."""
+    return {"sm_default": drive_host_moe(torch, card_line),
+            "sm_off": drive_host_moe(torch, card_line, sm=0)}
 
 
 def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
@@ -1992,7 +2138,7 @@ def main() -> int:
         card_line = _card_line()
         print(f"card: {card_line}")
         check_host_plane(torch, np, card_line)
-        drive_host_moe(torch, card_line)
+        drive_host_moe_both(torch, card_line)
         print(card_line)
         return 0
     if args and (args[0] != "--wrapper-host-us" or len(args) != 2):
@@ -2102,7 +2248,7 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
     host_plane = check_host_plane(torch, np, card_line)
-    host_moe = drive_host_moe(torch, card_line)
+    host_moe = drive_host_moe_both(torch, card_line)
     for k in kernels:
         # ``launches``: per training step; the other paths beside it
         k["launches"] = launches[k["name"]]

@@ -8,6 +8,8 @@ jax.  ``coll_inputs`` and ``coll_cases`` define the collective checks,
 device-heap programs (run by either package through ``run_shmem_case``)
 and ``topo_cases`` the neighbor exchanges (built by ``build_topology``),
 so that the tests can feed the same inputs to the JAX package.
+``run_tcp_threads`` runs a ``TcpProc`` universe (either package's ranks)
+in the calling test's threads.
 """
 
 from __future__ import annotations
@@ -925,6 +927,58 @@ def _topo(comm, rank, world, out):
 MESH_DIMS = {4: {"dp": 2, "tp": 2}, 8: {"dp": 2, "tp": 2, "sp": 2}}
 SURVIVOR_CASES = {4: [("dp", [1]), ("tp", [0])],
                   8: [("dp", [0]), ("tp", [1]), ("sp", [0])]}
+
+
+def run_tcp_threads(n: int, fn, kwargs_by_rank=None, kinds=None,
+                    timeout: float = 60.0, rank_timeout: float = 20.0, **common):
+    """``fn(proc)`` on an n-rank ``TcpProc`` universe whose ranks are
+    threads of this process, over a loopback coordinator that rank 0
+    binds on port 0.  ``kinds[r]`` is rank r's TcpProc class (default:
+    the port's), ``common`` and ``kwargs_by_rank[r]`` its constructor
+    arguments (``sm``, ``sm_boot_id``, ...).  Every proc is closed by its
+    thread; the first rank's error is raised; returns the results by
+    rank."""
+    import threading
+
+    if kinds is None:
+        from zhpe_ompi_tpu_torch.pt2pt.tcp import TcpProc
+
+        kinds = [TcpProc] * n
+    ready = threading.Event()
+    addr = [None]
+    results, excs = [None] * n, [None] * n
+
+    def main(r):
+        kw = dict(common, timeout=rank_timeout)
+        kw.update((kwargs_by_rank or {}).get(r, {}))
+        try:
+            if r == 0:
+                proc = kinds[0](0, n, coordinator=("127.0.0.1", 0),
+                                on_coordinator_bound=lambda a: (
+                                    addr.__setitem__(0, a), ready.set()), **kw)
+            else:
+                if not ready.wait(rank_timeout):
+                    raise RuntimeError("no coordinator address")
+                proc = kinds[r](r, n, coordinator=addr[0], **kw)
+            try:
+                results[r] = fn(proc)
+            finally:
+                proc.close()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            excs[r] = e
+            ready.set()
+
+    threads = [threading.Thread(target=main, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+        if t.is_alive():
+            raise RuntimeError("a TcpProc rank hung")
+    for e in excs:
+        if e is not None:
+            raise e
+    return results
 
 
 def run_ranks(mode: str, world: int, workdir, env=None, timeout: float = 120):

@@ -13,9 +13,12 @@ second through a rules table), a non-commutative user op and blockwise
 list reductions.  The result kinds the port's docstring states are held:
 a reduction returns the kind it was given.
 
-Also held: the coll/han seam (``coll_han_enable=on`` and a ``han`` rules
-line raise naming ``coll/han.py``; ``auto`` is flat), and ``InterCollectives``
-over a two-group bridge built from two thread universes' contexts.
+Also held: the coll/han seam on the thread plane (one locality group:
+``coll_han_enable=on`` and a ``han`` rules line fall back to the flat
+algorithm loudly, counted in ``han_flat_fallbacks`` as in the namesake;
+``auto`` and ``off`` are flat and count nothing; ``coll/han`` itself is
+held in ``tests/test_torch_han.py``), and ``InterCollectives`` over a
+two-group bridge built from two thread universes' contexts.
 """
 
 import contextlib
@@ -260,28 +263,41 @@ def test_minloc_pairs_combine_whole():
 
 
 def test_han_seam(tmp_path):
-    uni = TUniverse(4)
-    try:
-        with _vars(tmp_path, coll_han_enable="on"):
-            with pytest.raises(errors.UnsupportedError, match="coll/han.py"):
-                uni.contexts[0].allreduce(1, tops.SUM)
-            with pytest.raises(errors.UnsupportedError, match="coll/han.py"):
-                uni.contexts[0].bcast(1)
-        with _vars(tmp_path, rules="allreduce 0 0 han\n"):
-            with pytest.raises(errors.UnsupportedError, match="coll/han.py"):
-                uni.contexts[0].allreduce(1, tops.SUM)
-        # auto is flat; off is flat
-        with _vars(tmp_path, coll_han_enable="off"):
-            assert uni.run(lambda c: c.allreduce(c.rank, tops.SUM), timeout=30.0) == [6] * 4
-        assert uni.run(lambda c: c.allreduce(c.rank, tops.SUM), timeout=30.0) == [6] * 4
-    finally:
-        uni.close()
+    """A thread universe is one locality group: a forced han (``on``, or a
+    ``han`` rules line) runs the flat algorithm and counts the fallback on
+    every rank, in both packages alike; ``auto`` and ``off`` count none."""
+    from zhpe_ompi_tpu.runtime import spc as jspc
+    from zhpe_ompi_tpu_torch.runtime import spc as tspc
+
+    def fallbacks(universe, ops_mod, spc_mod):
+        before = spc_mod.read("han_flat_fallbacks")
+        uni = universe(4)
+        try:
+            out = uni.run(lambda c: (c.allreduce(c.rank, ops_mod.SUM),
+                                     c.bcast("b" if c.rank == 2 else None, root=2)),
+                          timeout=30.0)
+        finally:
+            if hasattr(uni, "close"):
+                uni.close()
+        assert out == [(6, "b")] * 4
+        return spc_mod.read("han_flat_fallbacks") - before
+
+    both = ((TUniverse, tops, tspc), (JUniverse, jops, jspc))
+    with _vars(tmp_path, coll_han_enable="on"):
+        assert [fallbacks(*b) for b in both] == [8, 8]  # allreduce + bcast, 4 ranks
+    with _vars(tmp_path, rules="allreduce 0 0 han\n"):
+        assert [fallbacks(*b) for b in both] == [4, 4]  # the rule names allreduce only
+    with _vars(tmp_path, coll_han_enable="off"):
+        assert [fallbacks(*b) for b in both] == [0, 0]
+    assert [fallbacks(*b) for b in both] == [0, 0]
 
 
 def test_topology_key_and_store_rung(tmp_path, monkeypatch):
+    from zhpe_ompi_tpu_torch.coll import han as than
+
     uni = TUniverse(4)
     try:
-        assert thost._topology_key(uni.contexts[0]) == (1, 1, 4)
+        assert than.topology_key(uni.contexts[0]) == (1, 1, 4)
 
         class Wire:
             size, rank = 3, 0
@@ -289,9 +305,9 @@ def test_topology_key_and_store_rung(tmp_path, monkeypatch):
             def boot_token_of(self, r):
                 return None
 
-        assert thost._topology_key(Wire()) == (3, 3, 1)
+        assert than.topology_key(Wire()) == (3, 3, 1)
         with _vars(tmp_path, coll_tuned_topology="2:2:2"):
-            assert thost._topology_key(Wire()) == (2, 2, 2)
+            assert than.topology_key(Wire()) == (2, 2, 2)
         monkeypatch.setenv("ZMPI_PMIX", "127.0.0.1:1/job")
         with pytest.raises(errors.UnsupportedError, match="runtime/pmix.py"):
             uni.contexts[0].alltoall([0] * 4)

@@ -2,11 +2,13 @@
 ``host_finalize``): the ``ZMPI_*`` coordinator contract.
 
 - Two CPU subprocesses, each with ``ZMPI_RANK``/``ZMPI_SIZE``/
-  ``ZMPI_COORD_HOST``/``ZMPI_COORD_PORT``, ``ZMPI_COORD_EXTERNAL=1`` and
-  ``ZMPI_MCA_sm=0``, call ``zmpi.host_init()`` and run a barrier, an
-  allreduce, an alltoall and a rendezvous-size message over the host
-  plane.  The test itself hosts the rendezvous (the launcher's role under
-  ``ZMPI_COORD_EXTERNAL``), so no port number is guessed.
+  ``ZMPI_COORD_HOST``/``ZMPI_COORD_PORT`` and ``ZMPI_COORD_EXTERNAL=1``,
+  call ``zmpi.host_init()`` and run a barrier, an allreduce, an alltoall
+  and a rendezvous-size message over the host plane: once with
+  ``ZMPI_MCA_sm=0`` (all over TCP), once with ``ZMPI_MCA_sm`` unset (the
+  default: the shared-memory rings carry the data, the wire only the
+  modex).  The test itself hosts the rendezvous (the launcher's role
+  under ``ZMPI_COORD_EXTERNAL``), so no port number is guessed.
 - In process, a one-rank job: ``host_init`` is idempotent, ``host_world``
   returns its proc and ``host_finalize`` closes it.
 - A bad contract raises ``NotInitializedError`` in both packages;
@@ -38,6 +40,7 @@ CHILD = textwrap.dedent("""
     import numpy as np
     import torch
     import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.runtime import spc
 
     p = zmpi.host_init(timeout=30.0)
     assert zmpi.host_init() is p and zmpi.host_world() is p
@@ -48,10 +51,13 @@ CHILD = textwrap.dedent("""
     big = torch.arange(300_000, dtype=torch.float32) + r  # 1.2 MB: rendezvous
     p.send(big, 1 - r, tag=4)
     other = p.recv(1 - r, tag=4, timeout=30.0)
+    sm_on = p._sm_seg is not None
     zmpi.host_finalize()
     print(json.dumps({"rank": r, "size": p.size, "total": total.tolist(),
                       "got": [int(x) for x in got],
-                      "other": float(other[1]), "world": zmpi.host_world()}))
+                      "other": float(other[1]), "world": zmpi.host_world(),
+                      "sm": sm_on, "sm_bytes": spc.read("sm_bytes_sent"),
+                      "tcp_bytes": spc.read("tcp_bytes_sent")}))
 """)
 
 
@@ -69,7 +75,9 @@ def _host_rendezvous(srv, size):
         conn.close()
 
 
-def test_two_processes_through_the_env_contract():
+def _two_ranks(**env_extra):
+    """Run CHILD as ranks 0 and 1 (``ZMPI_MCA_sm`` removed from the
+    environment, then ``env_extra`` added); their JSON results."""
     srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     srv.bind(("127.0.0.1", 0))
     srv.listen(4)
@@ -77,8 +85,10 @@ def test_two_processes_through_the_env_contract():
     host, port = srv.getsockname()
     env = dict(os.environ, PYTHONPATH=str(ROOT), ZMPI_SIZE="2",
                ZMPI_COORD_HOST=host, ZMPI_COORD_PORT=str(port),
-               ZMPI_COORD_EXTERNAL="1", ZMPI_MCA_sm="0")
-    env.pop("ZMPI_PMIX", None)
+               ZMPI_COORD_EXTERNAL="1")
+    for k in ("ZMPI_PMIX", "ZMPI_MCA_sm"):
+        env.pop(k, None)
+    env.update(env_extra)
     procs = [subprocess.Popen([sys.executable, "-c", CHILD],
                               env=dict(env, ZMPI_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -96,8 +106,24 @@ def test_two_processes_through_the_env_contract():
         assert p.returncode == 0, err[-2000:]
         res.append(json.loads(out.strip().splitlines()[-1]))
     for r, got in enumerate(res):
-        assert got == {"rank": r, "size": 2, "total": [0, 3, 6, 9],
-                       "got": [r, 10 + r], "other": float(2 - r), "world": None}
+        assert {k: got[k] for k in ("rank", "size", "total", "got", "other", "world")} == \
+            {"rank": r, "size": 2, "total": [0, 3, 6, 9], "got": [r, 10 + r],
+             "other": float(2 - r), "world": None}
+    return res
+
+
+def test_two_processes_through_the_env_contract():
+    for got in _two_ranks(ZMPI_MCA_sm="0"):
+        assert got["sm"] is False and got["sm_bytes"] == 0
+        assert got["tcp_bytes"] > 1_200_000  # the rendezvous message
+
+
+def test_two_processes_with_sm_at_its_default():
+    """``ZMPI_MCA_sm`` unset: each rank builds its segment, and every
+    data frame (the 1.2 MB message included) rides the rings."""
+    for got in _two_ranks():
+        assert got["sm"] is True and got["sm_bytes"] > 1_200_000
+        assert got["tcp_bytes"] < 1024  # the modex frames only
 
 
 def test_one_rank_in_process(monkeypatch):

@@ -295,9 +295,12 @@ def test_moe_host_ffn_waits_for_host_collectives():
 
 def test_moe_host_ffn_timings_and_han_route():
     """The ``timings`` split covers the call, and ``coll_han_enable=on``
-    raises naming ``coll/han.py`` instead of taking a flat route."""
+    routes both transposes through the han seam: on a thread universe
+    (one locality group) that is the loud fallback to the flat alltoall,
+    counted once per transpose and rank, and ``y`` is the same."""
     from zhpe_ompi_tpu_torch.mca import var as mca_var
     from zhpe_ompi_tpu_torch.pt2pt.universe import LocalUniverse
+    from zhpe_ompi_tpu_torch.runtime import spc
 
     inp, n, T = _host_moe_inputs()
     uni = LocalUniverse(n)
@@ -307,21 +310,24 @@ def test_moe_host_ffn_timings_and_han_route():
         y, _ = tmoe.moe_host_ffn(
             ctx, tmoe.moe_params_from_numpy(inp, device="cpu", ep_rank=ctx.rank),
             torch.from_numpy(inp["x"][:T]), timings=t)
-        return t, y.shape
+        return t, y
 
     try:
         res = uni.run(prog, timeout=60.0)
-        for t, shape in res:
-            assert shape == (T, 64)
+        for t, y in res:
+            assert y.shape == (T, 64)
             assert set(t) == {"route", "d2h", "alltoall", "h2d", "expert", "combine"}
             assert all(v >= 0.0 for v in t.values())
         old = mca_var.get("coll_han_enable")
         mca_var.set_var("coll_han_enable", "on")
+        fb0 = spc.read("han_flat_fallbacks")
         try:
-            with pytest.raises(errors.UnsupportedError, match="coll/han.py"):
-                uni.contexts[0].alltoall([0] * n)
+            forced = uni.run(prog, timeout=60.0)
         finally:
             mca_var.set_var("coll_han_enable", old)
+        assert spc.read("han_flat_fallbacks") - fb0 == 2 * n
+        for (_, y), (_, y_on) in zip(res, forced):
+            assert torch.equal(y, y_on)
     finally:
         uni.close()
 

@@ -6,9 +6,11 @@ and its wire compatibility with the JAX package's.
   messages of numpy arrays and CPU tensors, deferred isends, per-source
   non-overtaking order across eager and rendezvous sizes, probe, the
   barrier and host collectives over the wire (the ring allreduce too).
-- What waits: ``sm=True`` or the ``sm`` var's default raise naming
-  ``pt2pt/sm.py``; ``ft=True``, ``rejoin``, ``sever``/``mute`` name
+- What waits: ``ft=True``, ``rejoin``, ``sever``/``mute`` name
   ``ft/ulfm.py``; ``pmix=``/``metrics``/``trace`` name ``runtime/pmix.py``.
+  A 2-rank ``TcpProc`` at the ``sm`` var's default (1) builds its
+  shared-memory segment and advertises one host (``pt2pt/sm.py``, held
+  in ``tests/test_torch_sm.py``).
 - A tensor on another device (``meta`` standing in for CUDA) given to
   ``send``/``isend`` raises dss's ``TypeError_`` before any frame is
   written (the wire byte counter does not move).
@@ -23,6 +25,7 @@ rendezvous descriptor of the port outlived its proc, and that the port's
 lock-order witness saw no inversion.
 """
 
+import os
 import threading
 
 import numpy as np
@@ -208,8 +211,6 @@ def test_device_tensors_are_refused_before_any_frame():
 
 def test_what_waits_raises_naming_its_module():
     cases = [
-        (dict(sm=True), "pt2pt/sm.py"),
-        (dict(), "pt2pt/sm.py"),  # the sm var's default, 1
         (dict(sm=False, ft=True), "ft/ulfm.py"),
         (dict(sm=False, rejoin_book=[("h", 1)] * 2), "ft/ulfm.py"),
         (dict(sm=False, live_ranks=[0]), "ft/ulfm.py"),
@@ -221,40 +222,38 @@ def test_what_waits_raises_naming_its_module():
     for kwargs, module in cases:
         with pytest.raises(errors.UnsupportedError, match=module):
             TcpProc(0, 2, **kwargs)
-    old = tvar.get("sm")
-    tvar.set_var("sm", 0)
-    try:
-        def prog(p):
-            assert p.boot_token_of(1) is None and p.numa_token_of(0) is None
-            for call in (p.sever, p.mute, lambda: p.revoke(3), p.failure_ack,
-                         p.agree, p.shrink):
-                with pytest.raises(errors.UnsupportedError, match="ft/ulfm.py"):
-                    call()
-            p.barrier()
-            return p.resource_stats()["threads"] >= 1
+    # the sm var's default (1): TcpProc(0, 2) builds its sm segment
+    def prog(p):
+        assert p._sm_seg is not None and os.path.exists(p._sm_seg.path)
+        assert p.boot_token_of(1) == p.boot_token_of(0) is not None
+        assert p.numa_token_of(0) is not None
+        for call in (p.sever, p.mute, lambda: p.revoke(3), p.failure_ack,
+                     p.agree, p.shrink):
+            with pytest.raises(errors.UnsupportedError, match="ft/ulfm.py"):
+                call()
+        p.barrier()
+        return p.resource_stats()["threads"] >= 1
 
-        ready = threading.Event()
-        addr = [None]
-        out = [None, None]
+    ready = threading.Event()
+    addr = [None]
+    out = [None, None]
 
-        def main(r):
-            if r == 0:
-                proc = TcpProc(0, 2, on_coordinator_bound=lambda a: (addr.__setitem__(0, a), ready.set()),
-                               timeout=RANK_TIMEOUT)
-            else:
-                ready.wait(RANK_TIMEOUT)
-                proc = TcpProc(1, 2, coordinator=addr[0], timeout=RANK_TIMEOUT)
-            try:
-                out[r] = prog(proc)
-            finally:
-                proc.close()
+    def main(r):
+        if r == 0:
+            proc = TcpProc(0, 2, on_coordinator_bound=lambda a: (addr.__setitem__(0, a), ready.set()),
+                           timeout=RANK_TIMEOUT)
+        else:
+            ready.wait(RANK_TIMEOUT)
+            proc = TcpProc(1, 2, coordinator=addr[0], timeout=RANK_TIMEOUT)
+        try:
+            out[r] = prog(proc)
+        finally:
+            proc.close()
 
-        ts = [threading.Thread(target=main, args=(r,)) for r in range(2)]
-        [t.start() for t in ts]
-        [t.join(60.0) for t in ts]
-        assert out == [True, True]
-    finally:
-        tvar.set_var("sm", old)
+    ts = [threading.Thread(target=main, args=(r,)) for r in range(2)]
+    [t.start() for t in ts]
+    [t.join(60.0) for t in ts]
+    assert out == [True, True]
     # one rank needs no sm segment, as in the namesake
     solo = TcpProc(0, 1, sm=True)
     try:

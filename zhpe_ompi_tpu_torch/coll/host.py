@@ -42,26 +42,20 @@ The ring allreduce runs in torch on the operand's own device (a CUDA
 tensor on the thread plane stays on the card); the pipelined bcast and
 reduce stream host bytes, so they take numpy arrays and CPU tensors.
 
-**coll/han is not ported yet.**  ``_han_route`` and ``_rule_alg``
-are the namesake's seams, but ``coll/han.py`` (with ``pt2pt/sm.py``, the
-only source of same-host locality over the wire) is not ported yet:
-
-- ``coll_han_enable=auto`` takes the flat algorithms.  No endpoint the
-  port has can advertise two same-host groups: a thread universe is one
-  locality, and with ``sm`` off (the only TCP mode the port has) every TCP
-  rank is its own locality, so the namesake's auto decision is flat too.
-- ``coll_han_enable=on``, or a ``han`` line of the rules table that fires
-  for the call, raises ``UnsupportedError`` naming ``coll/han.py``.
-- A rules table naming a flat algorithm (``ring``, ``pipeline``,
-  ``bruck``) works through the port's ``coll/ztable.resolve_rule`` (its
-  file rung; the store rung raises, naming ``runtime/pmix.py``).  The
-  topology key is derived as the namesake's ``han.topology_key`` derives
-  it from the endpoint's locality tokens.
+**coll/han.**  ``_han_route`` and ``_rule_alg`` are the namesake's
+seams: each collective with a hierarchical schedule (``HAN_OPS``) asks
+``_han_route`` first and runs ``coll/han.py``'s two- or three-level
+schedule when it answers (``coll_han_enable=auto`` on a qualified
+topology, ``on``, or a ``han`` line of the rules table).  The phases of
+han run on ``GroupView`` sub-endpoints, which re-enter the flat
+algorithms here.  A rules table naming a flat algorithm (``ring``,
+``pipeline``, ``bruck``) works through the port's
+``coll/ztable.resolve_rule`` (its file rung; the store rung raises,
+naming ``runtime/pmix.py``), keyed by ``han.topology_key``.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any
 
 import numpy as np
@@ -112,58 +106,27 @@ HAN_OPS = frozenset((
 ))
 
 
-def _topology_key(ctx):
-    """The job's ``(n_hosts, n_domains, ranks_per_domain)`` decision-
-    table key: the ``coll_tuned_topology`` var when set, else derived from
-    the endpoint's locality tokens as the namesake's
-    ``han.topology_key``/``groups.locality_groups`` derive it — ranks with
-    one ``boot_token_of`` share a host, a ``None`` token is a one-rank
-    host, and one host is one NUMA domain (every endpoint the port has
-    reports one domain per host)."""
-    from . import ztable
-
-    key = ztable.job_topology_key()
-    if key is not None:
-        return key
-    sizes: dict = {}
-    n_hosts = 0
-    for r in range(ctx.size):
-        tok = ctx.boot_token_of(r)
-        if tok is None:
-            n_hosts += 1
-            sizes[("solo", r)] = 1
-        else:
-            if tok not in sizes:
-                n_hosts += 1
-            sizes[tok] = sizes.get(tok, 0) + 1
-    return (n_hosts, n_hosts, max(sizes.values(), default=1))
-
-
-def _table_rule(ctx, opname: str, payload: Any) -> "str | None":
-    """The tuned table's algorithm for this call, or None (no table
-    configured, or no rule fires)."""
-    if not (os.environ.get("ZMPI_PMIX", "")
-            or mca_var.get("coll_tuned_dynamic_rules", "")):
+def _han_route(ctx, opname: str, payload: Any = None, op=None):
+    """The coll/han dispatch seam (the comm_select interposition point
+    of the host plane): returns the han module when this collective
+    should take the hierarchical schedule, None for the flat algorithms
+    below.  Kept UPSTREAM of the algorithm bodies so han's own phases —
+    GroupView sub-endpoints, marked ``_han_subview`` — re-enter the flat
+    paths unconditionally (no recursive hierarchy)."""
+    if getattr(ctx, "_han_subview", False):
         return None
-    from . import ztable
-
-    return ztable.resolve_rule(opname, getattr(ctx, "size", 0),
-                               payload_bytes(payload), _topology_key(ctx))
-
-
-def _han_route(ctx, opname: str, payload: Any = None):
-    """The coll/han dispatch seam: returns None (the flat algorithms
-    below) or raises.  ``auto`` is flat (see the module docstring: no
-    endpoint the port has can have two same-host groups); ``on``, or a
-    ``han`` rule for this call, needs ``coll/han.py``."""
     mode = str(mca_var.get("coll_han_enable", "auto"))
     if mode == "off":
         return None
-    if mode == "on" or _table_rule(ctx, opname, payload) == "han":
-        raise errors.UnsupportedError(
-            f"hierarchical {opname} (coll_han_enable={mode}, or a 'han' "
-            "rule) needs coll/han.py, which the PyTorch port has not ported "
-            "yet; set coll_han_enable=auto or off")
+    if mode == "auto" and getattr(ctx, "size", 1) < 4 \
+            and not mca_var.get("coll_tuned_dynamic_rules", ""):
+        # cheap pre-topology out: < 4 ranks cannot hold two >=2-member
+        # groups, and no rules file means nothing can request han
+        return None
+    from . import han as han_mod
+
+    if han_mod.wants_han(ctx, opname, payload, op, mode):
+        return han_mod
     return None
 
 
@@ -182,10 +145,24 @@ HOST_RULE_ALGS = {
 
 
 def _rule_alg(ctx, opname: str, payload: Any = None) -> "str | None":
-    """The host plane's tuned-table consult: a flat algorithm name from
-    ``HOST_RULE_ALGS`` or None — builtin thresholds apply.  A "han" rule
-    returns None here: the _han_route seam owns it."""
-    algname = _table_rule(ctx, opname, payload)
+    """The host plane's tuned-table consult (coll/ztable.py's file rung;
+    the store rung raises under ``ZMPI_PMIX``), topology-keyed from this
+    endpoint's locality probe.  Returns a flat algorithm name from
+    ``HOST_RULE_ALGS`` or None — builtin thresholds and the auto han
+    decision apply.  "han" rules return None HERE: the _han_route seam
+    owns them (via han's ``_rule_requests_han``)."""
+    if getattr(ctx, "_han_subview", False):
+        return None  # phase traffic re-enters the builtin decisions
+    from . import ztable
+
+    if not ztable.active():
+        return None
+    from . import han as han_mod
+
+    algname = ztable.resolve_rule(
+        opname, getattr(ctx, "size", 0), payload_bytes(payload),
+        han_mod.topology_key(ctx),
+    )
     if algname is not None and algname in HOST_RULE_ALGS.get(opname, ()):
         return algname
     return None
@@ -354,7 +331,9 @@ def bcast(ctx, obj: Any = None, root: int = 0,
         # size-matched dynamic-rules check sees 0 bytes on every rank
         # (a root-only size would split the decision across ranks);
         # han bcast rules therefore use msg_bytes_min 0.
-        _han_route(ctx, "bcast", None)
+        han = _han_route(ctx, "bcast", None)
+        if han is not None:
+            return han.bcast(ctx, obj, root)
     size, rank = ctx.size, ctx.rank
     if size == 1:
         return obj
@@ -566,7 +545,9 @@ def _reduce(ctx, value: Any, op, root: int, algorithm: str | None) -> Any:
                 )
                 ruled = None
         if ruled is None:
-            _han_route(ctx, "reduce", value)
+            han = _han_route(ctx, "reduce", value, op)
+            if han is not None:
+                return han.reduce(ctx, value, op, root)
     if size == 1:
         return value
     if alg == "pipeline":
@@ -662,7 +643,9 @@ def _allreduce(ctx, value: Any, op) -> Any:
     # dynamic-rules precedence); "han" rules still route below
     ruled = _rule_alg(ctx, "allreduce", value)
     if ruled is None:
-        _han_route(ctx, "allreduce", value)
+        han = _han_route(ctx, "allreduce", value, op)
+        if han is not None:
+            return han.allreduce(ctx, value, op)
     tag = _next_tag(ctx, TAG_ALLREDUCE)
     large = int(mca_var.get("host_coll_large_msg", 256 * 1024))
     ring_eligible = (
@@ -736,7 +719,9 @@ def allgather(ctx, value: Any) -> list:
     # local size would split the han/flat decision and deadlock —
     # allgather han rules therefore use msg_bytes_min 0 (the bcast
     # discipline; reduce/allreduce payloads ARE congruent by contract)
-    _han_route(ctx, "allgather", None)
+    han = _han_route(ctx, "allgather", None)
+    if han is not None:
+        return han.allgather(ctx, value)
     out: list = [None] * size
     out[rank] = value
     tag = _next_tag(ctx, TAG_ALLGATHER)
@@ -832,7 +817,9 @@ def alltoall(ctx, values: list) -> list:
     # dynamic-rules precedence, same as allreduce/reduce above).
     ruled = _rule_alg(ctx, "alltoall", None)
     if ruled is None:
-        _han_route(ctx, "alltoall", None)
+        han = _han_route(ctx, "alltoall", None)
+        if han is not None:
+            return han.alltoall(ctx, values)
     if size == 1:
         return [values[0]]
     tag = _next_tag(ctx, TAG_ALLTOALL)
@@ -948,7 +935,9 @@ def alltoallv(ctx, sendbuf, counts: list, displs: list | None = None
     # rule outranks the auto han decision
     ruled = _rule_alg(ctx, "alltoallv", None)
     if ruled is None:
-        _han_route(ctx, "alltoallv", None)
+        han = _han_route(ctx, "alltoallv", None)
+        if han is not None:
+            return han.alltoallv(ctx, sendbuf, counts, displs)
     tag = _next_tag(ctx, TAG_ALLTOALLV)
     out: list = [None] * size
     out[rank] = blocks[rank]
@@ -1004,7 +993,9 @@ def reduce_scatter(ctx, values: list, op) -> Any:
     size = ctx.size
     if len(values) != size:
         raise errors.ArgError(f"reduce_scatter needs {size} blocks")
-    _han_route(ctx, "reduce_scatter", values)
+    han = _han_route(ctx, "reduce_scatter", values, op)
+    if han is not None:
+        return han.reduce_scatter(ctx, values, op)
     reduced = reduce(ctx, values, op, root=0, algorithm="auto")
     return _like(scatter(ctx, reduced, root=0), values[ctx.rank])
 

@@ -26,8 +26,8 @@ Only the file rung is ported: the table named by the
 ``coll_tuned_dynamic_rules`` MCA variable.  The store rung (a table served
 from the DVM's PMIx store when ``ZMPI_PMIX`` is set) needs
 ``runtime/pmix.py``, which the port does not have yet, so
-:func:`resolve_rule` raises ``UnsupportedError`` when ``ZMPI_PMIX`` is set
-rather than ignore it.  Malformed table lines degrade loudly: each is
+:func:`active`, :func:`resolve_rule` and :func:`table_geometry` raise
+``UnsupportedError`` when ``ZMPI_PMIX`` is set rather than ignore it.  Malformed table lines degrade loudly: each is
 reported on the ``coll_ztable`` stream and skipped, never raised into a
 collective call.
 """
@@ -42,9 +42,8 @@ from ..mca import var as mca_var
 
 _stream = mca_output.open_stream("coll_ztable")
 
-#: sm segment-geometry vars a table may size; parsed and validated so a
-#: table means the same in both packages (the port has no sm transport to
-#: adopt them yet).
+#: sm segment-geometry vars a table may size (``pt2pt/sm.py`` adopts them
+#: through :func:`table_geometry` while the var holds its default).
 GEOMETRY_VARS = ("sm_ring_bytes", "sm_leader_ring_bytes")
 
 mca_var.register(
@@ -272,19 +271,46 @@ def job_topology_key():
     return tuple(fields)
 
 
-def resolve_rule(opname, comm_size, nbytes, job_key=None):
-    """Resolve ``(op, comm_size, nbytes)`` through the table named by
-    ``coll_tuned_dynamic_rules``, else None (the caller's builtin fixed
-    decision applies).  With ``ZMPI_PMIX`` set, the store-served table
-    would come first; that rung needs ``runtime/pmix.py``, so this
-    raises ``UnsupportedError`` instead of silently skipping it."""
+def _refuse_store() -> None:
+    """With ``ZMPI_PMIX`` set, the store-served table would come first;
+    that rung needs ``runtime/pmix.py``, so raise instead of silently
+    skipping it."""
     if os.environ.get("ZMPI_PMIX", ""):
         raise errors.UnsupportedError(
             "ZMPI_PMIX is set: the store-served tuned table needs "
             "runtime/pmix.py, which the PyTorch port has not ported yet; "
             "unset ZMPI_PMIX or use coll_tuned_dynamic_rules")
+
+
+def active() -> bool:
+    """Cheap gate for the hot seams: is a table configured (the
+    ``coll_tuned_dynamic_rules`` file)?  Raises under ``ZMPI_PMIX``."""
+    _refuse_store()
+    return bool(mca_var.get("coll_tuned_dynamic_rules", ""))
+
+
+def resolve_rule(opname, comm_size, nbytes, job_key=None):
+    """Resolve ``(op, comm_size, nbytes)`` through the table named by
+    ``coll_tuned_dynamic_rules``, else None (the caller's builtin fixed
+    decision applies).  Raises under ``ZMPI_PMIX`` (the store rung)."""
+    _refuse_store()
     path = mca_var.get("coll_tuned_dynamic_rules", "")
     if not path:
         return None
     return _section_rule(load_file(str(path)), opname, comm_size, nbytes,
                          job_key)
+
+
+def table_geometry(varname, job_key=None):
+    """A swept segment-geometry var (one of :data:`GEOMETRY_VARS`) from
+    the first section of the rules file that matches ``job_key`` and
+    sizes it; None when none does.  Raises under ``ZMPI_PMIX``."""
+    _refuse_store()
+    if varname not in GEOMETRY_VARS:
+        return None
+    path = mca_var.get("coll_tuned_dynamic_rules", "")
+    if path:
+        for key, _rules, geom in load_file(str(path)):
+            if _matches(key, job_key) and varname in geom:
+                return geom[varname]
+    return None

@@ -113,8 +113,10 @@ def moe_host_ffn(ep, params, x, capacity_factor: float = 1.25,
     staged explicitly with one ``.cpu()`` (its per-expert rows go out as
     views of that copy, where the namesake makes ``np.asarray`` blocks),
     and each received block is copied back with ``.to(x.device)``.  The
-    alltoall is the flat one (the namesake's han route waits for
-    ``coll/han.py``: with ``coll_han_enable=on`` it raises).
+    coll layer routes the alltoall through the hierarchical han schedule
+    (``coll/han.py``: intra-host gather over the shared-memory rings, one
+    aggregated leader exchange per host pair, intra-host scatter) when the
+    topology qualifies, and through the flat pairwise exchange otherwise.
 
     ``timings``, when given a dict, accumulates this call's host seconds
     per phase — ``"route"``, ``"d2h"``, ``"alltoall"`` (both transposes),

@@ -1,5 +1,5 @@
 """TCP transport — the btl/tcp analog of the host plane (namesake:
-``zhpe_ompi_tpu/pt2pt/tcp.py``; the port's own copy, ``sm`` off).
+``zhpe_ompi_tpu/pt2pt/tcp.py``; the port's own copy).
 
 The reference reaches remote nodes through ``opal/mca/btl/tcp`` (endpoint
 address exchange via the modex, a listening socket per proc, lazy
@@ -19,10 +19,24 @@ engine).  This module is that wire for the port's host plane:
   byte, so port and JAX-package ranks share one universe.
 - **matching**: incoming frames feed the same matching engine the local
   universe uses.
+- **selection**: per-peer transport dispatch at the send seam — self →
+  sm → tcp: rank-to-self takes the loopback shortcut, a same-boot peer
+  that advertised a shared-memory segment rides the mmap ring
+  (``pt2pt/sm.py``, chosen while ``sm_priority`` exceeds
+  ``tcp_priority``), everything else — remote hosts, ``sm=0`` peers —
+  rides the sockets.  A peer that advertised a segment this rank cannot
+  ride (another boot id, an unmappable segment) degrades loudly: every
+  such send counts in ``sm_fallback_tcp_sends`` and the ``btl_tcp``
+  stream says why (an unmappable segment always, a boot mismatch at
+  verbosity 2).  An ``sm=0`` peer advertises nothing: its TCP is
+  intended and not counted, as in the namesake.  The ``sm`` MCA var
+  defaults to 1, as in the namesake; ``sm_boot_id``/``sm_numa_id`` pin
+  the locality a rank advertises (emulated hosts and NUMA domains for
+  the han layer).
 - **payloads**: host payloads only.  A tensor on any device but the CPU
   given to ``send``/``isend`` raises dss's typed ``TypeError_`` (naming
-  the ``.cpu()`` to make) before any frame is written; nothing here copies
-  a tensor to the host.
+  the ``.cpu()`` to make) before any frame or ring slot is written;
+  nothing here copies a tensor to the host.
 
 ``TcpProc`` mirrors :class:`~zhpe_ompi_tpu_torch.pt2pt.universe
 .RankContext`'s API (send/recv/probe/sendrecv/barrier and the host and
@@ -31,25 +45,22 @@ nonblocking collectives).
 What is not ported yet, against the namesake — each raises
 ``UnsupportedError`` naming the module it waits for:
 
-- **the shared-memory transport** (``pt2pt/sm.py``): the
-  ``sm`` MCA var is registered with the namesake's default (1), and a
-  proc of more than one rank asked for sm — by ``sm=True`` or by the var
-  — raises; run with ``sm=False`` or ``ZMPI_MCA_sm=0``.  It does not
-  quietly ride TCP.  With sm off, :meth:`TcpProc.boot_token_of` and
-  :meth:`TcpProc.numa_token_of` return None (the namesake's answer for an
-  ``sm=0`` peer): every rank is its own locality.
-- **fault tolerance** (``ft/ulfm.py``, ROADMAP queue A item 4):
-  ``ft=True``, ``rejoin``/``rejoin_book``, elastic ``live_ranks``, and
-  ``revoke``/``sever``/``mute`` and the other ULFM methods.
+- **fault tolerance** (``ft/ulfm.py``): ``ft=True``,
+  ``rejoin``/``rejoin_book``, elastic ``live_ranks``, and
+  ``revoke``/``sever``/``mute`` and the other ULFM methods (with them the
+  sm plane's death listener, :meth:`TcpProc._sm_peer_dead`, which is
+  ported but registered by nothing yet).
 - **the PMIx store** (``runtime/pmix.py``, item 4): ``pmix=`` (the
   store-served modex and rejoin), and ``metrics``/``trace``, which
   publish through it (an explicit ``True`` raises; the ``ZMPI_METRICS``
   and ``ZMPI_TRACE`` environment requests degrade loudly, as the
   namesake's do without a store).
 - ``_register_wire_pvars`` and its queue-depth reader wait for
-  ``tools/mpit.py`` (item 7); ``bridge_endpoint``/``bridge_send``, the
-  intercomm seam, wait for ``comm/dpm.py`` (item 5) — a bridge peer's
-  hello is still understood on the wire.
+  ``tools/mpit.py``; ``bridge_endpoint``/``bridge_send``, the intercomm
+  seam, wait for ``comm/dpm.py`` — a bridge peer's hello is still
+  understood on the wire; the one-sided seam (the namesake's
+  ``sm_rma_region``, ``sm_direct_to``) is not here: it waits for
+  ``osc/direct.py``.
 """
 
 
@@ -84,6 +95,7 @@ from ..utils import dss
 from ..utils import lockdep
 from . import engine_mux
 from . import matching
+from . import sm as sm_mod
 from .matching import ANY_SOURCE, ANY_TAG, Envelope
 from .requests import Request, SendRequest, Status, _payload_bytes
 
@@ -127,19 +139,6 @@ mca_var.register_family("tcp")
 mca_var.register_family("btl_tcp", "tcp")
 mca_var.register_family("rndv", "tcp")
 
-
-# the shared-memory transport's switch, registered with the namesake's
-# default so a job's ZMPI_MCA_sm setting means the same in both packages;
-# asking for sm raises until pt2pt/sm.py is ported (see the module doc)
-mca_var.register_family("sm")
-mca_var.register(
-    "sm", 1,
-    "Shared-memory transport for same-host Python ranks: 1 = create an "
-    "mmap ring segment and ride it to same-boot peers, 0 = always TCP "
-    "(asymmetric settings degrade the pair to TCP, the C plane's "
-    "ZMPI_MCA_sm contract)",
-    type=int,
-)
 
 # sendmsg gathers header+segments in one syscall; platforms without it
 # (or a socket object that declines) fall back to sequential sendall
@@ -507,9 +506,10 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
     address; rank 0 binds it as the rendezvous socket, the rest connect
     with retry.  `host` is this rank's reachable address.  The namesake's
     keyword arguments are all accepted; those that need a module the port
-    lacks raise ``UnsupportedError`` naming it (see the module doc), and
-    ``sm_boot_id``/``sm_numa_id`` only feed the sm card, so they have no
-    effect while sm is off."""
+    lacks raise ``UnsupportedError`` naming it (see the module doc).
+    ``sm`` (default: the ``sm`` MCA var, 1) creates this rank's ring
+    segment when ``size`` > 1; ``sm_boot_id``/``sm_numa_id`` override the
+    host and NUMA-domain tokens its card advertises."""
 
     #: no ULFM failure state until ft/ulfm.py is ported (see module doc)
     ft_state = None
@@ -556,13 +556,6 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                     "rank %s: %s set but no PMIx store to publish into; "
                     "%s plane disabled", rank, env, plane,
                 )
-        sm_on = bool(int(mca_var.get("sm", 1))) if sm is None else bool(sm)
-        if sm_on and size > 1:
-            raise errors.UnsupportedError(
-                "the shared-memory transport (sm=True, or the sm MCA var, "
-                "default 1) needs pt2pt/sm.py, which the PyTorch port has "
-                "not ported yet; pass sm=False or set ZMPI_MCA_sm=0 to run "
-                "over TCP")
         self.rank = rank
         self.size = size
         self.engine = matching.make_matching_engine()
@@ -606,6 +599,34 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         self._closed = threading.Event()
         self._incoming_cv = threading.Condition()
         _live_procs.add(self)
+        # shared-memory plane (btl/sm analog): create OUR inbound-ring
+        # segment before the modex so the card advertises a segment that
+        # already exists — a peer that got the book maps it with no
+        # handshake and no transport-switch reordering window
+        self._sm_seg: sm_mod.SmSegment | None = None
+        self._sm_senders: dict[int, sm_mod.SmSender | None] = {}
+        self._sm_declined: set[int] = set()  # advertised sm, not ridden
+        self._sm_lock = lockdep.lock("tcp.TcpProc._sm_lock")
+        self._sm_boot = sm_boot_id or sm_mod.boot_token()
+        # NUMA-domain token: constructor override for per-rank emulation,
+        # else the sm_numa_id MCA var / sysfs derivation — advertised next
+        # to the pyshm card item
+        self._sm_numa = (
+            str(sm_numa_id).strip().replace(":", "_")[:64]
+            if sm_numa_id else sm_mod.numa_token()
+        )
+        sm_on = bool(int(mca_var.get("sm", 1))) if sm is None else bool(sm)
+        if sm_on and size > 1:
+            try:
+                self._sm_seg = sm_mod.SmSegment(
+                    rank, size, on_frame=self._sm_incoming
+                )
+            except OSError as e:
+                mca_output.emit(
+                    _stream,
+                    "rank %s: sm segment unavailable (%s); host plane "
+                    "degrades to TCP", rank, e,
+                )
 
         try:
             # listening socket (btl_tcp's per-proc endpoint)
@@ -643,6 +664,8 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                 self._chan_engine.close(1.0)
             self._push_pool.close(0.0)
             self._closed.set()
+            if self._sm_seg is not None:
+                self._sm_seg.close()
             raise
 
     def _frame_objs(self, tag: int, cid: int, seq: int, obj: Any,
@@ -697,6 +720,174 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         with lock:
             _send_frame(sock, frame)
 
+    # -- shared-memory plane (btl/sm analog) ----------------------------
+
+    def _sm_tx(self, dest: int) -> sm_mod.SmSender | None:
+        """Per-peer transport selection, memoized: the sm ring when the
+        peer advertised a same-boot segment AND sm outranks tcp
+        (``sm_priority > tcp_priority``, the btl priority ladder), else
+        None (TCP).  The decision is made ONCE per peer — a direction
+        is all-ring or all-wire, so per-source FIFO needs no cross-
+        transport sequence numbers."""
+        if self._sm_seg is None:
+            return None
+        try:
+            with self._sm_lock:
+                if dest in self._sm_senders:
+                    return self._sm_senders[dest]
+                sender = self._sm_activate(dest)
+                self._sm_senders[dest] = sender
+                return sender
+        except sm_mod.ConsumerStopped as e:
+            # first contact raced the peer's close: its consumer is never
+            # coming back; without fault tolerance the pair degrades to
+            # TCP loudly (the namesake classifies peer death here on an
+            # ft proc)
+            with self._sm_lock:
+                self._sm_senders[dest] = None  # pinned to TCP
+            mca_output.emit(
+                _stream,
+                "rank %s: sm segment of rank %s already stopped "
+                "(%s); pair degrades to TCP", self.rank, dest, e,
+            )
+            self._sm_declined.add(dest)
+            return None
+
+    def _sm_activate(self, dest: int) -> sm_mod.SmSender | None:
+        if int(mca_var.get("sm_priority", 90)) <= \
+                int(mca_var.get("tcp_priority", 20)):
+            return None  # policy, not degradation: nothing to count
+        cards = getattr(self, "_peer_cards", None)
+        if cards is None or dest >= len(cards):
+            return None
+        card = sm_mod.parse_card(cards[dest])
+        if card is None:
+            return None  # peer runs sm=0 / is a C rank: intended TCP
+        boot, name = card
+        if boot != self._sm_boot:
+            # mismatched boot id: the advertised /dev/shm namespace is
+            # not provably ours — degrade loudly (counted per send)
+            mca_output.verbose(
+                2, _stream,
+                "rank %s: rank %s advertised an sm segment on boot %s, "
+                "not this rank's %s; pair degrades to TCP", self.rank,
+                dest, boot, self._sm_boot,
+            )
+            self._sm_declined.add(dest)
+            return None
+        # peer class decides the ring capacity the owner materializes:
+        # a provably different NUMA domain makes this a leader-to-leader
+        # pair; unknown/absent/malformed tokens stay intra (full-size
+        # ring, always correct)
+        peer_numa = sm_mod.parse_numa(cards[dest])
+        klass = sm_mod.CLASS_INTRA
+        if peer_numa not in (None, sm_mod.NUMA_MALFORMED) \
+                and peer_numa != self._sm_numa:
+            klass = sm_mod.CLASS_LEADER
+        try:
+            sender = sm_mod.SmSender(name, src_rank=self.rank,
+                                     dest_rank=dest, ring_class=klass)
+        except sm_mod.ConsumerStopped:
+            raise  # _sm_tx classifies it outside _sm_lock
+        except (OSError, errors.MpiError) as e:
+            mca_output.emit(
+                _stream,
+                "rank %s: sm segment of rank %s unmappable (%s); pair "
+                "degrades to TCP", self.rank, dest, e,
+            )
+            self._sm_declined.add(dest)
+            return None
+        mca_output.verbose(
+            5, _stream, "rank %d: sm ring to rank %d active (%s)",
+            self.rank, dest, name,
+        )
+        return sender
+
+    def _sm_abort(self, dest: int):
+        """The ring-full spin's abort probe: a local close ends the wait
+        (the namesake also classifies a failed peer here on ft procs)."""
+        closed = self._closed
+
+        def abort():
+            if closed.is_set():
+                raise errors.InternalError(
+                    f"sm send to rank {dest} on a closed proc"
+                )
+
+        return abort
+
+    def _sm_send(self, smtx: sm_mod.SmSender, obj: Any, dest: int,
+                 tag: int, cid: int, seq: int, nbytes: int,
+                 tctx: "tuple[int, int, int] | None" = None,
+                 objs: tuple | None = None) -> None:
+        """One frame onto the peer's ring — the `_send_frame`-shaped
+        seam of the sm plane.  Small frames pack their DSS header
+        straight into the slot (``pack_frames_into``); larger ones take
+        the fragment pipeline.  A full ring blocks HERE (backpressure,
+        bounded by the stall timeout)."""
+        abort = self._sm_abort(dest)
+        abort()
+        oob_min = int(mca_var.get("tcp_zero_copy_min", 0))
+        deadline = time.monotonic() + self._timeout
+        wire = None
+        # direct (single-slot) only for SMALL frames: a mid-size message
+        # is faster as a fragment pipeline — the peer's copy-out overlaps
+        # our remaining copy-ins
+        if objs is None:
+            objs = self._frame_objs(tag, cid, seq, obj, tctx)
+        if nbytes + 512 <= min(smtx.slot_bytes, 32 << 10):
+            wire = smtx.send_direct(objs, oob_min, deadline, abort)
+            nfrags = 1
+        if wire is None:
+            header, oob = dss.pack_frames(*objs, oob_min=oob_min)
+            wire, nfrags = smtx.send_frame(header, oob, deadline, abort)
+        spc.record("sm_bytes_sent", wire)
+        spc.record("sm_eager_sends" if nfrags == 1 else "sm_frag_sends",
+                   1)
+
+    def _sm_incoming(self, src_ring: int, frame: bytearray) -> None:
+        """Poll-thread delivery: one assembled frame in a dedicated
+        writable buffer — same contract as the socket drain, one
+        matching engine for both transports (an array record decodes to
+        a CPU tensor viewing ``frame``, never the ring slot)."""
+        try:
+            vals = dss.unpack_from(frame)
+            src, tag, cid, seq, payload = vals[:5]
+        except (errors.MpiError, ValueError) as e:
+            mca_output.emit(
+                _stream,
+                "rank %s: undecodable sm frame from ring %s: %s",
+                self.rank, src_ring, e,
+            )
+            return
+        self._trace_ingest(vals, "sm")
+        env = Envelope(src, tag, cid, seq)
+        with self._incoming_cv:
+            self.engine.incoming(env, payload)
+            self._incoming_cv.notify_all()
+
+    def _sm_peer_dead(self, rank: int, _cause: str) -> None:
+        """Failure-listener hook (the namesake registers it with its
+        ``FailureState``; nothing registers it until ``ft/ulfm.py`` is
+        ported): a dead peer's consumer is never coming back — unmap our
+        ring into it and pin the pair to TCP."""
+        with self._sm_lock:
+            stale = self._sm_senders.get(rank)
+            self._sm_senders[rank] = None
+            self._sm_declined.discard(rank)
+        if stale is not None:
+            stale.close()
+
+    def _sm_teardown(self) -> None:
+        with self._sm_lock:
+            senders = [s for s in self._sm_senders.values()
+                       if s is not None]
+            self._sm_senders = {r: None for r in self._sm_senders}
+        for s in senders:
+            s.close()
+        if self._sm_seg is not None:
+            self._sm_seg.close()
+
 
     # -- what waits for modules not ported yet -----------------------------
 
@@ -711,16 +902,41 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         raise ulfm._waits_for_ft("mute")
 
     def boot_token_of(self, rank: int) -> str | None:
-        """Locality identity of ``rank`` as the modex advertised it: the
-        boot half of the sm card.  With sm off no card carries one, so
-        this is None — unknown, a singleton locality — as the namesake
-        answers for an ``sm=0`` peer."""
-        return None
+        """Locality identity of ``rank`` as the modex advertised it (the
+        boot half of the ``(boot_id, segment)`` card ``pt2pt/sm.py``
+        publishes): equal tokens = provably the same host.  None =
+        unknown (``sm=0`` peers, C ranks), which the han topology layer
+        groups as its own singleton locality.  Own rank reads its OWN
+        relayed card, so every rank derives the identical groups."""
+        cards = getattr(self, "_peer_cards", None)
+        if cards is None or not 0 <= rank < len(cards):
+            return None
+        card = sm_mod.parse_card(cards[rank])
+        return card[0] if card is not None else None
 
     def numa_token_of(self, rank: int):
-        """NUMA-domain identity of ``rank`` (the ``pynuma:`` card item,
-        advertised only beside an sm segment): None with sm off."""
-        return None
+        """NUMA-domain identity of ``rank`` as the modex advertised it
+        (the ``pynuma:`` card item): a token string, None when absent
+        (the host degrades to one domain), or the
+        :data:`~zhpe_ompi_tpu_torch.pt2pt.sm.NUMA_MALFORMED` sentinel."""
+        cards = getattr(self, "_peer_cards", None)
+        if cards is None or not 0 <= rank < len(cards):
+            return None
+        return sm_mod.parse_numa(cards[rank])
+
+    def sm_segment_stats(self) -> dict | None:
+        """Demand-mapping introspection of this proc's OWN segment:
+        materialized inbound ring sources, the bitmap-derived logical
+        footprint, and the actual tmpfs page bytes.  None when the sm
+        plane is off."""
+        seg = self._sm_seg
+        if seg is None:
+            return None
+        return {
+            "materialized": seg.materialized(),
+            "footprint_bytes": seg.footprint_bytes(),
+            "physical_bytes": seg.physical_bytes(),
+        }
 
     def resource_stats(self) -> dict:
         """Per-rank live transport resources: ``sockets`` counts cached
@@ -740,10 +956,15 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
     # -- wire-up ---------------------------------------------------------
 
     def _my_card(self) -> list:
-        """This rank's modex business card: ``[host, port]`` (the
-        namesake appends the sm segment and NUMA items only while an sm
-        segment exists)."""
-        return list(self.address)
+        """This rank's modex business card: ``[host, port]`` plus
+        capability items — the sm segment advertisement and, beside it,
+        the NUMA-domain token (extra items are relayed verbatim and
+        ignored by consumers that only dial sockets)."""
+        card = list(self.address)
+        if self._sm_seg is not None:
+            card.append(self._sm_seg.card(self._sm_boot))
+            card.append(sm_mod.numa_card_item(self._sm_numa))
+        return card
 
     def _modex(self, coordinator: tuple[str, int], timeout: float
                ) -> list[tuple[str, int]]:
@@ -982,6 +1203,32 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             if poll:
                 raise
             return self.call_errhandler(exc)
+        # per-peer transport dispatch (the btl selection seam): the sm
+        # ring wins for same-boot peers by priority; everything below is
+        # the TCP path the pair degrades to
+        smtx = self._sm_tx(dest)
+        if smtx is not None:
+            try:
+                spins0 = sm_mod.thread_full_spins() \
+                    if tspan is not None else 0
+                self._sm_send(smtx, obj, dest, tag, cid, seq, nbytes,
+                              tctx=tctx)
+                if tspan is not None:
+                    # bp: the span's duration includes ring-full
+                    # backpressure (this thread's spins only)
+                    tspan.end(transport="sm",
+                              bp=sm_mod.thread_full_spins() > spins0)
+                return
+            except errors.InternalError as exc:
+                # wedged/stopped/closed ring: a transport failure — the
+                # same disposition routing a TCP stall gets
+                if poll:
+                    raise
+                return self.call_errhandler(exc)
+        if dest in self._sm_declined:
+            # the peer advertised an sm endpoint we could not ride
+            # (boot mismatch, unmappable segment): visible, not silent
+            spc.record("sm_fallback_tcp_sends", 1)
         limit = int(mca_var.get("tcp_eager_limit", 1 << 20))
         if nbytes > limit:
             self._send_rndv(obj, dest, tag, cid, seq, nbytes,
@@ -1433,6 +1680,83 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         self._enqueue_deferred(dest, req, send_rts, finish=False)
         return req
 
+    def _isend_sm(self, smtx: sm_mod.SmSender, obj: Any, dest: int,
+                  tag: int, cid: int, seq: int, nbytes: int, dispatch,
+                  tctx=None):
+        """Shared-memory deferred send.  Ring backpressure already IS
+        the in-flight bound, so a small frame tries the single-slot
+        copy-in NONBLOCKING and is born complete when it lands; a frame
+        the ring's free slots already cover streams inline (still
+        nonblocking); otherwise a producer continuation parks on the
+        progress engine instead of blocking the caller."""
+        req = SendRequest(dispatch=dispatch)
+        ch = self._out_channels.get(dest)
+        idle = ch is None or not ch.busy()
+        oob_min = int(mca_var.get("tcp_zero_copy_min", 0))
+        frame_objs = self._frame_objs(tag, cid, seq, obj, tctx)
+        if idle and nbytes + 512 <= min(smtx.slot_bytes, 32 << 10):
+            try:
+                wire = smtx.send_direct(
+                    frame_objs, oob_min,
+                    time.monotonic(), None,
+                )
+            except sm_mod.RingFull:
+                pass  # park the continuation below
+            except (errors.MpiError, OSError) as e:
+                req.complete_error(self._deferred_exc(e, dest))
+                return req
+            else:
+                if wire is not None:
+                    spc.record("sm_bytes_sent", wire)
+                    spc.record("sm_eager_sends", 1)
+                    req.complete()
+                    return req
+                # frame does not fit one slot: fragment pipeline below
+        prebuilt = None
+        if idle:
+            # the ring has room for ALL of the frame: run the fragment
+            # pipeline inline — the copy-in never waits on the consumer
+            prebuilt = dss.pack_frames(*frame_objs, oob_min=oob_min)
+            try:
+                done = smtx.try_send_frame(*prebuilt)
+            except (errors.MpiError, OSError) as e:
+                req.complete_error(self._deferred_exc(e, dest))
+                return req
+            if done is not None:
+                wire, nfrags = done
+                spc.record("sm_bytes_sent", wire)
+                spc.record("sm_eager_sends" if nfrags == 1
+                           else "sm_frag_sends", 1)
+                req.complete()
+                return req
+        self._inflight.add(req)
+        spc.record("tcp_isend_deferred", 1)
+
+        def work():
+            if prebuilt is not None:
+                # stream the SAME header/segments once the ring drains
+                # (no second DSS pack on the backpressured path)
+                self._sm_send_prebuilt(smtx, dest, *prebuilt)
+            else:
+                # frame_objs already accounted its wire-context bytes
+                self._sm_send(smtx, obj, dest, tag, cid, seq, nbytes,
+                              objs=frame_objs)
+
+        self._enqueue_deferred(dest, req, work, finish=True)
+        return req
+
+    def _sm_send_prebuilt(self, smtx: sm_mod.SmSender, dest: int,
+                          header, oob) -> None:
+        """Parked-continuation body for an sm isend whose frame was
+        already serialized for the nonblocking attempt: the blocking
+        fragment pipeline over the same pinned segments."""
+        deadline = time.monotonic() + self._timeout
+        wire, nfrags = smtx.send_frame(header, oob, deadline,
+                                       self._sm_abort(dest))
+        spc.record("sm_bytes_sent", wire)
+        spc.record("sm_eager_sends" if nfrags == 1 else "sm_frag_sends",
+                   1)
+
     def isend(self, obj: Any, dest: int, tag: int = 0, cid: int = 0,
               poll: bool = False):
         """True MPI_Isend: the buffer-reuse contract is DEFERRED to
@@ -1441,7 +1765,8 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         progress engine — per-destination FIFO channels drained by the
         push-pool workers (eager: queued sendmsg; rendezvous: RTS parks
         the descriptor, CTS pushes the pinned buffers over the data
-        socket).  ``wait()``/``test()`` gate buffer reuse and surface
+        socket; sm: slot copy-in, or a parked producer continuation when
+        the ring is full).  ``wait()``/``test()`` gate buffer reuse and surface
         failures at completion.  A tensor the wire cannot carry raises
         dss's ``TypeError_`` here, before anything is queued.
         ``poll=True`` marks a framework-internal send: errors raise raw
@@ -1472,6 +1797,15 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             self._deliver_self(obj, tag, cid, seq, tspan, tctx)
             return SendRequest.completed()
         nbytes = _payload_size(obj)
+        smtx = self._sm_tx(dest)
+        if smtx is not None:
+            req = self._isend_sm(smtx, obj, dest, tag, cid, seq,
+                                 nbytes, dispatch, tctx=tctx)
+            if tspan is not None:
+                tspan.end(transport="sm")
+            return req
+        if dest in self._sm_declined:
+            spc.record("sm_fallback_tcp_sends", 1)
         limit = int(mca_var.get("tcp_eager_limit", 1 << 20))
         if nbytes > limit:
             req = self._isend_rndv(obj, dest, tag, cid, seq, nbytes,
@@ -1589,10 +1923,12 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         return self.recv(source, recvtag, cid)
 
     def barrier(self) -> None:
-        """Dissemination barrier over the wire (through the coll/han seam
-        the host collectives run through: flat, or a raise naming
-        ``coll/han.py``)."""
-        _han_route(self, "barrier")
+        """Dissemination barrier over the wire (two-level over the
+        locality groups when the han layer is selected — the same
+        dispatch seam the host collectives run through)."""
+        han = _han_route(self, "barrier")
+        if han is not None:
+            return han.barrier(self)
         n = self.size
         k = 1
         while k < n:
@@ -1645,6 +1981,13 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         # descriptor may survive a closed proc
         self._abandon_inflight(
             "proc closed with undeliverable sends in flight")
+        # sm plane last: poll thread joined, peer mappings unmapped, own
+        # segment unlinked (rings live exactly as long as their proc)
+        self._sm_teardown()
+        # han tag-window registrations die with the proc
+        from . import groups as groups_mod
+
+        groups_mod.release(self)
         try:
             self._listener.close()
         except OSError:

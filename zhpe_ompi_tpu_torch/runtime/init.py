@@ -19,8 +19,10 @@ process into a ``pt2pt/tcp.TcpProc`` universe (``host_world``,
 ``host_finalize``).  Against the namesake: ``ZMPI_PMIX`` (the daemon-hosted
 store) raises ``UnsupportedError`` naming ``runtime/pmix.py``,
 ``ZMPI_FT=1`` raises naming ``ft/ulfm.py``, and the ``ZMPI_LIFELINE``
-watch (``_arm_lifeline``) comes with the DVM (ROADMAP queue A item 4).
-Until ``pt2pt/sm.py`` lands, a host-plane job runs with ``ZMPI_MCA_sm=0``.
+watch (``_arm_lifeline``) comes with the DVM.  The ``sm`` MCA var keeps
+its default (1): ranks on one host exchange their frames through the
+shared-memory rings of ``pt2pt/sm.py``, and ``ZMPI_MCA_sm=0`` puts every
+pair on TCP.
 """
 
 from __future__ import annotations
@@ -226,7 +228,8 @@ def host_init(timeout: float = 30.0):
     variable raises ``NotInitializedError``.  Idempotent; returns this
     process's :class:`~zhpe_ompi_tpu_torch.pt2pt.tcp.TcpProc` endpoint.
     ``ZMPI_PMIX`` and ``ZMPI_FT=1`` raise ``UnsupportedError`` (see the
-    module doc); the ``sm`` MCA var applies as to any ``TcpProc``.
+    module doc); the ``sm`` MCA var (default 1: same-host ranks ride the
+    shared-memory rings) applies as to any ``TcpProc``.
     """
     with _host_lock:
         if _host["proc"] is not None:

@@ -57,6 +57,64 @@ Wire-plane counters (``pt2pt/tcp.py``):
 - ``trace_wire_context_bytes`` — bytes of ``(trace_id, parent_sid,
   seq)`` context appended to DSS frame headers while tracing is armed.
 
+Shared-memory-plane counters (recorded at the per-peer transport
+dispatch seam in ``pt2pt/tcp.py``; the rings live in ``pt2pt/sm.py``):
+
+- ``sm_bytes_sent`` / ``sm_bytes_recvd`` — on-ring bytes: every
+  fragment's payload plus its 16-byte slot header.  ``recvd`` counts at
+  consume time.
+- ``sm_eager_sends`` — messages that fit one ring slot (DSS header
+  packed straight into slot memory via ``dss.pack_frames_into``).
+- ``sm_frag_sends`` — messages that took the multi-slot fragment
+  pipeline (``sm_max_frag`` per slot).
+- ``sm_ring_full_spins`` — producer spins on a full ring (backpressure);
+  a high rate means ``sm_ring_bytes`` is undersized for the traffic.
+- ``sm_fallback_tcp_sends`` — data sends to a peer that ADVERTISED a
+  shared-memory endpoint this rank could not ride (boot-id mismatch or
+  an unmappable segment): visible degradation.  Intentional TCP
+  (``sm=0`` peers, remote hosts) is not counted.
+- ``sm_rings_materialized`` — rings demand-mapped into existence by a
+  sender's first-contact allocation request.
+
+Hierarchical-collective counters (``coll/han.py`` and the
+``pt2pt/groups.py`` GroupView send seam):
+
+- ``coll_han_leader_elections`` — locality-group structures built (the
+  deterministic min-rank leader election of each new group layout on an
+  endpoint).
+- ``coll_han_intra_bytes`` — payload bytes sent by intra-phase
+  (same-host group) traffic; rides the sm rings through the send seam.
+- ``coll_han_inter_bytes`` — payload bytes sent by inter-phase
+  (leader-to-leader) traffic: the bytes that cross the wire.
+- ``han_flat_fallbacks`` — collectives that REQUESTED the hierarchical
+  path (``coll_han_enable=on`` or a ``han`` rules line) but ran flat
+  (degenerate topology, non-commutative op): loud degradation.  The
+  ``auto`` mode's decision not to engage is not counted.
+- ``coll_han_pipelined`` — allreduces whose segmented leader exchange
+  took the pipelined schedule (``coll_han_pipeline`` auto/on, >= 2
+  segments).
+- ``coll_han_numa_collectives`` — collectives that ran the THREE-level
+  (NUMA) schedule: intra-domain phase → intra-host domain-leader
+  exchange → inter-host wire exchange.
+- ``coll_han_dleader_bytes`` — payload bytes of the three-level
+  schedule's intra-host domain-leader exchange.
+- ``han_numa_fallbacks`` — collectives that REQUESTED the three-level
+  schedule (``coll_han_numa_level=on``) but ran two-level because the
+  NUMA structure is degenerate.
+- ``han_malformed_numa_cards`` — ranks whose ``pynuma:`` card item was
+  present but unusable during topology derivation (demoted to a
+  singleton domain).
+- ``coll_han_alltoall_collectives`` — alltoall-family collectives
+  (alltoall, alltoallv, reduce_scatter's leader phase) that ran the
+  hierarchical block schedule: intra gather → leader exchange of
+  aggregated per-host block matrices → intra scatter.
+- ``coll_han_alltoall_inter_bytes`` — payload bytes the alltoall
+  family's leader phase handed to the wire (each leader's own block
+  excluded).
+- ``coll_han_alltoall_leader_msgs`` — wire messages the leader exchange
+  issued per leader: ``p-1`` pairwise, ``ceil(log2 p)`` once
+  ``coll_han_alltoall_bruck_min`` leaders flip it to Bruck.
+
 Device-plane liveness counters (``parallel/mesh.py``):
 
 - ``device_probe_rounds`` — killable-child liveness probes launched
