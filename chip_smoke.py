@@ -156,10 +156,48 @@ Phases, each of which exits non-zero on failure:
    plane and holds them against ``moe_reference_dense`` over all 8192
    tokens (``MOE_REL_TOL``) and the reference's kept mask.  A child that
    exits non-zero, or prints no result, fails the smoke.
-17. Print one ``{"kernels": [...]}`` line (``launches``: per training
+17. Fault tolerance on the card (``drive_ft``): ``FtTrainLoop`` drives
+   the flagship width (bf16, batch 16 per rank) on 4 thread ranks of an
+   ft ``LocalUniverse`` (ring detector on), each rank with its own batch
+   from a seed, a serial ``Checkpointer`` (every 2 steps), an armed
+   ``DeviceLivenessProbe`` with the default probe (the real CUDA child)
+   and a respawner over ``recovery.respawn_ranks``; its step is
+   ``models/ftloop.make_dp_step``: ``loss_fn`` and autograd, the
+   gradients flattened into one CUDA tensor, one ``allreduce`` SUM over
+   the loop's live window (the ring, on the card), the mean, SGD.  Three
+   runs of 6 steps from the same parameters: fault-free; ``kill`` (the
+   victim, rank 2, dies at its second point-to-point operation of step
+   3's gradient allreduce, ``kill_then_respawn``); ``wedge`` (rank 2's
+   device wedges entering step 3, ``wedge_device``: its own probe child
+   misses under ``ZMPI_DEVICE_WEDGE``, it classifies ``cause="device"``
+   and unwinds, while the survivors' children answer "ok").  Every run
+   must end at 4 ranks with every rank's parameters equal in their bits
+   to the fault-free run's, survivors with one recovery and the
+   replacement with none, both restored at step 2; every attempted rank
+   step must launch the kernels 9/9/4/4/4 (the forward kernels by each
+   rank thread's own tally, the backward kernels, which autograd's
+   device thread launches for every rank, by their total over the run);
+   exactly one ``device_faults`` (the victim's) in the wedge run and
+   none elsewhere; no detector false positive; and afterwards no
+   detector, watchdog, prober or respawn thread nor probe child.
+   Printed per run: the median ms of the step's local part and of its
+   allreduce, checkpoint ms, the fault-to-classification ms and the
+   recovery legs (detect, agree, shrink, rollback, respawn, rejoin; and
+   ``recovery.mttr_legs``), the probe children's seconds and the peak
+   device memory.
+18. The process-plane ft job (``drive_ft_processes``): 4 children of
+   this script under ``ZMPI_FT=1`` with the sm var at its default (this
+   process hosts the rendezvous).  Each stages a CUDA tensor of 2^20
+   int64 to the host; rank 3 is killed (``FaultPlan``, then SIGKILL)
+   inside the ring allreduce over the rings; the survivors classify it
+   (the sm death listener or the transport), ack, agree on the failed
+   set, shrink to 3 and reduce exactly against numpy.  The victim's
+   ring files are swept as a launcher would (``ZMPI_SESSION``); the
+   survivors must leave no ring file, poll thread or detector.
+19. Print one ``{"kernels": [...]}`` line (``launches``: per training
    step; ``launches_by_path``: per forward, training, remat, sp, runtime,
-   long-context and Adam step), the card's line, and last ``{"ok": true,
-   "device": {...}}``.
+   long-context, Adam and ft rank step), the card's line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
@@ -188,6 +226,11 @@ and their results.
 is phase 16's child (started by the smoke itself, with the ``ZMPI_*``
 environment); run alone it fails, as ``host_init`` does without that
 contract.
+
+    python3 chip_smoke.py --ft
+
+runs only phases 17 and 18 (after the kernel build); ``--ft-child`` is
+phase 18's child.
 
     python3 chip_smoke.py --bench-after
 
@@ -317,6 +360,38 @@ HOST_MOE_CALLS = 5
 HOST_MOE_CAPACITY = 1.25
 HOST_MOE_SEED = 1808
 RING_TOL = 2e-2
+# fault tolerance (phases 17 and 18): thread ranks of the ft universe, the
+# training steps of each run, the checkpoint cadence, the step (0-based)
+# the fault lands in and its victim, the SGD rate, and the seed of the
+# plans and the batches.  FT_GUARD_S is the guarded region's deadline (a
+# 4-rank step takes well under a second); the probe child's own deadline
+# FT_PROBE_DEADLINE_S must outlive its start-up (import torch and a CUDA
+# context: 8.42-9.95 s alone on the card's host, PR 6), its outer kill
+# FT_PROBE_TIMEOUT_S that.  The heartbeat window FT_DETECTOR_S is wide
+# enough that four ranks launching kernels under one interpreter lock never
+# starve a heartbeat thread past it (the false-positive gate is zero).
+FT_DEVICE = "cuda"
+FT_RANKS = 4
+FT_STEPS = 6
+FT_CKPT_EVERY = 2
+FT_FAULT_STEP = 3
+FT_VICTIM = 2
+FT_LR = TRAIN_LR
+FT_SEED = 2029
+FT_GUARD_S = 5.0
+FT_PROBE_DEADLINE_S = 20.0
+FT_PROBE_TIMEOUT_S = 40.0
+FT_DETECTOR_PERIOD_S = 0.1
+FT_DETECTOR_S = 30.0
+FT_RUN_TIMEOUT_S = 300.0
+# the kill lands at the victim's second point-to-point operation of the
+# gradient allreduce: inside the ring's reduce-scatter, so no survivor can
+# finish that step
+FT_KILL_AFTER_OPS = 1
+# phase 18: the process-plane ft job (ranks, victim, staged int64 elements)
+FT_PROC_RANKS = 4
+FT_PROC_VICTIM = 3
+FT_PROC_ELEMS = 1 << 20
 
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
 # sequence, so the ring's mbarrier phases wrap many times (64 key or query
@@ -905,6 +980,15 @@ def steady_steps(torch, step, state, tokens, targets, label):
     return steady
 
 
+def _step_launches(cfg) -> dict:
+    """The launches of one training step of ``cfg`` on the kernel path:
+    the layernorm kernels 2L + 1 times, each flash kernel L times."""
+    L = cfg.n_layers
+    return {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+
+
 def _train_inputs(torch, np, tfm, cfg, batch=None):
     from zhpe_ompi_tpu_torch.bench import numpy_params
 
@@ -933,10 +1017,7 @@ def drive_train(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm):
         replace(cfg, fused_ln=False, flash=False), dp_comm, tp_comm, lr=TRAIN_LR)
     params0, tokens, targets = _train_inputs(torch, np, tfm, cfg)
     counted = _kernel_counters(fused_norm, fa)
-    L = cfg.n_layers
-    want = {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
-            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L}
+    want = _step_launches(cfg)
     state, losses, launches = train_steps(torch, step, params0, tokens, targets,
                                           counted, want, "train")
 
@@ -1099,10 +1180,7 @@ def drive_adam(torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, train_steady, c
         replace(cfg, fused_ln=False, flash=False), dp_comm, tp_comm)
     params0, tokens, targets = _train_inputs(torch, np, tfm, cfg)
     counted = _kernel_counters(fused_norm, fa)
-    L = cfg.n_layers
-    want = {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
-            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L}
+    want = _step_launches(cfg)
     params = {k: v.clone() for k, v in params0.items()}
     opt = init(params)
     losses, _ = _adam_steps(torch, step, params, opt, tokens, targets, ADAM_STEPS - 1,
@@ -1720,6 +1798,477 @@ def drive_host_moe_both(torch, card_line) -> dict:
             "sm_off": drive_host_moe(torch, card_line, sm=0)}
 
 
+def _ft_legs(spans, t_class, t_fault):
+    """Recovery legs of one fault from the run's ztrace spans, in ms from
+    its classification: detect (the fault to its classification), then
+    agree and shrink (the survivors' failed-set agreement and shrink),
+    rollback, respawn, and rejoin (the full-size re-shrink the replacement
+    joins), each the latest end among the ranks of their first such span
+    after the classification (the survivors' only for agree, shrink and
+    rollback: a replacement's are its own)."""
+    after = [s for s in spans if s["t0"] >= t_class]
+
+    def latest_first(pred):
+        first: dict = {}
+        for s in after:
+            if pred(s):
+                first.setdefault(s["rank"], s["t1"])
+        return (max(first.values()) - t_class) / 1e6 if first else None
+
+    respawn = [s for s in after if s["kind"] == "respawn"]
+    t_respawn = respawn[0]["t0"] if respawn else None
+    rollbacks = [s["t1"] for s in after if s["kind"] == "rollback"
+                 and (t_respawn is None or s["t0"] < t_respawn)]
+    return {
+        "detect": (t_class - t_fault) / 1e6,
+        "agree": latest_first(lambda s: s["kind"] == "agree"
+                              and s["rank"] != FT_VICTIM),
+        "shrink": latest_first(lambda s: s["kind"] == "shrink"
+                               and s.get("survivors") == FT_RANKS - 1),
+        "rollback": (max(rollbacks) - t_class) / 1e6 if rollbacks else None,
+        "respawn": (respawn[0]["t1"] - t_class) / 1e6 if respawn else None,
+        "rejoin": latest_first(lambda s: s["kind"] == "shrink"
+                               and s.get("survivors") == FT_RANKS),
+    }
+
+
+def _ft_run(torch, np, tfm, cfg, init, batches, counted, fault, card_line):
+    """One FtTrainLoop run of FT_RANKS thread ranks of an ft LocalUniverse
+    on the card (phase 17), under ``fault`` (None, "kill" or "wedge").
+    Returns what the checks and the report need."""
+    import shutil
+
+    from zhpe_ompi_tpu_torch import _build
+    from zhpe_ompi_tpu_torch.core import errhandler as errh
+    from zhpe_ompi_tpu_torch.core import errors
+    from zhpe_ompi_tpu_torch.ft import recovery, ulfm
+    from zhpe_ompi_tpu_torch.ft.inject import FaultPlan
+    from zhpe_ompi_tpu_torch.models import ftloop
+    from zhpe_ompi_tpu_torch.parallel import mesh
+    from zhpe_ompi_tpu_torch.pt2pt.universe import LocalUniverse
+    from zhpe_ompi_tpu_torch.runtime import checkpoint, flightrec, spc, ztrace
+
+    names = {fn.__name__: name for name, fn in counted.items()}
+    plan = FaultPlan(seed=FT_SEED)
+    if fault == "kill":
+        plan.kill_then_respawn(FT_VICTIM, after_ops=FT_KILL_AFTER_OPS)
+    elif fault == "wedge":
+        plan.wedge_device(FT_VICTIM, after_steps=FT_FAULT_STEP)
+    stamps: dict = {}
+    records: list = []
+    timings: dict = {}
+    ckpt_ms: list = []
+    handles: dict = {}
+    root = tempfile.mkdtemp(prefix="zmpi-ft-")
+
+    class TimedCheckpointer(checkpoint.Checkpointer):
+        """The serial Checkpointer, its saves timed and its restores'
+        steps kept (the rollback step)."""
+
+        restored: list
+
+        def save(self, step, state, blocking=False):
+            t0 = time.perf_counter()
+            super().save(step, state, blocking)
+            ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def restore(self, step=None, placements=None):
+            out = super().restore(step, placements)
+            self.restored.append(int(out[1]))
+            return out
+
+    def make_loop(ctx, first_life):
+        rank = ctx.rank
+        wrap = None
+        if fault == "kill" and first_life and rank == FT_VICTIM:
+            def wrap(ep, i):
+                if i != FT_FAULT_STEP:
+                    return ep
+                inj = plan.arm(ep)
+                die = inj.die
+
+                def stamped_die():
+                    stamps.setdefault("fault", time.monotonic_ns())
+                    die()
+
+                inj.die = stamped_die
+                return inj
+        tokens, targets = batches[rank]
+        step = ftloop.make_dp_step(
+            cfg, tokens, targets, FT_LR, device=FT_DEVICE, wrap=wrap,
+            timings=timings.setdefault((rank, first_life), {}))
+
+        def counted_step(ep, params, i):
+            before = _build.thread_launches()
+            try:
+                return step(ep, params, i)
+            finally:
+                after = _build.thread_launches()
+                records.append((rank, first_life, i, {
+                    names[k]: after.get(k, 0) - before.get(k, 0) for k in names}))
+
+        wedge = plan.arm_device(rank, state=ctx.ft_state) if first_life else None
+        if fault == "wedge" and wedge is not None and rank == FT_VICTIM:
+            fire = wedge.fire
+
+            def stamped_fire():
+                stamps.setdefault("fault", time.monotonic_ns())
+                fire()
+
+            wedge.fire = stamped_fire
+        # the default probe: the real killable CUDA child of probe_device_plane
+        probe = mesh.DeviceLivenessProbe(
+            state=ctx.ft_state, rank=rank, enable=True, deadline=FT_GUARD_S,
+            probe_deadline=FT_PROBE_DEADLINE_S, timeout=FT_PROBE_TIMEOUT_S,
+            device=FT_DEVICE)
+        ck = TimedCheckpointer(os.path.join(root, f"r{rank}"), keep=3,
+                               check_quiescent=False)
+        ck.restored = []
+        return ftloop.FtTrainLoop(
+            ctx, step_fn=counted_step, state=dict(init), checkpointer=ck,
+            ckpt_every=FT_CKPT_EVERY, probe=probe, wedge=wedge,
+            respawner=respawner, shardings_fn=lambda ep: FT_DEVICE)
+
+    def outcome(loop, tag):
+        return (tag, {k: v.detach().cpu() for k, v in loop.state.items()},
+                list(loop.losses), loop.recoveries, list(loop.ckpt.restored))
+
+    def replacement(ctx):
+        ctx.set_errhandler(errh.ERRORS_RETURN)
+        loop = make_loop(ctx, first_life=False)
+        loop.restore(FT_DEVICE)
+        loop.run(FT_STEPS)
+        return outcome(loop, "replacement")
+
+    def respawner(victims):
+        handles.update(recovery.respawn_ranks(uni, victims, replacement))
+
+    def prog(ctx):
+        ctx.set_errhandler(errh.ERRORS_RETURN)
+        loop = make_loop(ctx, first_life=True)
+        try:
+            loop.run(FT_STEPS)
+        except errors.DeviceFault as e:
+            return ("wedged", ctx.rank in e.failed_ranks)
+        return outcome(loop, "done")
+
+    uni = LocalUniverse(FT_RANKS, ft=True)
+    fps0 = ulfm.false_positive_count()
+    spc0 = spc.snapshot()
+    for fn in counted.values():
+        fn.launches = 0
+    flightrec.arm()
+    ztrace.arm()
+    torch.cuda.reset_peak_memory_stats()
+    uni.start_failure_detector(period=FT_DETECTOR_PERIOD_S, timeout=FT_DETECTOR_S)
+    t0 = time.perf_counter()
+    try:
+        res = uni.run(prog, timeout=FT_RUN_TIMEOUT_S)
+        second = {v: h.result(timeout=FT_RUN_TIMEOUT_S) for v, h in handles.items()}
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        window, anchors = flightrec.window(), flightrec.anchors()
+        spans = ztrace.window()
+    finally:
+        uni.stop_failure_detector()
+        ztrace.disarm()
+        ztrace.clear()
+        flightrec.disarm()
+        flightrec.clear()
+        uni.close()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: fn.launches for name, fn in counted.items()}
+    failed = sorted(uni.ft_state.failed())
+    delta = {k: v - spc0.get(k, 0) for k, v in spc.snapshot().items()
+             if k.startswith("device_") and v != spc0.get(k, 0)}
+    return {"res": res, "second": second, "records": records, "launches": launches,
+            "timings": timings, "ckpt_ms": ckpt_ms, "stamps": stamps,
+            "window": window, "anchors": anchors, "spans": spans,
+            "failed": failed, "spc": delta, "wall_s": wall_s,
+            "fps": ulfm.false_positive_count() - fps0,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def drive_ft(torch, np, tfm, fused_norm, fa, card_line):
+    """Phase 17: FtTrainLoop at the flagship width on FT_RANKS thread ranks
+    of an ft LocalUniverse on the card: a fault-free run, a kill inside a
+    gradient allreduce (respawned), a device wedge (classified by the
+    victim's own CUDA probe child, respawned).  See the module doc."""
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+    from zhpe_ompi_tpu_torch.ft import recovery, ulfm
+    from zhpe_ompi_tpu_torch.parallel import mesh
+    from zhpe_ompi_tpu_torch.runtime import flightrec
+    from zhpe_ompi_tpu_torch.utils import deadline
+
+    t_phase = time.perf_counter()
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    init = tfm.params_from_numpy(numpy_params(cfg, seed=0), cfg, device=FT_DEVICE)
+    batches = []
+    for r in range(FT_RANKS):
+        rng = np.random.default_rng(FT_SEED + r)
+        batches.append(tuple(
+            torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, cfg.seq)),
+                            device=FT_DEVICE)
+            for _ in range(2)))
+    counted = _kernel_counters(fused_norm, fa)
+    want = _step_launches(cfg)
+    rollback = (FT_FAULT_STEP // FT_CKPT_EVERY) * FT_CKPT_EVERY
+    runs, report = {}, {}
+    for fault in (None, "kill", "wedge"):
+        label = fault or "fault_free"
+        run = runs[label] = _ft_run(torch, np, tfm, cfg, init, batches, counted,
+                                    fault, card_line)
+        res, second = run["res"], run["second"]
+        # every attempted rank step launched the five kernels 9/9/4/4/4: the
+        # forward kernels on the rank's own thread (its own tally), the
+        # backward kernels on autograd's device thread, which all ranks
+        # share (their total over the run's rank steps)
+        fwd = ("layernorm_fwd", "flash_attention_fwd")
+        bad = [rec for rec in run["records"] if any(rec[3][k] != want[k] for k in fwd)]
+        n_steps = len(run["records"])
+        if bad or run["launches"] != {k: n_steps * v for k, v in want.items()}:
+            raise SystemExit(f"ft {label}: rank steps launched {bad[:3]} "
+                             f"(expected {want} each); totals {run['launches']} "
+                             f"over {n_steps} rank steps")
+        finals = []
+        for r in range(FT_RANKS):
+            row = res[r] if r not in second else second[r]
+            if not (isinstance(row, tuple) and row[0] in ("done", "replacement")):
+                raise SystemExit(f"ft {label}: rank {r} ended {row!r}")
+            finals.append(row[1])
+            want_rec = 0 if (fault is None or row[0] == "replacement") else 1
+            want_restored = [] if fault is None else [rollback]
+            want_len = FT_STEPS - rollback if row[0] == "replacement" else FT_STEPS
+            if (row[3], row[4], len(row[2])) != (want_rec, want_restored, want_len):
+                raise SystemExit(f"ft {label}: rank {r} recoveries {row[3]}, restored "
+                                 f"{row[4]}, {len(row[2])} losses")
+            if not all(math.isfinite(x) for x in row[2]):
+                raise SystemExit(f"ft {label}: rank {r} losses not finite: {row[2]}")
+        if run["failed"] or run["fps"]:
+            raise SystemExit(f"ft {label}: failed {run['failed']} at the end, "
+                             f"{run['fps']} detector false positives")
+        if fault is not None and sorted(second) != [FT_VICTIM]:
+            raise SystemExit(f"ft {label}: respawned {sorted(second)}")
+        if fault == "kill" and res[FT_VICTIM] is not None:
+            raise SystemExit(f"ft kill: the victim ended {res[FT_VICTIM]!r}")
+        if fault == "wedge" and res[FT_VICTIM] != ("wedged", True):
+            raise SystemExit(f"ft wedge: the victim ended {res[FT_VICTIM]!r}")
+        base = runs["fault_free"]["finals"] if fault is not None else finals[0]
+        max_diff = 0.0
+        for r in range(FT_RANKS):
+            for k, v in finals[r].items():
+                if not torch.equal(v, base[k]):
+                    max_diff = max(max_diff, float((v - base[k]).abs().max()))
+        run["finals"] = finals[0]
+        dev_events = [e for e in run["window"] if e["type"] == flightrec.DEVICE_FAULT]
+        class_ns = None
+        for e in run["window"]:
+            if e["type"] == flightrec.FT_CLASS and e.get("rank") == FT_VICTIM:
+                class_ns = e["t_ns"]
+                break
+        probe_s = [(s["t1"] - s["t0"]) / 1e9 for s in run["spans"]
+                   if s["kind"] == "device_probe"]
+        tim = [t for (r, first), t in run["timings"].items()]
+        local = [x for t in tim for x in t.get("local", [])]
+        allred = [x for t in tim for x in t.get("allreduce", [])]
+        rep = {"wall_s": run["wall_s"], "max_abs_diff_vs_fault_free": max_diff,
+               "step_local_ms_median": _median(local) * 1e3,
+               "step_allreduce_ms_median": _median(allred) * 1e3,
+               "checkpoint_ms_median": _median(run["ckpt_ms"]),
+               "checkpoints": len(run["ckpt_ms"]),
+               "probe_children_s": sorted(probe_s),
+               "device_spc": run["spc"], "peak_bytes": run["peak_bytes"],
+               "rank_steps": len(run["records"]), "launches": run["launches"],
+               "losses_rank0": res[0][2] if isinstance(res[0], tuple) else None}
+        if fault is not None:
+            if class_ns is None or "fault" not in run["stamps"]:
+                raise SystemExit(f"ft {label}: no classification of the victim recorded")
+            rep["fault_to_classification_ms"] = (class_ns - run["stamps"]["fault"]) / 1e6
+            rep["legs_ms"] = _ft_legs(run["spans"], class_ns, run["stamps"]["fault"])
+            rep["mttr_legs"] = recovery.mttr_legs(run["window"], run["anchors"])
+        if fault == "wedge":
+            if (len(dev_events) != 1 or dev_events[0].get("rank") != FT_VICTIM
+                    or run["spc"].get("device_faults") != 1):
+                raise SystemExit(f"ft wedge: device classifications {dev_events}, "
+                                 f"counters {run['spc']}")
+        elif dev_events or run["spc"].get("device_faults"):
+            raise SystemExit(f"ft {label}: a device fault was classified: {dev_events}")
+        if max_diff:
+            raise SystemExit(f"ft {label}: final parameters differ from the fault-free "
+                             f"run's by up to {max_diff}")
+        report[label] = rep
+        print(json.dumps({f"ft_{label}": rep, "card": card_line}))
+    # nothing left behind: detector, respawn and watchdog threads, probe
+    # children (a disarmed guard's last probe finishes within its timeout)
+    t_end = time.monotonic() + FT_PROBE_TIMEOUT_S + 5.0
+    while (deadline.orphaned_probe_processes() or deadline.live_watchdog_threads()) \
+            and time.monotonic() < t_end:
+        time.sleep(0.2)
+    leftovers = [*ulfm.live_detectors(), *recovery.live_respawn_threads(),
+                 *deadline.live_watchdog_threads(), *deadline.orphaned_probe_processes(),
+                 *mesh.live_prober_threads()]
+    if leftovers:
+        raise SystemExit(f"ft: left behind {leftovers}")
+    per_step = {k: v // len(runs["fault_free"]["records"])
+                for k, v in runs["fault_free"]["launches"].items()}
+    report["launches_per_rank_step"] = per_step
+    report["phase_s"] = time.perf_counter() - t_phase
+    ff = report["fault_free"]
+    print(f"ft (4 thread ranks, flagship width): step local {ff['step_local_ms_median']} "
+          f"ms + allreduce {ff['step_allreduce_ms_median']} ms (medians), checkpoint "
+          f"{ff['checkpoint_ms_median']} ms; kill classified in "
+          f"{report['kill']['fault_to_classification_ms']} ms, legs "
+          f"{report['kill']['legs_ms']}; wedge classified in "
+          f"{report['wedge']['fault_to_classification_ms']} ms, legs "
+          f"{report['wedge']['legs_ms']}; probe children "
+          f"{report['wedge']['probe_children_s']} s; phase {report['phase_s']} s "
+          f"on {card_line}")
+    return per_step, report
+
+
+def ft_child() -> int:
+    """Phase 18's child: one rank of the process-plane ft job through
+    ``zmpi.host_init`` under ZMPI_FT=1 (see the module doc); prints one
+    JSON line.  The victim kills itself (SIGKILL) where the plan kills it."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.coll import host as coll_host
+    from zhpe_ompi_tpu_torch.core import errhandler as errh
+    from zhpe_ompi_tpu_torch.core import errors
+    from zhpe_ompi_tpu_torch.ft import recovery, ulfm
+    from zhpe_ompi_tpu_torch.ft.inject import FaultPlan
+    from zhpe_ompi_tpu_torch.pt2pt import sm
+
+    p = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    p.set_errhandler(errh.ERRORS_RETURN)
+    r = p.rank
+    dev = torch.arange(FT_PROC_ELEMS, dtype=torch.int64, device="cuda") * (r + 1) - r
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = dev.cpu()  # the staging to the host plane
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    p.barrier()
+    inj = FaultPlan(seed=FT_SEED).kill_rank(FT_PROC_VICTIM,
+                                            after_ops=FT_KILL_AFTER_OPS).arm(p)
+    kind = "completed"
+    t0 = time.perf_counter()
+    try:
+        inj.allreduce(x, zmpi.SUM)
+    except ulfm.RankKilled:
+        os.kill(os.getpid(), signal.SIGKILL)  # a real crash: nothing cleans up
+    except errors.ProcFailed:
+        kind = "failed"
+        p.revoke(coll_host.COLL_CID)
+    except errors.Revoked:
+        kind = "revoked"
+    if not p.ft_state.wait_failed(FT_PROC_VICTIM, timeout=60.0):
+        return 1
+    classify_ms = (time.perf_counter() - t0) * 1e3
+    cause = p.ft_state.cause_of(FT_PROC_VICTIM)
+    p.failure_ack()
+    failed, gen = recovery.agree_failed_set(p)
+    sh = p.shrink()
+    total = sh.allreduce(x, zmpi.SUM)
+    recover_ms = (time.perf_counter() - t0) * 1e3
+    want = sum(np.arange(FT_PROC_ELEMS, dtype=np.int64) * (q + 1) - q
+               for q in range(p.size) if q != FT_PROC_VICTIM)
+    exact = bool(np.array_equal(total.numpy(), want))
+    sm_on = p._sm_seg is not None
+    zmpi.host_finalize()
+    print(json.dumps({"rank": r, "kind": kind, "cause": cause, "stage_ms": stage_ms,
+                      "classify_ms": classify_ms, "recover_ms": recover_ms,
+                      "failed": sorted(failed.items()), "gen": gen,
+                      "shrunk": [sh.rank, sh.size, list(sh.group.ranks)],
+                      "exact": exact, "sm": sm_on,
+                      "rings": sm.orphaned_ring_files(), "polls": sm.live_poll_threads(),
+                      "detectors": len(ulfm.live_detectors())}))
+    return 0 if exact else 1
+
+
+def drive_ft_processes(torch, card_line) -> dict:
+    """Phase 18: FT_PROC_RANKS children of this script under ZMPI_FT=1 with
+    the sm var at its default, the smoke hosting the rendezvous; the victim
+    is killed inside a ring allreduce over the rings, the survivors ack,
+    agree on the failed set, shrink to 3 and reduce exactly.  The victim's
+    ring files are the launcher's to sweep (ZMPI_SESSION); the survivors
+    must leave none, and no poll, detector or probe."""
+    import glob
+    import socket
+
+    from zhpe_ompi_tpu_torch.pt2pt import sm
+
+    session = f"zmpift{os.getpid()}"
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(FT_PROC_RANKS)
+    srv.settimeout(HOST_TIMEOUT_S)
+    host, port = srv.getsockname()
+    env = dict(os.environ, ZMPI_SIZE=str(FT_PROC_RANKS), ZMPI_COORD_HOST=host,
+               ZMPI_COORD_PORT=str(port), ZMPI_COORD_EXTERNAL="1", ZMPI_FT="1",
+               ZMPI_SESSION=session)
+    for k in ("ZMPI_PMIX", "ZMPI_MCA_sm"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    children = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ft-child"],
+        env=dict(env, ZMPI_RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(FT_PROC_RANKS)]
+    try:
+        _host_rendezvous(srv, FT_PROC_RANKS)
+        outs = [c.communicate(timeout=HOST_TIMEOUT_S) for c in children]
+    finally:
+        srv.close()
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    pattern = os.path.join(sm.segment_dir(), f"zompi_pyring_{session}_*")
+    swept = sorted(glob.glob(pattern))
+    for path in swept:  # the launcher's sweep of the killed rank's files
+        os.unlink(path)
+    if children[FT_PROC_VICTIM].returncode != -9:
+        raise SystemExit(f"ft processes: the victim exited "
+                         f"{children[FT_PROC_VICTIM].returncode}")
+    results = []
+    for r, (c, (out, err)) in enumerate(zip(children, outs)):
+        if r == FT_PROC_VICTIM:
+            continue
+        lines = out.strip().splitlines()
+        if c.returncode != 0 or not lines:
+            raise SystemExit(f"ft processes: rank {r} exited {c.returncode}\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+        results.append(json.loads(lines[-1]))
+    survivors = [r for r in range(FT_PROC_RANKS) if r != FT_PROC_VICTIM]
+    for k, x in enumerate(results):
+        if not (x["exact"] and x["sm"] and x["shrunk"] == [k, 3, survivors]
+                and [f[0] for f in x["failed"]] == [FT_PROC_VICTIM]
+                and not x["rings"] and not x["polls"] and not x["detectors"]):
+            raise SystemExit(f"ft processes: rank {survivors[k]} ended {x}")
+    if len({(tuple(map(tuple, x["failed"])), x["gen"]) for x in results}) != 1:
+        raise SystemExit("ft processes: the survivors' agreed failed sets differ")
+    if not all(f"_{FT_PROC_VICTIM}_" in os.path.basename(p) for p in swept):
+        raise SystemExit(f"ft processes: survivors' ring files were left: {swept}")
+    if glob.glob(pattern):
+        raise SystemExit("ft processes: ring files left after the sweep")
+    res = {"ranks": results, "swept_victim_files": len(swept),
+           "s": time.perf_counter() - t0}
+    print(json.dumps({"ft_processes": res, "card": card_line}))
+    print(f"ft processes (ZMPI_FT=1, sm default): victim rank {FT_PROC_VICTIM} "
+          f"classified in {[x['classify_ms'] for x in results]} ms "
+          f"({[x['cause'] for x in results]}), recovered and reduced exactly at 3 "
+          f"ranks in {[x['recover_ms'] for x in results]} ms on {card_line}")
+    return res
+
+
 def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
     """Phase 5: the MPI entry point, the monitored train step, the ULFM
     methods on CUDA tensors, the device probe, the bench, finalize."""
@@ -1778,9 +2327,7 @@ def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
     want_calls = {"coll_allreduce_calls": n_dp + n_tp,
                   "comm_dp_coll_calls": n_dp, "comm_tp_coll_calls": n_tp}
     counted = _kernel_counters(fused_norm, fa)
-    want = {"layernorm_fwd": 2 * L + 1, "layernorm_bwd": 2 * L + 1,
-            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L}
+    want = _step_launches(cfg)
     losses = []
     for i in range(3):
         for fn in counted.values():
@@ -2129,6 +2676,27 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _take_widths()
         return host_moe_child()
+    if args == ["--ft-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return ft_child()
+    if args == ["--ft"]:
+        # phases 17 and 18 alone, after the kernel build
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        import numpy as np
+
+        from zhpe_ompi_tpu_torch import _build
+        from zhpe_ompi_tpu_torch.models import transformer as tfm
+        from zhpe_ompi_tpu_torch.ops import flash_attention as fa
+        from zhpe_ompi_tpu_torch.ops import fused_norm
+
+        card_line = _card_line()
+        print(f"card: {card_line}")
+        print(f"kernel build: per source {_build.build()}")
+        drive_ft(torch, np, tfm, fused_norm, fa, card_line)
+        drive_ft_processes(torch, card_line)
+        print(card_line)
+        return 0
     if args == ["--host-plane"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _take_widths()
@@ -2144,7 +2712,7 @@ def main() -> int:
     if args and (args[0] != "--wrapper-host-us" or len(args) != 2):
         print("usage: chip_smoke.py [--bench-after | --wrapper-host-us PORT_ROOT "
               "| --compare-host-us OTHER_ROOT [PAIRS] | --host-plane "
-              "| --host-moe-child]", file=sys.stderr)
+              "| --host-moe-child | --ft | --ft-child]", file=sys.stderr)
         return 2
     if args:
         # the wrappers' and the communicator's host cost of the port found
@@ -2249,6 +2817,8 @@ def main() -> int:
             dist.destroy_process_group()
     host_plane = check_host_plane(torch, np, card_line)
     host_moe = drive_host_moe_both(torch, card_line)
+    ft_launches, ft = drive_ft(torch, np, tfm, fused_norm, fa, card_line)
+    ft_processes = drive_ft_processes(torch, card_line)
     for k in kernels:
         # ``launches``: per training step; the other paths beside it
         k["launches"] = launches[k["name"]]
@@ -2258,7 +2828,7 @@ def main() -> int:
             **{label: sp[label][0][k["name"]] for label in sp},
             "runtime": rt_launches[k["name"]],
             "long_context": lc_launches[k["name"]],
-            "adam": adam_launches[k["name"]]}
+            "adam": adam_launches[k["name"]], "ft": ft_launches[k["name"]]}
     steps = {"train": steady, "remat": remat_steady,
              **{label: sp[label][1] for label in sp}, "adam": adam_steady}
     print(json.dumps({"steps": steps, "card": card_line}))
@@ -2271,6 +2841,7 @@ def main() -> int:
                       "checkpoint": ckpt, "adam_vs_plain": adam_cmp,
                       "moe_pipeline": moe_pipe, "device_plane": device_plane,
                       "host_plane": host_plane, "host_moe": host_moe,
+                      "ft": ft, "ft_processes": ft_processes,
                       "smoke_s": time.perf_counter() - t_start}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,8 @@
 - In process, a one-rank job: ``host_init`` is idempotent, ``host_world``
   returns its proc and ``host_finalize`` closes it.
 - A bad contract raises ``NotInitializedError`` in both packages;
-  ``ZMPI_PMIX`` raises ``UnsupportedError`` naming ``runtime/pmix.py`` and
-  ``ZMPI_FT=1`` naming ``ft/ulfm.py``.
+  ``ZMPI_PMIX`` raises ``UnsupportedError`` naming ``runtime/pmix.py``;
+  ``ZMPI_FT=1`` builds an ft endpoint (one rank agrees and shrinks).
 """
 
 import json
@@ -166,8 +166,132 @@ def test_pmix_and_ft_wait_for_their_modules(monkeypatch):
     monkeypatch.setenv("ZMPI_PMIX", "127.0.0.1:1/job")
     with pytest.raises(errors.UnsupportedError, match="runtime/pmix.py"):
         zmpi.host_init()
+    assert zmpi.host_world() is None
+    # ft/ulfm.py is ported: ZMPI_FT=1 builds an ft endpoint
     monkeypatch.delenv("ZMPI_PMIX")
     monkeypatch.setenv("ZMPI_FT", "1")
-    with pytest.raises(errors.UnsupportedError, match="ft/ulfm.py"):
-        zmpi.host_init()
+    monkeypatch.setenv("ZMPI_COORD_HOST", "127.0.0.1")
+    monkeypatch.setenv("ZMPI_COORD_PORT", "0")
+    p = zmpi.host_init(timeout=10.0)
+    try:
+        assert p.ft_state is not None and p.ft_state.live() == [0]
+        assert p.agree(True) is True and p.shrink().size == 1
+    finally:
+        zmpi.host_finalize()
     assert zmpi.host_world() is None
+
+
+FT_CHILD = textwrap.dedent("""
+    import json, os, signal
+    import numpy as np
+    import torch
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.coll import host as coll_host
+    from zhpe_ompi_tpu_torch.core import errhandler as errh
+    from zhpe_ompi_tpu_torch.core import errors
+    from zhpe_ompi_tpu_torch.ft import recovery, ulfm
+    from zhpe_ompi_tpu_torch.ft.inject import FaultPlan
+    from zhpe_ompi_tpu_torch.pt2pt import sm
+
+    victim = int(os.environ["TEST_VICTIM"])
+    p = zmpi.host_init(timeout=30.0)
+    p.set_errhandler(errh.ERRORS_RETURN)
+    r = p.rank
+    x = torch.arange(70_000, dtype=torch.int64) * (r + 1) - r  # the ring
+    p.barrier()
+    inj = FaultPlan(seed=7).kill_rank(victim, after_ops=1).arm(p)
+    kind = "completed"
+    try:
+        inj.allreduce(x, zmpi.SUM)
+    except ulfm.RankKilled:
+        os.kill(os.getpid(), signal.SIGKILL)  # a real crash: no cleanup
+    except errors.ProcFailed:
+        kind = "failed"
+        p.revoke(coll_host.COLL_CID)
+    except errors.Revoked:
+        kind = "revoked"
+    assert p.ft_state.wait_failed(victim, timeout=20.0)
+    cause = p.ft_state.cause_of(victim)
+    p.failure_ack()
+    failed, gen = recovery.agree_failed_set(p)
+    sh = p.shrink()
+    total = sh.allreduce(x, zmpi.SUM)
+    sm_on = p._sm_seg is not None
+    zmpi.host_finalize()
+    print(json.dumps({"rank": r, "kind": kind, "cause": cause,
+                      "failed": sorted(failed.items()), "gen": gen,
+                      "shrunk": [sh.rank, sh.size, list(sh.group.ranks)],
+                      "total": total[:3].tolist() + [int(total.sum())],
+                      "sm": sm_on, "rings": sm.orphaned_ring_files(),
+                      "polls": sm.live_poll_threads(),
+                      "detectors": len(ulfm.live_detectors())}))
+""")
+
+
+@pytest.mark.parametrize("sm_env", [{}, {"ZMPI_MCA_sm": "0"}],
+                         ids=["sm-default", "sm-off"])
+def test_four_processes_under_zmpi_ft_survive_a_kill(tmp_path, sm_env):
+    """``ZMPI_FT=1`` with four children through the coordinator contract:
+    rank 3 is killed (severed, then SIGKILL) inside a ring allreduce; the
+    survivors classify it through the sm death listener or the transport,
+    ack, agree on the failed set, shrink to 3 and reduce exactly.  The
+    victim's ring files are the launcher's to sweep (``ZMPI_SESSION``);
+    the survivors leave none, and no poll or detector thread."""
+    import glob
+
+    import numpy as np
+
+    from zhpe_ompi_tpu_torch.pt2pt import sm as tsm
+
+    n, victim = 4, 3
+    session = f"fttest{os.getpid()}"
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(n + 2)
+    srv.settimeout(60.0)
+    host, port = srv.getsockname()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), ZMPI_SIZE=str(n),
+               ZMPI_COORD_HOST=host, ZMPI_COORD_PORT=str(port),
+               ZMPI_COORD_EXTERNAL="1", ZMPI_FT="1", ZMPI_SESSION=session,
+               TEST_VICTIM=str(victim))
+    for k in ("ZMPI_PMIX", "ZMPI_MCA_sm"):
+        env.pop(k, None)
+    env.update(sm_env)
+    procs = [subprocess.Popen([sys.executable, "-c", FT_CHILD],
+                              env=dict(env, ZMPI_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(n)]
+    try:
+        _host_rendezvous(srv, n)
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        srv.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    pattern = os.path.join(tsm.segment_dir(), f"zompi_pyring_{session}_*")
+    leftovers = glob.glob(pattern)
+    for path in leftovers:  # the launcher's sweep of the victim's files
+        os.unlink(path)
+    assert procs[victim].returncode == -9
+    res = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if r != victim:
+            assert p.returncode == 0, err[-2000:]
+            res.append(json.loads(out.strip().splitlines()[-1]))
+    want = sum(np.arange(70_000, dtype=np.int64) * (r + 1) - r
+               for r in range(n) if r != victim)
+    for k, got in enumerate(res):
+        assert got["kind"] in ("failed", "revoked")
+        assert got["cause"] in ("transport", "notice", "detector")
+        assert [f[0] for f in got["failed"]] == [victim]
+        assert got["shrunk"] == [k, 3, [0, 1, 2]]
+        assert got["total"] == want[:3].tolist() + [int(want.sum())]
+        assert got["rings"] == [] and got["polls"] == []
+        assert got["detectors"] == 0
+        assert got["sm"] is (sm_env == {})
+    assert len({(tuple(map(tuple, g["failed"])), g["gen"]) for g in res}) == 1
+    assert any(g["kind"] == "failed" for g in res)
+    # only the killed rank's files were left for the sweep
+    assert all(f"_{victim}_" in os.path.basename(p) for p in leftovers)
+    assert (leftovers != []) is (sm_env == {})

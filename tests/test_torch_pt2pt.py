@@ -10,7 +10,7 @@
   after ``send`` returns is not seen), probe/improbe/mrecv, persistent
   requests, ``sendrecv`` and the barrier, against the namesake where the
   result is comparable.
-- What waits for ``ft/ulfm.py`` raises naming it.
+- A plain universe refuses the ULFM surface (``ft=True`` is asked for).
 
 Every universe a test opens is closed (``LocalUniverse.close``), so no
 queue is left for a later file on the same worker.
@@ -236,8 +236,15 @@ def test_requests_match_namesake():
 
 
 def test_ft_and_ulfm_wait_for_ft_ulfm():
-    with pytest.raises(errors.UnsupportedError, match="ft/ulfm.py"):
-        tuniverse.LocalUniverse(2, ft=True)
+    # ft/ulfm.py is ported: an ft universe carries its failure state and
+    # heartbeat board; a plain one refuses the ULFM surface as the
+    # namesake's does (UnsupportedError asking for ft=True)
+    ft_uni = tuniverse.LocalUniverse(2, ft=True)
+    try:
+        assert ft_uni.contexts[0].ft_state is ft_uni.ft_state is not None
+        assert ft_uni.ft_board is not None
+    finally:
+        ft_uni.close()
     uni = tuniverse.LocalUniverse(2)
     try:
         ctx = uni.contexts[0]
@@ -245,7 +252,7 @@ def test_ft_and_ulfm_wait_for_ft_ulfm():
         for call in (ctx.failure_ack, ctx.failure_get_acked, ctx.agree,
                      ctx.shrink, lambda: ctx.revoke(1),
                      uni.start_failure_detector, lambda: uni.respawn_rank(1)):
-            with pytest.raises(errors.UnsupportedError, match="ft/ulfm.py"):
+            with pytest.raises(errors.UnsupportedError, match="ft=True"):
                 call()
         assert ctx.boot_token_of(1) == ctx.boot_token_of(0)
         assert ctx.numa_token_of(1) == "0"

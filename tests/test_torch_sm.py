@@ -18,7 +18,14 @@
 - Lifecycle: segments unlinked at close, none created with sm off, none
   left by a constructor that fails.
 - **Ring compatibility**: 2 port and 2 JAX-package ranks on one boot id
-  run the ring allreduce and an alltoall over each other's rings.
+  run the ring allreduce and an alltoall over each other's rings; with
+  ``ft=True`` (``tests/test_torch_ulfm.py``'s mixed program) revokes flood
+  across the packages, a killed rank of either package is classified (a
+  stopped ring consumer is peer death), and the survivors agree, shrink
+  and reduce to the bit.
+- The ft paths around a respawn, on both packages: a severed rank's
+  rings are unmapped by the death listener, its replacement rejoins over
+  TCP from the survivors' book and its card is scrubbed.
 
 A module fixture checks that no ring file, poll thread, audit failure or
 han tag window of the port outlived its proc.
@@ -415,3 +422,94 @@ def test_ring_compatibility_with_the_jax_package():
     assert jspc.read("sm_bytes_sent") - j0 > 2 * n * 8
     assert spc.read("sm_fallback_tcp_sends") == tf0
     assert jspc.read("sm_fallback_tcp_sends") == jf0
+
+
+@pytest.mark.parametrize("victim,how", [(1, "kill"), (2, "kill"),
+                                        (2, "device")],
+                         ids=["jax-killed", "port-killed", "port-device"])
+def test_ft_ring_compatibility_with_the_jax_package(victim, how):
+    """The mixed ft universe of ``test_torch_tcp.py`` with sm on and one
+    boot id: data rides rings of the other package's making, a stopped
+    consumer classifies as peer death, the goodbyes of the survivors'
+    closes ride the rings, and the survivors agree, shrink and reduce to
+    the bit."""
+    from test_torch_ulfm import check_mixed_ft, mixed_ft_program, run_mixed_ft
+
+    res = run_mixed_ft([TcpProc, JTcpProc, TcpProc, JTcpProc],
+                       mixed_ft_program(victim, how), sm=True,
+                       sm_boot_id="sharedboot01")
+    check_mixed_ft(res, victim, how)
+    assert tsm.orphaned_ring_files() == jsm.orphaned_ring_files() == []
+
+
+def test_ft_rejoiner_rides_tcp_and_its_card_is_scrubbed(port_vars):
+    """The sm plane's ft paths around a respawn, on both packages: rank 2
+    is severed (its consumer stops: survivors classify and unmap their
+    rings into it), a replacement rejoins from the survivors' book over
+    TCP (no segment), and the survivors scrub its card (no locality
+    token, the pair pinned to TCP, han's topology invalidated) before a
+    full-size allreduce."""
+    import threading as th
+
+    from test_torch_ulfm import JAX, PORT, run_tcp_ft
+
+    for reg in (tvar, jvar):
+        reg.set_var("ft_detector_period", 0.05)
+        reg.set_var("ft_detector_timeout", 1.0)
+
+    def run(P):
+        book, ready, box = {}, th.Event(), []
+
+        def prog(p):
+            p.set_errhandler(P.errh.ERRORS_RETURN)
+            if p.rank == 0:
+                book["b"] = list(p.address_book)
+            p.barrier()
+            p.allreduce(np.ones(4), P.ops.SUM)  # warm the rings
+            if p.rank == 2:
+                P.ulfm.expect_failure(p.ft_state, 2)
+                p.sever()
+                return "severed"
+            assert p.ft_state.wait_failed(2, timeout=10.0)
+            deadline = time.monotonic() + 5.0
+            while p._sm_senders.get(2, "unset") is not None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            torn = p._sm_senders.get(2, "unset") is None
+            p.failure_ack()
+            sh = p.shrink()
+            sh.barrier()
+            if p.rank == 0:
+                ready.set()
+            assert P.recovery.await_rejoin(p, 2, timeout=20.0)
+            scrubbed = (p.boot_token_of(2), p._sm_senders.get(2),
+                        p.boot_token_of(1) is not None)
+            total = float(np.asarray(
+                p.allreduce(np.float64(p.rank + 1), P.ops.SUM)))
+            return torn, scrubbed, total
+
+        def second_life():
+            assert ready.wait(30.0)
+            p2 = P.TcpProc(2, 3, rejoin_book=book["b"], timeout=15.0,
+                           ft=True)
+            try:
+                return (p2._sm_seg is None,
+                        float(np.asarray(p2.allreduce(np.float64(3.0),
+                                                      P.ops.SUM))))
+            finally:
+                p2.close()
+
+        watcher = th.Thread(target=lambda: box.append(
+            P.recovery.spawn_replacement(second_life, rank=2)), daemon=True)
+        watcher.start()
+        res = run_tcp_ft(P, 3, prog, sm=True, timeout=60.0,
+                         kwargs_by_rank={r: {"sm_boot_id": "rejoinboot"}
+                                         for r in range(3)})
+        watcher.join(5.0)
+        return res, box[0].result(timeout=30.0)
+
+    ref, got = run(JAX), run(PORT)
+    assert got == ref
+    assert got == ([(True, (None, None, True), 6.0)] * 2 + ["severed"],
+                   (True, 6.0))
+    assert tsm.orphaned_ring_files() == jsm.orphaned_ring_files() == []

@@ -6,8 +6,9 @@ and its wire compatibility with the JAX package's.
   messages of numpy arrays and CPU tensors, deferred isends, per-source
   non-overtaking order across eager and rendezvous sizes, probe, the
   barrier and host collectives over the wire (the ring allreduce too).
-- What waits: ``ft=True``, ``rejoin``, ``sever``/``mute`` name
-  ``ft/ulfm.py``; ``pmix=``/``metrics``/``trace`` name ``runtime/pmix.py``.
+- What waits: ``pmix=``, ``rejoin=True``, elastic ``live_ranks``,
+  ``metrics`` and ``trace`` name ``runtime/pmix.py``; a proc without
+  ``ft=True`` refuses the ULFM surface.
   A 2-rank ``TcpProc`` at the ``sm`` var's default (1) builds its
   shared-memory segment and advertises one host (``pt2pt/sm.py``, held
   in ``tests/test_torch_sm.py``).
@@ -17,7 +18,11 @@ and its wire compatibility with the JAX package's.
 - **Wire compatibility**: 2 port ranks and 2 JAX-package ranks in one
   universe run a barrier, an int64 and an f32 allreduce above
   ``host_coll_large_msg`` (the ring; all four ranks hold the same bits),
-  an alltoall, and a rendezvous-size message in each direction.
+  an alltoall, and a rendezvous-size message in each direction; with
+  ``ft=True`` (sm off) revokes flood across the packages, a killed rank
+  of either package (or one flooding its own device fault) is classified
+  by the others, and agree, ``agree_failed_set``, shrink and the
+  post-shrink ring allreduce agree to the bit on every survivor.
 
 Every proc is closed by its thread; a module fixture then checks that no
 push-pool thread, channel engine, incomplete deferred send or parked
@@ -210,10 +215,10 @@ def test_device_tensors_are_refused_before_any_frame():
 
 
 def test_what_waits_raises_naming_its_module():
+    # ft/ulfm.py is ported: what still waits is the store
     cases = [
-        (dict(sm=False, ft=True), "ft/ulfm.py"),
-        (dict(sm=False, rejoin_book=[("h", 1)] * 2), "ft/ulfm.py"),
-        (dict(sm=False, live_ranks=[0]), "ft/ulfm.py"),
+        (dict(sm=False, ft=True, rejoin=True), "runtime/pmix.py"),
+        (dict(sm=False, ft=True, live_ranks=[0]), "runtime/pmix.py"),
         (dict(sm=False, pmix=("127.0.0.1", 1)), "runtime/pmix.py"),
         (dict(sm=False, metrics=True), "runtime/pmix.py"),
         (dict(sm=False, trace=True), "runtime/pmix.py"),
@@ -222,14 +227,17 @@ def test_what_waits_raises_naming_its_module():
     for kwargs, module in cases:
         with pytest.raises(errors.UnsupportedError, match=module):
             TcpProc(0, 2, **kwargs)
+    with pytest.raises(errors.ArgError, match="ft=True"):
+        TcpProc(0, 2, sm=False, rejoin_book=[("h", 1)] * 2)
     # the sm var's default (1): TcpProc(0, 2) builds its sm segment
     def prog(p):
         assert p._sm_seg is not None and os.path.exists(p._sm_seg.path)
         assert p.boot_token_of(1) == p.boot_token_of(0) is not None
         assert p.numa_token_of(0) is not None
-        for call in (p.sever, p.mute, lambda: p.revoke(3), p.failure_ack,
-                     p.agree, p.shrink):
-            with pytest.raises(errors.UnsupportedError, match="ft/ulfm.py"):
+        # without ft the ULFM surface is refused, as in the namesake
+        for call in (lambda: p.revoke(3), p.failure_ack, p.agree,
+                     p.shrink):
+            with pytest.raises(errors.UnsupportedError, match="ft=True"):
                 call()
         p.barrier()
         return p.resource_stats()["threads"] >= 1
@@ -304,3 +312,20 @@ def test_wire_compatibility_with_the_jax_package():
         assert res[r][2] == [[s * 10 + r, -r] for s in range(4)]
     assert res[2][3] == ("Tensor", (np.arange(400_000, dtype=np.float32) + 1).tobytes())
     assert res[1][3] == ("ndarray", (np.arange(400_000, dtype=np.float32) + 2).tobytes())
+
+
+@pytest.mark.parametrize("victim,how", [(1, "kill"), (2, "kill"),
+                                        (1, "device"), (2, "device")],
+                         ids=["jax-killed", "port-killed", "jax-device",
+                              "port-device"])
+def test_ft_wire_compatibility_with_the_jax_package(victim, how):
+    """Ranks 0 and 2 are the port's, 1 and 3 the JAX package's, with
+    ``ft=True`` and sm off: revokes flood across the packages, a killed
+    rank of either package is classified by the others (a device fault
+    with its typed cause), and agree, agree_failed_set, shrink and the
+    post-shrink ring allreduce agree to the bit on all survivors."""
+    from test_torch_ulfm import check_mixed_ft, mixed_ft_program, run_mixed_ft
+
+    res = run_mixed_ft([TcpProc, JTcpProc, TcpProc, JTcpProc],
+                       mixed_ft_program(victim, how), sm=False)
+    check_mixed_ft(res, victim, how)

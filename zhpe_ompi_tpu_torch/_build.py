@@ -38,6 +38,26 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+_thread_counts = threading.local()
+
+
+def count_launch(fn) -> None:
+    """One kernel launch by the wrapper ``fn``: its ``launches`` count
+    rises by one under a lock (ranks in threads launch concurrently), and
+    so does the calling thread's own tally (:func:`thread_launches`)."""
+    with _count_lock:
+        fn.launches += 1
+    counts = getattr(_thread_counts, "counts", None)
+    if counts is None:
+        counts = _thread_counts.counts = {}
+    counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
+
+
+def thread_launches() -> dict[str, int]:
+    """The calling thread's kernel launches so far, by wrapper name (a
+    rank thread's own launches, whatever the other ranks launch)."""
+    return dict(getattr(_thread_counts, "counts", None) or {})
 #: nvcc's report (registers, shared memory, spills) of each build this
 #: process ran, by source name.
 build_log: dict[str, str] = {}

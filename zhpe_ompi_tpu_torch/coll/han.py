@@ -55,9 +55,12 @@ A ``<op> <comm_size_min> <msg_bytes_min> han`` line of the
 ``coll_tuned_dynamic_rules`` file requests han per op and size like a
 forced enable.  Non-commutative reductions always route flat.
 
-Fault tolerance (revoke aliases, shrink rebuilds) waits for
-``ft/ulfm.py``; :func:`invalidate` is kept for the membership changes
-that will call it.
+FT coexistence: each phase delegates to the parent endpoint's send/recv,
+so peer death classifies as the same typed ``ProcFailed`` the flat path
+raises, ``revoke(COLL_CID)`` poisons the phase windows through the cid
+alias the views register, and a shrink produces a fresh endpoint whose
+first han collective derives fresh groups; :func:`invalidate` drops the
+cached topology at a rejoin or a recovery's re-shrink.
 """
 
 

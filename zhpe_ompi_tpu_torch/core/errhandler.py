@@ -37,6 +37,9 @@ class JobAbort(BaseException):
         )
         self.errclass = exc.errclass
         self.cause = exc
+        # ULFM causes carry the failed-rank set through the abort so the
+        # launcher can report WHO died, not just that something did
+        self.failed_ranks = tuple(getattr(exc, "failed_ranks", ()))
 
 
 class Errhandler:

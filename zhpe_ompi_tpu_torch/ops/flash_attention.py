@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from .. import _build
+
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
 
@@ -203,7 +205,7 @@ def flash_fwd(q, k, v, causal=True):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd: kernel launch failed (cudaError {rc})")
-    flash_fwd.launches += 1
+    _build.count_launch(flash_fwd)
     return out, lse
 
 
@@ -230,7 +232,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal=True):
             hd ** -0.5, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq: kernel launch failed (cudaError {rc})")
-    flash_bwd_dq.launches += 1
+    _build.count_launch(flash_bwd_dq)
     return dq, delta
 
 
@@ -256,7 +258,7 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, causal=True):
             hd ** -0.5, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv: kernel launch failed (cudaError {rc})")
-    flash_bwd_dkv.launches += 1
+    _build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 

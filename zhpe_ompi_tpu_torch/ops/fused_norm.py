@@ -22,6 +22,8 @@ import ctypes
 
 import torch
 
+from .. import _build
+
 _EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -109,7 +111,7 @@ def ln_fwd(x2, g):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ln_fwd: kernel launch failed (cudaError {rc})")
-    ln_fwd.launches += 1
+    _build.count_launch(ln_fwd)
     return y, mean, rstd
 
 
@@ -157,7 +159,7 @@ def ln_bwd(x2, g, dy2, mean, rstd):
             rows, n, d, code, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ln_bwd: kernel launch failed (cudaError {rc})")
-    ln_bwd.launches += 1
+    _build.count_launch(ln_bwd)
     return dx, dg
 
 

@@ -10,13 +10,20 @@ with one process group per dimension.  World rank r sits at the row-major
 index r of the mesh, the layout ``models/transformer.make_train_step``
 documents: ``r = (d * tp + t) * sp + s`` for a ("dp", "tp", "sp") mesh.
 
-Not ported yet: ``DeviceLivenessProbe`` and ``DeviceProber``, which feed
-``ft/ulfm.FailureState``.
+The device half of the fault loop lives here too: :func:`probe_device_plane`
+(a killable child running a one-rank NCCL all-reduce on this process's
+card), the armed guard :class:`DeviceLivenessProbe` around a device
+region, and the always-on background :class:`DeviceProber`; both feed a
+missed probe into ``ft/ulfm.FailureState`` as a typed ``cause="device"``
+fault.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -25,7 +32,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from ..core import errors
 from ..mca import output as mca_output
 from ..mca import var as mca_var
-from ..runtime import spc, ztrace
+from ..runtime import flightrec, spc, ztrace
 from ..utils import deadline as deadline_mod
 
 _stream = mca_output.open_stream("rte")
@@ -47,6 +54,15 @@ mca_var.register(
 # over: a shorter deadline reports a healthy plane as wedged.
 
 mca_var.register(
+    "device_probe_enable", False,
+    "Arm the device liveness probe around guarded device regions: a "
+    "region that outlives device_probe_deadline triggers a killable-"
+    "child probe (a one-element NCCL all-reduce, coll/nccl.PROBE_SRC); "
+    "a missed probe classifies a typed cause=\"device\" fault into the "
+    "job's FailureState.  Off by default — probes cost a subprocess",
+    type=bool,
+)
+mca_var.register(
     "device_probe_timeout", 90.0,
     "Outer kill (seconds) of one device liveness probe child — the "
     "backstop around its internal watchdog deadline",
@@ -58,6 +74,13 @@ mca_var.register(
     "from its start, ``import torch`` included (it os._exits from the "
     "inside at expiry — the structured \"deadline\" outcome)",
     type=float,
+)
+mca_var.register(
+    "device_probe_grace", 2,
+    "Probe rounds that may come back \"ok\" while the guarded region "
+    "still blocks before the guard stops re-probing (a slow-but-alive "
+    "local plane is a peer's fault to classify, never this rank's own)",
+    type=int,
 )
 
 #: torchrun's environment contract
@@ -218,5 +241,279 @@ def probe_device_plane(timeout: float | None = None,
     if kind in ("hung", "deadline"):
         spc.record("device_probe_misses")
     if sp is not None:
-        sp.end(kind=kind)
+        # the outcome rides as "outcome": "kind" names the span itself
+        # (the namesake's sp.end(kind=kind) collides with it and raises
+        # TypeError whenever the tracing plane is armed)
+        sp.end(outcome=kind)
     return kind, detail
+
+
+class DeviceLivenessProbe:
+    """The armed guard: a deadline around a device-collective region,
+    feeding missed probes into the SAME :class:`~zhpe_ompi_tpu_torch.ft
+    .ulfm.FailureState` the host-plane detectors feed — the device half
+    of the fault loop.
+
+    Usage (the models/ftloop shape)::
+
+        probe = DeviceLivenessProbe(state=proc.ft_state, rank=proc.rank,
+                                    on_fault=proc.flood_device_fault)
+        ...
+        with probe.guard():
+            loss = step(params, batch)   # may wedge mid-all-reduce
+
+    A region that outlives ``device_probe_deadline`` triggers one
+    killable-child probe from the watchdog thread (the region itself
+    cannot be killed — a wedged kernel or collective holds the caller's
+    thread):
+
+    - probe MISSED ("hung"/"deadline"): the local device plane is
+      wedged — classify a typed ``cause="device"`` fault for THIS rank
+      into the FailureState (flooding notices exactly like transport
+      deaths do, via ``on_fault``), count ``device_faults``, record the
+      DEVICE_FAULT flightrec event.
+    - probe OK: the local plane answers — the region is slow, or a
+      REMOTE participant wedged (that rank's own guard classifies it;
+      its notice unwinds us).  Re-arm, up to ``device_probe_grace``
+      ok-rounds, then stop probing and leave the wait to the host
+      plane.
+
+    ``probe_fn`` is injectable (tests drill the ladder without paying
+    a subprocess per case); the default is :func:`probe_device_plane`
+    on ``device`` (this process's CUDA device unless ``device="cpu"``).
+    ``deadline`` is the guarded region's deadline and, unless
+    ``probe_deadline`` says otherwise, the probe child's internal one,
+    as in the namesake; a child's own start-up (``import torch`` and a
+    CUDA context, most of 10 s on a card's host) must fit in the
+    latter, so a region deadline shorter than that takes a longer
+    ``probe_deadline``.  ``guard()`` is a no-op unless
+    ``device_probe_enable`` is on or the probe was constructed with
+    ``enable=True`` — opt-in, per contract.
+    """
+
+    def __init__(self, state=None, rank: int = -1, on_fault=None,
+                 probe_fn=None, enable: bool | None = None,
+                 timeout: float | None = None,
+                 deadline: float | None = None,
+                 grace: int | None = None,
+                 probe_deadline: float | None = None,
+                 device=None):
+        self.state = state
+        self.rank = int(rank)
+        self.on_fault = on_fault
+        self.probe_fn = probe_fn  # None = probe_device_plane, rank-scoped
+        self.enabled = bool(mca_var.get("device_probe_enable", False)) \
+            if enable is None else bool(enable)
+        self.timeout = timeout
+        self.deadline = float(mca_var.get("device_probe_deadline", 60.0)) \
+            if deadline is None else float(deadline)
+        self.probe_deadline = self.deadline if probe_deadline is None \
+            else float(probe_deadline)
+        self.device = device
+        self.grace = int(mca_var.get("device_probe_grace", 2)) \
+            if grace is None else int(grace)
+        self.fault: errors.DeviceFault | None = None
+
+    # -- classification ----------------------------------------------------
+
+    def classify(self, kind: str, detail: str) -> errors.DeviceFault:
+        """A missed probe becomes a typed device fault: counted,
+        flight-recorded, marked into the FailureState (cause="device" —
+        never a detector suspicion, so the zero-false-positive gate
+        keeps its meaning), and handed to ``on_fault`` (the wire
+        plane's notice flood / the test's wedge release)."""
+        fault = errors.DeviceFault(
+            f"device plane missed its liveness deadline ({kind}: "
+            f"{detail})",
+            failed_ranks=[self.rank] if self.rank >= 0 else (),
+            kind=kind,
+        )
+        spc.record("device_faults")
+        flightrec.record(flightrec.DEVICE_FAULT, rank=self.rank,
+                         kind=kind)
+        if ztrace.active:
+            ztrace.instant(ztrace.FT_CLASS, self.rank,
+                           failed=self.rank, cause="device")
+        if self.state is not None and self.rank >= 0:
+            self.state.mark_failed(self.rank, cause="device")
+        self.fault = fault
+        if self.on_fault is not None:
+            self.on_fault(fault)
+        return fault
+
+    def probe_once(self) -> tuple[str, str]:
+        if self.probe_fn is not None:
+            return self.probe_fn(timeout=self.timeout,
+                                 deadline=self.probe_deadline)
+        return probe_device_plane(
+            timeout=self.timeout, deadline=self.probe_deadline,
+            rank=self.rank if self.rank >= 0 else None,
+            device=self.device)
+
+    # -- the armed guard ---------------------------------------------------
+
+    def _expired(self, watchdog) -> None:
+        """Watchdog-thread body: the guarded region outlived its
+        deadline.  Probe; classify a miss; tolerate up to ``grace``
+        ok-rounds before going quiet (re-arming forever would turn a
+        long legitimate region into a polling loop)."""
+        for _ in range(max(1, self.grace)):
+            kind, detail = self.probe_once()
+            if watchdog._disarmed.is_set():
+                return  # the region finished while we probed: no fault
+            if kind in ("hung", "deadline"):
+                self.classify(kind, detail)
+                return
+            # ok/error: the plane answered (an error is a health
+            # problem, not a wedge — loud in the probe counters, not a
+            # classification); wait out one more deadline
+            if watchdog._disarmed.wait(self.deadline):
+                return
+        mca_output.verbose(
+            1, _stream,
+            "device probe guard: region still blocked after %d ok "
+            "rounds; leaving the wait to the host plane", self.grace,
+        )
+
+    def guard(self, deadline: float | None = None):
+        """Context manager arming the deadline around one device-
+        collective region (one train step).  No-op when disabled."""
+        if not self.enabled:
+            return contextlib.nullcontext()
+        wd_box: list = []
+        wd = deadline_mod.Watchdog(
+            float(deadline if deadline is not None else self.deadline),
+            on_expire=lambda: self._expired(wd_box[0]),
+            name=f"device-probe-guard-{self.rank}",
+        )
+        wd_box.append(wd)
+        return wd
+
+
+# -- the always-on background prober (the fleet-health half) ----------------
+
+mca_var.register(
+    "dvm_device_probe_interval_ms", 0,
+    "Interval (milliseconds) of the ALWAYS-ON background device "
+    "prober (DeviceProber): between guarded regions it runs the same "
+    "killable-child liveness probe the guard runs, so a wedge that "
+    "lands OUTSIDE a guarded region still classifies (cause=\"device\","
+    " the typed DeviceFault path) within one interval plus one probe "
+    "timeout instead of at the next collective; 0 (the default) = off",
+    type=int,
+)
+
+_live_probers: weakref.WeakSet = weakref.WeakSet()
+
+
+def live_prober_threads() -> list[str]:
+    """Background prober threads still RUNNING — must be [] once every
+    owner stopped its prober (the conftest session gate; a stopped
+    prober's thread finishing one last probe call is not a leak, the
+    deadline-watchdog contract)."""
+    out = []
+    for p in list(_live_probers):
+        t = p._thread
+        if t is not None and t.is_alive() and not p._stop.is_set():
+            out.append(t.name)
+    return out
+
+
+class DeviceProber:
+    """Detector-style background device prober — the always-on half of
+    the device fault loop.  The :class:`DeviceLivenessProbe` guard only
+    watches INSIDE guarded regions (a train step); a device plane that
+    wedges between steps — data loading, checkpointing, an idle serving
+    process — classifies only at the NEXT collective.  This thread
+    probes on ``dvm_device_probe_interval_ms`` whenever no guarded
+    region is active (:meth:`region` brackets them), feeding the same
+    typed ``DeviceFault``/FailureState path via the probe's
+    ``classify``, so an out-of-region wedge classifies in bounded time
+    (one interval + one probe timeout).
+
+    Counters: every background round records ``device_probes``; a miss
+    records ``device_probe_faults`` (on top of the probe family's own
+    ``device_probe_rounds``/``device_probe_misses``).  Hygiene:
+    :func:`live_prober_threads` must be [] once owners stop — the
+    models/ftloop seam starts the prober at ``run()`` entry and stops
+    it on the way out."""
+
+    def __init__(self, probe: DeviceLivenessProbe,
+                 interval_ms: int | None = None):
+        self.probe = probe
+        ms = int(mca_var.get("dvm_device_probe_interval_ms", 0)) \
+            if interval_ms is None else int(interval_ms)
+        self.interval_s = ms / 1000.0
+        self._stop = threading.Event()
+        self._busy = 0
+        self._busy_lock = threading.Lock()
+        self._thread: threading.Thread | None = None
+        _live_probers.add(self)
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive() \
+            and not self._stop.is_set()
+
+    def start(self) -> "DeviceProber":
+        """Arm the background thread; a no-op when the interval is 0
+        (the opt-in gate) or the prober already runs."""
+        if self.interval_s <= 0 or self.running:
+            return self
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"device-prober-{self.probe.rank}",
+        )
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            with self._busy_lock:
+                busy = self._busy > 0
+            if busy or self.probe.fault is not None:
+                # a guarded region owns this window (its watchdog
+                # classifies), or a fault already classified and the
+                # recovery path owns the plane until it clears
+                continue
+            kind, detail = self.probe.probe_once()
+            spc.record("device_probes")
+            if self._stop.is_set():
+                return  # outcome after stop is dropped (watchdog rule)
+            with self._busy_lock:
+                busy = self._busy > 0
+            if busy:
+                continue  # a region started mid-probe: its guard owns it
+            if kind in ("hung", "deadline"):
+                spc.record("device_probe_faults")
+                self.probe.classify(kind, detail)
+
+    @contextlib.contextmanager
+    def region(self, inner=None):
+        """Bracket a guarded region (optionally entering ``inner`` —
+        the probe's guard — inside the bracket): the background thread
+        goes quiet while any region is active, so the two halves never
+        double-probe one wedge."""
+        with self._busy_lock:
+            self._busy += 1
+        try:
+            if inner is not None:
+                with inner:
+                    yield
+            else:
+                yield
+        finally:
+            with self._busy_lock:
+                self._busy -= 1
+
+    def stop(self, join_timeout: float = 1.0) -> None:
+        """Stop probing.  The join is a short tidy-up (a thread still
+        inside a probe subprocess is bounded by the probe's outer kill
+        and its outcome is dropped) — the leak gate counts only
+        running probers."""
+        self._stop.set()
+        t = self._thread
+        if t is not None and t.is_alive() \
+                and t is not threading.current_thread():
+            t.join(join_timeout)

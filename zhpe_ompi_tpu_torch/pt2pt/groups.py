@@ -30,9 +30,13 @@ mmap rings, a leader-phase send rides the wire.  The cids, tag windows
 and message order are the namesake's, so a view's traffic means the same
 to a JAX-package rank.
 
-Fault tolerance waits for ``ft/ulfm.py``: the port's endpoints carry no
-``FailureState``, so a view registers no revoke alias (the hook is kept
-for when one appears).
+FT coexistence: views resolve the parent chain's ``FailureState`` and
+register their window cid as an **alias** of the logical collective cid
+(``coll/host.py``'s COLL_CID), so ``revoke(COLL_CID)`` poisons parked and
+future subgroup operations with the same typed ``Revoked`` the flat path
+raises, and peer death classifies through the parent's receive path
+untouched.  A shrink produces a fresh endpoint, so its first han
+collective derives fresh groups (the rebuild contract).
 
 Hygiene: window registrations are tracked per endpoint; a closed
 endpoint (``TcpProc.close`` calls :func:`release`) must hold none —

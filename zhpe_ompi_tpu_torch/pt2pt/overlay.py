@@ -1,6 +1,6 @@
 """Deterministic log-degree control-plane overlay (the scale-out flood
 fabric) (namesake: ``zhpe_ompi_tpu/pt2pt/overlay.py``; the port's own
-copy; its users, the ULFM control floods, come with ``ft/ulfm.py``).
+copy; its users are the ULFM control floods of ``pt2pt/tcp.py``).
 
 Every ULFM control flood — failure notices, cid revokes, agreement
 announces, BYE departures — used to dial EVERY live peer (all-pairs:

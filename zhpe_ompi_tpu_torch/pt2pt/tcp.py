@@ -37,6 +37,16 @@ engine).  This module is that wire for the port's host plane:
   given to ``send``/``isend`` raises dss's typed ``TypeError_`` (naming
   the ``.cpu()`` to make) before any frame or ring slot is written;
   nothing here copies a tensor to the host.
+- **fault tolerance** (``ft=True``, ``ft/ulfm.py``): the ring heartbeat
+  detector over framed beats, the ULFM control family (``FT_*_CID``
+  frames: heartbeats, failure notices, revokes, agreement results,
+  goodbyes, JOIN re-modex) flooded over a log-degree overlay, typed
+  ``ProcFailed``/``Revoked`` classification on every send, receive and
+  deferred request, ``sever``/``mute`` (the fault-injection hooks) and a
+  respawned rank's rejoin from an explicit ``rejoin_book``.  On the sm
+  plane a stopped ring consumer is peer death, the death listener unmaps
+  the ring, the orderly goodbye rides the ring after every data frame,
+  and a rejoiner's card is scrubbed (it rides TCP).
 
 ``TcpProc`` mirrors :class:`~zhpe_ompi_tpu_torch.pt2pt.universe
 .RankContext`'s API (send/recv/probe/sendrecv/barrier and the host and
@@ -45,13 +55,9 @@ nonblocking collectives).
 What is not ported yet, against the namesake — each raises
 ``UnsupportedError`` naming the module it waits for:
 
-- **fault tolerance** (``ft/ulfm.py``): ``ft=True``,
-  ``rejoin``/``rejoin_book``, elastic ``live_ranks``, and
-  ``revoke``/``sever``/``mute`` and the other ULFM methods (with them the
-  sm plane's death listener, :meth:`TcpProc._sm_peer_dead`, which is
-  ported but registered by nothing yet).
-- **the PMIx store** (``runtime/pmix.py``, item 4): ``pmix=`` (the
-  store-served modex and rejoin), and ``metrics``/``trace``, which
+- **the PMIx store** (``runtime/pmix.py``, item 4b): ``pmix=`` (the
+  store-served modex), ``rejoin=True`` (the rejoin through the store),
+  elastic ``live_ranks``, and ``metrics``/``trace``, which
   publish through it (an explicit ``True`` raises; the ``ZMPI_METRICS``
   and ``ZMPI_TRACE`` environment requests degrade loudly, as the
   namesake's do without a store).
@@ -95,6 +101,7 @@ from ..utils import dss
 from ..utils import lockdep
 from . import engine_mux
 from . import matching
+from . import overlay
 from . import sm as sm_mod
 from .matching import ANY_SOURCE, ANY_TAG, Envelope
 from .requests import Request, SendRequest, Status, _payload_bytes
@@ -509,10 +516,12 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
     lacks raise ``UnsupportedError`` naming it (see the module doc).
     ``sm`` (default: the ``sm`` MCA var, 1) creates this rank's ring
     segment when ``size`` > 1; ``sm_boot_id``/``sm_numa_id`` override the
-    host and NUMA-domain tokens its card advertises."""
-
-    #: no ULFM failure state until ft/ulfm.py is ported (see module doc)
-    ft_state = None
+    host and NUMA-domain tokens its card advertises.  ``ft=True`` arms
+    the ULFM machinery (``ft/ulfm.py``): a per-process ``FailureState``,
+    the ring heartbeat detector over framed beats, the failure-notice,
+    revoke, agreement and goodbye floods, and typed failure delivery on
+    every send and receive path; ``rejoin_book`` respawns this rank into
+    a running ft job (the JOIN re-modex)."""
 
     def __init__(self, rank: int, size: int,
                  coordinator: tuple[str, int] = ("127.0.0.1", 0),
@@ -536,13 +545,25 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             raise errors.ArgError("size must be >= 1")
         if pmix is not None:
             raise _waits_for_pmix("pmix= (the store-served modex)")
-        if ft or rejoin or rejoin_book is not None:
-            raise ulfm._waits_for_ft(
-                "ft=True" if ft else "rejoining a job (rejoin/rejoin_book)")
-        if live_ranks is not None \
-                and frozenset(int(r) for r in live_ranks) != \
-                frozenset(range(size)):
-            raise ulfm._waits_for_ft("elastic membership (live_ranks)")
+        if rejoin:
+            raise _waits_for_pmix("rejoin=True (the name-served rejoin)")
+        if live_ranks is not None:
+            # elastic membership (the DVM resize contract): only
+            # `live_ranks` of the `size` slots started; the namesake
+            # wires it up through the store only
+            live = frozenset(int(r) for r in live_ranks)
+            if live != frozenset(range(size)):
+                if rank not in live:
+                    raise errors.ArgError(
+                        f"live_ranks must include this rank ({rank})")
+                if not live <= frozenset(range(size)):
+                    raise errors.ArgError(
+                        "live_ranks outside the universe size")
+                raise _waits_for_pmix("elastic membership (live_ranks)")
+        if rejoin_book is not None and not ft:
+            raise errors.ArgError(
+                "rejoin_book (respawn into an existing job) requires ft=True"
+            )
         if metrics:
             raise _waits_for_pmix("metrics=True")
         if trace:
@@ -556,8 +577,16 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                     "rank %s: %s set but no PMIx store to publish into; "
                     "%s plane disabled", rank, env, plane,
                 )
+        # the ranks respawned alongside this one in a recovery window
+        # (their JOINs are not this rank's to answer)
+        self._rejoin_ranks = frozenset(
+            int(r) for r in (rejoin_ranks or ()))
         self.rank = rank
         self.size = size
+        # ULFM state precedes the accept loop: drain threads consult it
+        self.ft_state = ulfm.FailureState(size) if ft else None
+        self._ft_dead = False
+        self._detector: ulfm.RingDetector | None = None
         self.engine = matching.make_matching_engine()
         self._seq = itertools.count()
         self._rndv_ids = itertools.count(1)
@@ -567,8 +596,8 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         # SendRequest until the CTS-released push completes.
         self._pending_rndv: dict[int, list] = {}
         # rndv_id -> (dest, SendRequest-or-None): who the transfer is
-        # for and which request its push completes (None for blocking
-        # sends)
+        # for (peer death poisons it) and which request its push
+        # completes (None for blocking sends)
         self._rndv_meta: dict[int, tuple[int, Any]] = {}
         # rndv_id -> parent send-span sid, populated only while the
         # tracing plane is armed
@@ -588,6 +617,8 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         # ONE multiplexed channel engine per proc reads the listener and
         # every connection; created with the listener below
         self._chan_engine: engine_mux.ChannelEngine | None = None
+        self._flood_threads: list[threading.Thread] = []
+        self._flood_lock = lockdep.lock("tcp.TcpProc._flood_lock")
         self._dup_conns: list[socket.socket] = []  # crossed-connect extras
         self._timeout = timeout
         self._conns: dict[int, socket.socket] = {}
@@ -597,12 +628,15 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         self._sock_locks: weakref.WeakKeyDictionary = \
             weakref.WeakKeyDictionary()  # socket -> its framing lock
         self._closed = threading.Event()
+        self._torn_down = False  # close() ran (sever() only sets _closed)
         self._incoming_cv = threading.Condition()
         _live_procs.add(self)
         # shared-memory plane (btl/sm analog): create OUR inbound-ring
         # segment before the modex so the card advertises a segment that
         # already exists — a peer that got the book maps it with no
-        # handshake and no transport-switch reordering window
+        # handshake and no transport-switch reordering window.  Respawned
+        # (rejoin) ranks stay TCP (the "spawn joins stay TCP" cohort
+        # contract): survivors scrub the joiner's card
         self._sm_seg: sm_mod.SmSegment | None = None
         self._sm_senders: dict[int, sm_mod.SmSender | None] = {}
         self._sm_declined: set[int] = set()  # advertised sm, not ridden
@@ -616,7 +650,7 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             if sm_numa_id else sm_mod.numa_token()
         )
         sm_on = bool(int(mca_var.get("sm", 1))) if sm is None else bool(sm)
-        if sm_on and size > 1:
+        if sm_on and size > 1 and rejoin_book is None:
             try:
                 self._sm_seg = sm_mod.SmSegment(
                     rank, size, on_frame=self._sm_incoming
@@ -627,6 +661,10 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                     "rank %s: sm segment unavailable (%s); host plane "
                     "degrades to TCP", rank, e,
                 )
+        # rejoin handshake state: survivor JOIN_ACKs carrying their
+        # collective/agreement counters + crash epoch (see _announce_join)
+        self._join_cv = threading.Condition()
+        self._join_acks: dict[int, tuple[int, int, int]] = {}
 
         try:
             # listening socket (btl_tcp's per-proc endpoint)
@@ -650,16 +688,56 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             # external_coordinator: a launcher hosts the rendezvous —
             # rank 0 joins as a client instead of binding it itself
             self._external_coordinator = external_coordinator
-            self.address_book = self._modex(coordinator, timeout)
+            if rejoin_book is not None:
+                # respawned rank: no modex rendezvous exists anymore —
+                # adopt the survivors' address book with OUR fresh
+                # endpoint in the old slot; the JOIN announce below
+                # re-modexes the survivors.  Only the (host, port)
+                # prefix is adopted: the survivors' pre-crash sm cards
+                # point at rings whose peer half died with the old
+                # incarnation, and rejoiners ride TCP anyway.
+                self._peer_cards = [list(a[:2]) for a in rejoin_book]
+                self.address_book = [tuple(a[:2]) for a in rejoin_book]
+                self.address_book[rank] = tuple(self.address)
+            else:
+                self.address_book = self._modex(coordinator, timeout)
             mca_output.verbose(
                 5, _stream, "rank %d up at %s; book=%s", rank, self.address,
                 self.address_book,
             )
+            if ft:
+                # peer death ⇒ ring teardown: the sm transport unmaps its
+                # ring into a corpse the moment classification learns of
+                # it (detector, transport error, notice flood, goodbye)
+                self.ft_state.add_failure_listener(self._sm_peer_dead)
+                # peer death ⇒ typed completion of every parked isend
+                # toward it (queued frames AND parked rndv descriptors):
+                # a waitall must observe ProcFailed, never wedge
+                self.ft_state.add_failure_listener(self._fail_inflight)
+                if rejoin_book is not None:
+                    # announce BEFORE the detector starts: beats toward a
+                    # survivor that has not yet swapped in the fresh
+                    # endpoint would ride (and warm) a stale address
+                    self._announce_join(timeout)
+                # ring heartbeat detector over framed beats: this rank
+                # emits to its nearest live predecessor, observes its
+                # nearest live successor, floods suspicion
+                self._detector = ulfm.RingDetector(
+                    rank, size, self.ft_state,
+                    transport=ulfm.WireTransport(rank, size, self._ft_emit),
+                    flood=self._ft_flood,
+                    muted=lambda: self._ft_dead,
+                    name=f"hb-tcp-{rank}",
+                )
+                self._detector.start()
         except BaseException:
             # a proc that never finished wiring up still owns a reader
-            # thread, and nobody will ever call close() on a constructor
-            # that raised — the zero-leak lifecycle contract is honored
-            # HERE, whichever construction step failed
+            # thread (and, on ft, a JOIN or detector), and nobody will
+            # ever call close() on a constructor that raised — the
+            # zero-leak lifecycle contract is honored HERE, whichever
+            # construction step failed
+            if self._detector is not None:
+                self._detector.stop()
             if self._chan_engine is not None:
                 self._chan_engine.close(1.0)
             self._push_pool.close(0.0)
@@ -739,18 +817,28 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                 self._sm_senders[dest] = sender
                 return sender
         except sm_mod.ConsumerStopped as e:
-            # first contact raced the peer's close: its consumer is never
-            # coming back; without fault tolerance the pair degrades to
-            # TCP loudly (the namesake classifies peer death here on an
-            # ft proc)
+            # first contact raced the peer's sever/close: a STOPPED
+            # consumer is never coming back.  On an ft proc that is peer
+            # DEATH (the sm twin of connection reset), classified OUTSIDE
+            # _sm_lock: the death listener (_sm_peer_dead) re-takes it.
+            # Without fault tolerance the pair degrades to TCP loudly.
             with self._sm_lock:
                 self._sm_senders[dest] = None  # pinned to TCP
-            mca_output.emit(
-                _stream,
-                "rank %s: sm segment of rank %s already stopped "
-                "(%s); pair degrades to TCP", self.rank, dest, e,
-            )
-            self._sm_declined.add(dest)
+            if self.ft_state is not None:
+                mca_output.verbose(
+                    5, _stream,
+                    "rank %s: first contact found rank %s's ring "
+                    "consumer stopped (%s): classifying peer death",
+                    self.rank, dest, e,
+                )
+                self._mark_transport_death(dest)
+            else:
+                mca_output.emit(
+                    _stream,
+                    "rank %s: sm segment of rank %s already stopped "
+                    "(%s); pair degrades to TCP", self.rank, dest, e,
+                )
+                self._sm_declined.add(dest)
             return None
 
     def _sm_activate(self, dest: int) -> sm_mod.SmSender | None:
@@ -804,14 +892,21 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         return sender
 
     def _sm_abort(self, dest: int):
-        """The ring-full spin's abort probe: a local close ends the wait
-        (the namesake also classifies a failed peer here on ft procs)."""
+        """The ring-full spin's abort probe: a local close ends the wait,
+        and on an ft proc so does the peer's classified death (typed
+        ``ProcFailed`` out of the spin)."""
+        state = self.ft_state
         closed = self._closed
 
         def abort():
             if closed.is_set():
                 raise errors.InternalError(
                     f"sm send to rank {dest} on a closed proc"
+                )
+            if state is not None and state.is_failed(dest):
+                raise errors.ProcFailed(
+                    f"rank {dest} failed during an sm ring send",
+                    failed_ranks=state.failed(),
                 )
 
         return abort
@@ -824,7 +919,8 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         seam of the sm plane.  Small frames pack their DSS header
         straight into the slot (``pack_frames_into``); larger ones take
         the fragment pipeline.  A full ring blocks HERE (backpressure,
-        bounded by the stall timeout)."""
+        bounded by the stall timeout, with the peer's death classifying
+        out of the spin)."""
         abort = self._sm_abort(dest)
         abort()
         oob_min = int(mca_var.get("tcp_zero_copy_min", 0))
@@ -860,6 +956,16 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                 self.rank, src_ring, e,
             )
             return
+        if self.ft_state is not None and cid in (
+            ulfm.FT_HB_CID, ulfm.FT_NOTICE_CID, ulfm.FT_REVOKE_CID,
+            ulfm.FT_AGREE_PUB_CID, ulfm.FT_BYE_CID, ulfm.FT_DVM_CID,
+        ):
+            # the FT control family beats over TCP by design, with ONE
+            # exception: the orderly-departure BYE of an sm peer rides
+            # its ring so it trails every data frame already produced
+            # (the per-direction FIFO the goodbye contract needs)
+            self._ft_ctrl(cid, src, payload)
+            return
         self._trace_ingest(vals, "sm")
         env = Envelope(src, tag, cid, seq)
         with self._incoming_cv:
@@ -867,16 +973,33 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             self._incoming_cv.notify_all()
 
     def _sm_peer_dead(self, rank: int, _cause: str) -> None:
-        """Failure-listener hook (the namesake registers it with its
-        ``FailureState``; nothing registers it until ``ft/ulfm.py`` is
-        ported): a dead peer's consumer is never coming back — unmap our
-        ring into it and pin the pair to TCP."""
+        """Failure-listener hook (``FailureState.add_failure_listener``):
+        a dead peer's consumer is never coming back — unmap our ring
+        into it and pin the pair to TCP permanently (a respawned
+        incarnation rides TCP per the cohort contract)."""
         with self._sm_lock:
             stale = self._sm_senders.get(rank)
             self._sm_senders[rank] = None
             self._sm_declined.discard(rank)
         if stale is not None:
             stale.close()
+
+    def _sm_quiesce(self, deadline: float) -> None:
+        """Bounded wait for peers to consume-and-deliver our outbound
+        ring frames: a goodbye that rides TCP could otherwise overtake
+        ring data still in flight and reclassify delivered messages as
+        lost.  A peer whose poll loop already stopped can never drain —
+        skip it."""
+        with self._sm_lock:
+            senders = [s for s in self._sm_senders.values()
+                       if s is not None]
+        for s in senders:
+            # close-path drain: the CONSUMING peer needs the CPU more
+            # than this poll does — 2 ms granularity merely coarsens
+            # close by a hair
+            while s.pending() and not s.peer_stopped() \
+                    and time.monotonic() < deadline:
+                time.sleep(0.002)
 
     def _sm_teardown(self) -> None:
         with self._sm_lock:
@@ -889,17 +1012,428 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             self._sm_seg.close()
 
 
-    # -- what waits for modules not ported yet -----------------------------
+    # -- ULFM control plane ---------------------------------------------
+
+    def _ft_emit(self, dest: int) -> None:
+        """One heartbeat frame to `dest` (best-effort: a beat that cannot
+        be delivered is evidence, not an error)."""
+        if self._ft_dead or self._closed.is_set() \
+                or self.ft_state.is_failed(dest):
+            return
+        frame = dss.pack(self.rank, 0, ulfm.FT_HB_CID, 0, b"")
+        try:
+            # short connect deadline: the detector thread must never park
+            # in a connect retry, or our OWN beats stop and the observer
+            # falsely suspects us
+            sock = self._endpoint(dest, deadline=4 * self._detector.period
+                                  if self._detector else 0.5)
+            self._framed_send(sock, frame)
+        except (OSError, errors.MpiError) as e:
+            if isinstance(e, (ConnectionRefusedError, ConnectionResetError,
+                              BrokenPipeError)):
+                # connection refused/reset IS peer death, not a stall
+                self._mark_transport_death(dest)
+
+    def _flood(self, cid: int, payload: Any, name: str) -> None:
+        """Best-effort ULFM control-plane flood to every live peer, on a
+        one-shot daemon thread: no flooding caller — the detector loop
+        (which must keep beating or its OWN observer falsely suspects
+        it), a rank mid-recovery revoking a cid, a completing agreement
+        — may stall behind serial connect deadlines to unreachable
+        peers.  An undeliverable frame is dropped: the peer's own
+        detector/recovery path covers it.  Threads are TRACKED so an
+        orderly close() can flush them before tearing the wire down —
+        an agreement announce racing its own rank's close would strand
+        survivors in a round nobody can finish (sever(), a crash,
+        still abandons them by design)."""
+        t = threading.Thread(
+            target=self._flood_sync, args=(cid, payload),
+            daemon=True, name=f"{name}-{self.rank}",
+        )
+        with self._flood_lock:
+            # registered BEFORE start so a concurrent close() cannot
+            # miss it; the prune must therefore keep registered-but-
+            # unstarted threads (ident is None until start()) or a
+            # sibling's prune could silently un-track this flood
+            self._flood_threads = [
+                x for x in self._flood_threads
+                if x.ident is None or x.is_alive()
+            ]
+            self._flood_threads.append(t)
+        try:
+            t.start()
+        except BaseException:
+            # never-started floods must not stay tracked (close()'s
+            # RuntimeError-tolerant join would retry them to deadline)
+            with self._flood_lock:
+                if t in self._flood_threads:
+                    self._flood_threads.remove(t)
+            raise
+
+    def _overlay_targets(self) -> list[int]:
+        """This rank's log-degree flood fan-out: skip-ring overlay
+        neighbors over the CURRENT live view (:mod:`.overlay`).
+        Failed/departed ranks drop out of the member list, so the
+        overlay is rebuilt from survivors at shrink by construction —
+        no membership protocol, every rank derives the same graph.
+        Live peers the old all-pairs flood would have dialed are
+        counted in ``tcp_deferred_dials`` (the scaling gate's
+        no-silent-fallback evidence)."""
+        live = [r for r in range(self.size)
+                if r == self.rank or not self.ft_state.is_failed(r)]
+        nbrs = overlay.neighbors(self.rank, live)
+        skipped = (len(live) - 1) - len(nbrs)
+        if skipped > 0:
+            spc.record("tcp_deferred_dials", skipped)
+        return nbrs
+
+    def _flood_sync(self, cid: int, payload: Any) -> None:
+        # overlay fan-out, not all-pairs: receivers relay FRESH facts
+        # to THEIR neighbors (_ft_ctrl's gossip-once), so coverage is
+        # total while per-event frames stay O(n·log n) universe-wide
+        frame = dss.pack(self.rank, 0, cid, 0, payload)
+        for r in self._overlay_targets():
+            try:
+                sock = self._endpoint(r, deadline=1.0)
+                self._framed_send(sock, frame)
+                spc.record("ft_overlay_hops")
+            except (OSError, errors.MpiError):
+                pass
+
+    def _ft_flood(self, failed: frozenset) -> None:
+        """Propagate suspicion: failure notices to every live rank.
+        Entries are ``[rank, cause]`` pairs so a typed classification
+        (a device fault) survives the wire; causes that are only LOCAL
+        evidence (a detector suspicion, a transport reset) travel as
+        second-hand "notice" — the receiver did not observe them, and
+        the zero-false-positive gate must keep its meaning.  Receivers
+        also accept bare ranks (the pre-pair wire shape)."""
+        causes = dict(self.ft_state.failed_with_causes())
+        pairs = []
+        for r in sorted(int(r) for r in failed):
+            cause = causes.get(r, "notice")
+            if cause not in ("device", "goodbye"):
+                cause = "notice"
+            pairs.append([r, cause])
+        self._flood(ulfm.FT_NOTICE_CID, pairs, "hb-flood")
+
+    def flood_device_fault(self, fault=None) -> None:
+        """Device-plane classification → the same notice flood a
+        transport death rides (the ``DeviceLivenessProbe`` on_fault
+        hook).  The fault's own ranks are flooded as explicit
+        ``device`` pairs — the flood must carry the root cause even if
+        a concurrent symptom (this rank's own sm teardown classifying
+        as transport death on a peer) wins the mark_failed race
+        somewhere (receivers refine circumstantial causes)."""
+        if self._ft_dead or self._closed.is_set():
+            return
+        causes = dict(self.ft_state.failed_with_causes())
+        for r in getattr(fault, "failed_ranks", None) or ():
+            causes[int(r)] = "device"
+        pairs = []
+        for r in sorted(causes):
+            cause = causes[r]
+            if cause not in ("device", "goodbye"):
+                cause = "notice"
+            pairs.append([int(r), cause])
+        self._flood(ulfm.FT_NOTICE_CID, pairs, "device-fault")
+
+    def _mark_transport_death(self, dest: int) -> None:
+        """Classify a transport-evidenced death (connection reset /
+        refused past backoff / sm consumer stopped) AND flood the
+        notice, exactly as the detector floods its suspicions: without
+        propagation every rank discovers the corpse independently, and
+        a ring observer can false-positive its NEW observed before
+        that rank redirects its beats away from the corpse (the
+        reconfiguration grace race, observed under scheduler noise)."""
+        if self.ft_state.mark_failed(dest, cause="transport") \
+                and not self._ft_dead and not self._closed.is_set():
+            self._ft_flood(self.ft_state.failed())
+
+    def _agree_announce(self, seq: int, result) -> None:
+        """Flood a completed agreement's value into the live peers'
+        result registries (the recovery channel of :func:`ulfm.agree`):
+        a survivor the dead coordinator never reached adopts the value
+        from its registry instead of waiting out a round nobody can
+        finish — and a re-elected coordinator gathering from an
+        already-departed participant converges the same way.  The value
+        is carried verbatim (DSS-packable): a bool for the flag
+        AND-reduction, a [pairs, epoch] list for the failed-set
+        agreement — coercion here would hand adopters of a failed-set
+        result a bare flag they cannot unpack."""
+        self._flood(ulfm.FT_AGREE_PUB_CID, [int(seq), result],
+                    "agree-pub")
+
+    def _ft_ctrl(self, cid: int, src: int, payload: Any) -> None:
+        """Control frames intercepted before the matching engine."""
+        if cid == ulfm.FT_HB_CID:
+            if self._detector is not None:
+                self._detector.transport.on_beat(src)
+        elif cid == ulfm.FT_NOTICE_CID:
+            # entries are [rank, cause] pairs (typed causes — "device"
+            # — survive the wire; see _ft_flood) or bare ranks (the
+            # pre-pair shape: second-hand "notice")
+            fresh = []
+            for entry in payload:
+                if isinstance(entry, (list, tuple)):
+                    r, cause = int(entry[0]), str(entry[1])
+                    if cause == "goodbye":
+                        if self.ft_state.mark_departed(r):
+                            fresh.append([r, cause])
+                    elif self.ft_state.mark_failed(r, cause=cause):
+                        fresh.append([r, cause])
+                    elif cause == "device":
+                        # the typed classification lost the race to a
+                        # downstream symptom (the wedged rank's sm
+                        # teardown classifies as transport death on
+                        # peers mid-send): adopt the root cause
+                        self.ft_state.refine_cause(r, cause)
+                else:
+                    r = int(entry)
+                    if self.ft_state.mark_failed(r, cause="notice"):
+                        fresh.append([r, "notice"])
+            if fresh and not self._ft_dead and not self._closed.is_set():
+                # gossip-once relay onto OUR overlay neighbors: the
+                # origin only dialed ITS log-degree fan-out, so a
+                # non-neighbor survivor learns through relays; mark_*
+                # returning False for known facts bounds each rank to
+                # one relay per fact and terminates the flood
+                self._flood(ulfm.FT_NOTICE_CID, fresh, "notice-gossip")
+        elif cid == ulfm.FT_REVOKE_CID:
+            if self.ft_state.revoke(int(payload)) \
+                    and not self._ft_dead and not self._closed.is_set():
+                # newly-learned revocation: relay (overlay gossip)
+                self._flood(ulfm.FT_REVOKE_CID, int(payload),
+                            "revoke-gossip")
+        elif cid == ulfm.FT_AGREE_PUB_CID:
+            seq, result = payload
+            # verbatim: agreement values are typed by their protocol
+            # (bool for agree(), [pairs, epoch] for agree_failed_set())
+            if self.ft_state.record_agreement(int(seq), result) \
+                    and not self._ft_dead and not self._closed.is_set():
+                # newly-adopted announce: relay so survivors outside
+                # the coordinator's overlay fan-out converge too
+                self._flood(ulfm.FT_AGREE_PUB_CID,
+                            [int(seq), result], "agree-gossip")
+        elif cid == ulfm.FT_DVM_CID:
+            # authoritative fault event from the runtime daemon (zprted
+            # waitpid-watched the corpse exit, or a parent daemon saw a
+            # whole subtree's link drop): OS truth, not suspicion —
+            # classify immediately, before any heartbeat window
+            # expires.  The daemon tree floods every survivor itself
+            # (each daemon notifies the ranks IT hosts), so no onward
+            # relay is needed.  A third entry value names the cause
+            # ("daemon-tree" = the rank died WITH its host daemon).
+            fresh = 0
+            for entry in payload:
+                if isinstance(entry, (list, tuple)):
+                    r = int(entry[0])
+                    cause = str(entry[2]) if len(entry) > 2 \
+                        else "daemon"
+                else:
+                    r, cause = int(entry), "daemon"
+                if self.ft_state.mark_failed(r, cause=cause):
+                    fresh += 1
+            if fresh:
+                spc.record("dvm_fault_events", fresh)
+        elif cid == ulfm.FT_BYE_CID:
+            # relay newly-learned departures onward (gossip-once): the
+            # departing rank goodbyes only its CONNECTED peers, so a
+            # survivor it never dialed would otherwise re-learn the rank
+            # the hard way — ring reconfiguration adopts it as observed
+            # successor, sees no beats, and scores a detector false
+            # positive for a clean exit.  mark_departed returns False
+            # for anything already known, so each rank relays a given
+            # departure at most once and the flood terminates.
+            fresh = [int(r) for r in payload
+                     if self.ft_state.mark_departed(int(r))]
+            if fresh and not self._ft_dead and not self._closed.is_set():
+                self._flood(ulfm.FT_BYE_CID, fresh, "bye-gossip")
+
+    def _announce_join(self, timeout: float) -> None:
+        """Re-modex for a respawned rank (the JOIN half of the recovery
+        pipeline): dial every presumed-live survivor from the inherited
+        address book, announce the fresh endpoint, and adopt the
+        survivors' collective/agreement sequence counters and crash
+        epoch from their JOIN_ACKs — so the replacement's next full-size
+        collective tags identically to the survivors' and a post-rejoin
+        shrink can never reuse an earlier generation's cid window.  The
+        pipeline contract is that respawn happens at a survivor barrier
+        (post-rollback), so the ack'd counters are stable."""
+        frame = dss.pack(self.rank, 0, ulfm.FT_JOIN_CID, 0,
+                         ["join", self.rank, list(self.address)])
+        reached = 0
+        for r in range(self.size):
+            if r == self.rank or r in self._rejoin_ranks:
+                # a fellow replacement of the SAME recovery window needs
+                # no JOIN from us: both sides already hold each other's
+                # FRESH generation-tagged cards from the store, neither
+                # has the other marked failed, and dialing a sibling
+                # still mid-construction would race its wiring
+                continue
+            if self.ft_state.is_failed(r):
+                # a known-dead or elastic-absent slot: nothing to
+                # announce to (its placeholder address dials nowhere)
+                continue
+            try:
+                sock = self._endpoint(r, deadline=min(2.0, timeout))
+                self._framed_send(sock, frame)
+                reached += 1
+            except (OSError, errors.MpiError):
+                continue  # a peer that is itself gone: its own recovery
+        if reached == 0:
+            raise errors.InternalError(
+                "rejoin: no survivor reachable for the JOIN re-modex"
+            )
+        deadline = time.monotonic() + timeout
+        with self._join_cv:
+            while not self._join_acks:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise errors.InternalError(
+                        "rejoin: no JOIN_ACK from any survivor"
+                    )
+                self._join_cv.wait(min(left, 0.05))
+            acks = list(self._join_acks.values())
+        self._coll_seq = max(a[0] for a in acks)
+        self._agree_seq = max(a[1] for a in acks)
+        self.ft_state.raise_epoch(max(a[2] for a in acks))
+
+    def _ft_join(self, conn: socket.socket, src: int, payload: Any) -> None:
+        """JOIN/re-modex control family (runs on the drain thread, which
+        is the one place the carrying connection is in hand).  "join": a
+        respawned rank announces its fresh endpoint — swap it in as the
+        canonical connection (the pre-crash cached socket is a severed
+        corpse), update the address book, clear the failure record so
+        classification stops typing the rank dead, give the detector a
+        fresh beat window, and ack with our counters.  "ack": the
+        survivor's reply, collected by _announce_join."""
+        kind = payload[0]
+        if kind == "join":
+            if getattr(self, "address_book", None) is None:
+                # a JOIN landing while THIS endpoint is still wiring up
+                # (possible only from another mid-recovery incarnation):
+                # nothing to swap yet — our book comes generation-fresh
+                # from the store, and the joiner's lazy connects still
+                # reach us through the listener
+                return
+            jrank = int(payload[1])
+            addr = tuple(payload[2][:2])
+            with self._conn_lock:
+                stale = self._conns.get(jrank)
+                self._conns[jrank] = conn
+            if stale is not None and stale is not conn:
+                # the severed pre-crash socket: its drain already exited
+                # on the RST; EOF-then-close per the fd-reuse contract
+                try:
+                    stale.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                try:
+                    stale.close()
+                except OSError:
+                    pass
+            self.address_book[jrank] = addr
+            cards = getattr(self, "_peer_cards", None)
+            if cards is not None and jrank < len(cards):
+                # scrub the dead incarnation's sm card: the respawned
+                # rank rides TCP (cohort contract) and must not count
+                # as a silent sm fallback either
+                cards[jrank] = list(addr)
+            with self._sm_lock:
+                self._sm_senders[jrank] = None
+                self._sm_declined.discard(jrank)
+            # membership change: the joiner's locality card was just
+            # scrubbed, so the next hierarchical collective must
+            # re-derive the groups (the rejoiner is a singleton now)
+            from ..coll import han as han_mod
+
+            han_mod.invalidate(self)
+            if self._detector is not None:
+                self._detector.transport.grace(jrank)
+            self.ft_state.restore(jrank)
+            ack = ["ack", self.rank, int(getattr(self, "_coll_seq", 0)),
+                   int(getattr(self, "_agree_seq", 0)),
+                   int(self.ft_state.crash_epoch())]
+            try:
+                self._framed_send(conn, dss.pack(
+                    self.rank, 0, ulfm.FT_JOIN_CID, 0, ack))
+            except OSError:
+                pass  # the joiner died again: its next respawn's business
+        elif kind == "ack":
+            with self._join_cv:
+                self._join_acks[int(payload[1])] = (
+                    int(payload[2]), int(payload[3]), int(payload[4]))
+                self._join_cv.notify_all()
+
+    def revoke(self, cid: int) -> None:
+        """MPIX_Comm_revoke on the wire: poison locally, flood the
+        notice so every live rank's pending and future operations on
+        this cid raise ``Revoked``.  Local state is poisoned before the
+        flood thread starts, so the revoking rank's own operations fail
+        fast and the caller's RECOVERY path never stalls behind the
+        flood's connect deadlines."""
+        state = self.ft_state
+        if state is None:
+            raise errors.UnsupportedError(
+                "revoke needs fault tolerance enabled (ft=True)"
+            )
+        state.revoke(cid)
+        self._flood(ulfm.FT_REVOKE_CID, int(cid), "revoke-flood")
 
     def sever(self) -> None:
-        """Simulated process death (the fault-injection hook) waits for
-        fault tolerance."""
-        raise ulfm._waits_for_ft("sever")
+        """Simulate process death (the fault-injection hook): heartbeats
+        stop and every socket is torn down abruptly — no quiescence, no
+        goodbye — so peers see connection reset exactly like a crash."""
+        self._ft_dead = True
+        if self._detector is not None:
+            self._detector.stop(join_timeout=0.0)
+        self._closed.set()
+        # a crash abandons its in-flight deferred sends and parked
+        # rendezvous descriptors: waiters unblock ERRORED (typed) and
+        # the hygiene gate sees no incomplete request / orphaned park
+        self._abandon_inflight("proc severed (simulated crash) with "
+                               "sends in flight")
+        # a crash abandons its pushes: mark the pool closed so idle
+        # workers exit (the hygiene gate counts worker threads)
+        self._push_pool.close(0.0)
+        if self._sm_seg is not None:
+            # consumption stops (the crash contract) but the segment
+            # FILE survives — a real crash cleans nothing up; the final
+            # harness close()/launcher sweep owns the unlink
+            self._sm_seg.sever()
+        # the channel engine dies with the proc (a crash reads nothing
+        # more); stopping it before the RST closes below means no
+        # reader is parked on an fd about to be freed
+        if self._chan_engine is not None:
+            self._chan_engine.close(1.0)
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        with self._conn_lock:
+            conns = list(self._conns.values()) + self._dup_conns
+            self._conns.clear()
+            self._dup_conns = []
+        for sock in conns:
+            try:
+                # RST on close (SO_LINGER 0): peers must observe a reset,
+                # not an orderly shutdown — this is a crash, not a close
+                sock.setsockopt(
+                    socket.SOL_SOCKET, socket.SO_LINGER,
+                    struct.pack("ii", 1, 0),
+                )
+            except OSError:
+                pass
+            try:
+                sock.close()
+            except OSError:
+                pass
 
     def mute(self) -> None:
-        """Simulated hang (the fault-injection hook) waits for fault
-        tolerance."""
-        raise ulfm._waits_for_ft("mute")
+        """Simulate a hang/partition: heartbeats stop, sockets stay up —
+        only the failure detector can discover this death."""
+        self._ft_dead = True
 
     def boot_token_of(self, rank: int) -> str | None:
         """Locality identity of ``rank`` as the modex advertised it (the
@@ -1075,11 +1609,25 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         same log-and-keep-draining posture: a failing matching
         callback must not kill the channel, every later message on
         this connection would silently vanish)."""
+        conn = chan.sock
         # unpack_from: array payloads become writable views over the
         # frame's dedicated recv_into buffer — the zero-copy receive
         # half (the frame bytearray stays alive via the views)
         vals = dss.unpack_from(frame)
         src, tag, cid, seq, payload = vals[:5]
+        if self.ft_state is not None and cid == ulfm.FT_JOIN_CID:
+            # rejoin/re-modex: needs the carrying connection (the
+            # joiner's fresh socket becomes the canonical endpoint)
+            self._ft_join(conn, src, payload)
+            return
+        if self.ft_state is not None and cid in (
+            ulfm.FT_HB_CID, ulfm.FT_NOTICE_CID, ulfm.FT_REVOKE_CID,
+            ulfm.FT_AGREE_PUB_CID, ulfm.FT_BYE_CID, ulfm.FT_DVM_CID,
+        ):
+            # ULFM control plane: heartbeats / failure notices /
+            # revoke floods never enter the matching engine
+            self._ft_ctrl(cid, src, payload)
+            return
         self._trace_ingest(vals, "tcp")
         env = Envelope(src, tag, cid, seq)
         try:
@@ -1100,9 +1648,15 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             sock = self._conns.get(dest)
         if sock is not None:
             return sock
+        if self.ft_state is not None and self.ft_state.is_failed(dest):
+            raise errors.ProcFailed(
+                f"rank {dest} is known failed",
+                failed_ranks=self.ft_state.failed(),
+            )
         # lazy connection establishment (btl_tcp_endpoint shape) with
         # exponential backoff + jitter bounded by a total deadline: a
-        # peer still wiring up is retried.  Cards may carry extra
+        # peer still wiring up is retried, not misclassified as dead.
+        # Cards may carry extra
         # capability items beyond (host, port), so the connect address is
         # always the 2-prefix.
         addr = tuple(self.address_book[dest][:2])
@@ -1120,13 +1674,32 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                     sock.close()
                 except OSError:
                     pass
-                if isinstance(e, (ConnectionRefusedError,
-                                  ConnectionResetError)):
-                    # the peer advertised this port through the modex, so
-                    # its listener WAS bound — refused now means it is
-                    # gone (no rejoin path without ft): fail fast
+                state = self.ft_state
+                if state is not None and state.is_failed(dest):
+                    raise errors.ProcFailed(
+                        f"rank {dest} failed while connecting",
+                        failed_ranks=state.failed(),
+                    ) from e
+                if state is None and isinstance(
+                    e, (ConnectionRefusedError, ConnectionResetError)
+                ):
+                    # non-ft: the peer advertised this port through the
+                    # modex, so its listener WAS bound — refused now
+                    # means it is gone, and without ft there is no
+                    # rejoin path that could re-bind it: fail fast
                     raise
                 if backoff.expired(lookahead=backoff.delay):
+                    if state is not None and isinstance(
+                        e, (ConnectionRefusedError, ConnectionResetError)
+                    ):
+                        # refused past the backoff budget: the peer's
+                        # listener is gone — that is death, not a stall
+                        self._mark_transport_death(dest)
+                        raise errors.ProcFailed(
+                            f"rank {dest} unreachable "
+                            f"(connection refused/reset): {e}",
+                            failed_ranks=state.failed(),
+                        ) from e
                     raise
                 backoff.sleep()
         # the connect BUDGET must not become the socket's steady-state
@@ -1150,10 +1723,6 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         self._chan_engine.add_channel(
             sock, f"peer:{dest}", self._on_wire_frame)
         return sock
-
-
-    # -- MPI surface (RankContext-compatible) ----------------------------
-
 
     # -- MPI surface (RankContext-compatible) ----------------------------
 
@@ -1179,6 +1748,16 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             # the postmortem ring: user-facing traffic only
             flightrec.record(flightrec.SEND, rank=self.rank, dest=dest,
                              tag=tag, cid=cid)
+        state = self.ft_state
+        if state is not None and state.is_revoked(cid):
+            # before ANY delivery path, the loopback fast path included:
+            # a revoked cid poisons sends to self like any other
+            exc: errors.MpiError = errors.Revoked(
+                f"send on revoked cid={cid}", cid=cid
+            )
+            if poll:
+                raise exc
+            return self.call_errhandler(exc)
         seq = next(self._seq)
         # tracing plane (armed only): the send span opens here and its
         # wire context rides the frame header; an error path that never
@@ -1219,9 +1798,30 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                     tspan.end(transport="sm",
                               bp=sm_mod.thread_full_spins() > spins0)
                 return
+            except errors.ProcFailed as exc:
+                if poll:
+                    raise
+                return self.call_errhandler(exc)
+            except sm_mod.ConsumerStopped as e:
+                # the ring's owner stopped consuming: on an ft proc that
+                # IS peer death — the sm twin of connection reset (the
+                # detector/BYE may simply not have landed yet); classify
+                # instead of surfacing a bare transport error
+                if state is None:
+                    if poll:
+                        raise
+                    return self.call_errhandler(e)
+                self._mark_transport_death(dest)
+                exc = errors.ProcFailed(
+                    f"rank {dest} failed (sm ring consumer stopped): "
+                    f"{e}", failed_ranks=state.failed(),
+                )
+                if poll:
+                    raise exc from e
+                return self.call_errhandler(exc)
             except errors.InternalError as exc:
-                # wedged/stopped/closed ring: a transport failure — the
-                # same disposition routing a TCP stall gets
+                # wedged/closed ring: a transport failure — the same
+                # disposition routing a TCP stall gets
                 if poll:
                     raise
                 return self.call_errhandler(exc)
@@ -1230,30 +1830,54 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             # (boot mismatch, unmappable segment): visible, not silent
             spc.record("sm_fallback_tcp_sends", 1)
         limit = int(mca_var.get("tcp_eager_limit", 1 << 20))
-        if nbytes > limit:
-            self._send_rndv(obj, dest, tag, cid, seq, nbytes,
-                            tctx=tctx,
-                            parent=tspan.sid if tspan is not None
-                            else None)
+        try:
+            if nbytes > limit:
+                self._send_rndv(obj, dest, tag, cid, seq, nbytes,
+                                tctx=tctx,
+                                parent=tspan.sid if tspan is not None
+                                else None)
+                if tspan is not None:
+                    tspan.end(transport="rndv")
+                return
+            # eager zero-copy: array/bytes payloads leave as out-of-band
+            # memoryview segments of the CALLER's buffers, gathered by
+            # sendmsg — the blocking send completes only after the
+            # kernel has the bytes, so buffer reuse stays safe
+            header, oob = dss.pack_frames(
+                *self._frame_objs(tag, cid, seq, obj, tctx),
+                oob_min=int(mca_var.get("tcp_zero_copy_min", 0)),
+            )
+            sock = self._endpoint(dest)
+            self._framed_send(sock, [header, *oob])
+            if oob:
+                spc.record("tcp_zero_copy_sends", 1)
+                spc.record("tcp_copy_bytes_avoided",
+                           sum(v.nbytes for v in oob))
             if tspan is not None:
-                tspan.end(transport="rndv")
-            return
-        # eager zero-copy: array/bytes payloads leave as out-of-band
-        # memoryview segments of the CALLER's buffers, gathered by
-        # sendmsg — the blocking send completes only after the kernel has
-        # the bytes, so buffer reuse stays safe
-        header, oob = dss.pack_frames(
-            *self._frame_objs(tag, cid, seq, obj, tctx),
-            oob_min=int(mca_var.get("tcp_zero_copy_min", 0)),
-        )
-        sock = self._endpoint(dest)
-        self._framed_send(sock, [header, *oob])
-        if oob:
-            spc.record("tcp_zero_copy_sends", 1)
-            spc.record("tcp_copy_bytes_avoided",
-                       sum(v.nbytes for v in oob))
-        if tspan is not None:
-            tspan.end(transport="tcp")
+                tspan.end(transport="tcp")
+        except errors.ProcFailed as exc:
+            # peer death classified by the endpoint layer: route through
+            # the attached disposition (FATAL aborts, RETURN raises typed)
+            if poll:
+                raise
+            return self.call_errhandler(exc)
+        except OSError as e:
+            if state is None or not isinstance(
+                e, (ConnectionRefusedError, ConnectionResetError,
+                    BrokenPipeError)
+            ):
+                # a stalled send (timeout on a live but slow peer) is NOT
+                # death — only reset/refused/pipe is; the endpoint layer
+                # already re-raised non-death errors raw, honor that here
+                raise
+            self._mark_transport_death(dest)
+            exc = errors.ProcFailed(
+                f"send to rank {dest} failed: {e}",
+                failed_ranks=state.failed(),
+            )
+            if poll:
+                raise exc from e
+            return self.call_errhandler(exc)
 
     def _deliver_self(self, obj: Any, tag: int, cid: int, seq: int,
                       tspan, tctx) -> None:
@@ -1547,10 +2171,27 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
 
     def _deferred_exc(self, e: BaseException, dest: int):
         """Typed completion error for a deferred send that failed on
-        the progress engine, observed at wait() instead of at the call."""
+        the progress engine — the same classification the blocking
+        send path applies, observed at wait() instead of at the call."""
+        state = self.ft_state
+        if isinstance(e, sm_mod.ConsumerStopped) and state is not None:
+            self._mark_transport_death(dest)
+            return errors.ProcFailed(
+                f"rank {dest} failed (sm ring consumer stopped): {e}",
+                failed_ranks=state.failed(),
+            )
         if isinstance(e, errors.MpiError):
             return e
         if isinstance(e, OSError):
+            if state is not None and isinstance(
+                e, (ConnectionRefusedError, ConnectionResetError,
+                    BrokenPipeError)
+            ):
+                self._mark_transport_death(dest)
+                return errors.ProcFailed(
+                    f"deferred send to rank {dest} failed: {e}",
+                    failed_ranks=state.failed(),
+                )
             return errors.InternalError(
                 f"deferred send to rank {dest} failed: {e}")
         return errors.InternalError(
@@ -1580,6 +2221,85 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                     "drain within the stall timeout")
             time.sleep(delay)
             delay = min(delay * 2, 0.005)
+
+    def _arm_isend_poison(self, req, dest: int, cid: int,
+                          rndv_id: int | None = None) -> None:
+        """Weak-progress poisoning for a parked isend: a revoke flood
+        (via the cid alias machinery) or peer death arriving while the
+        frame waits its turn completes the request typed from the
+        waiter's own progress tick.  Death also lands eagerly through
+        the _fail_inflight failure listener; this RETRYING tick is the
+        backstop (the one-shot listener may find the frame transiently
+        owned — e.g. the RTS mid-send — and skip it) and the revoke
+        path.  A poisoned rendezvous request also releases its parked
+        descriptor (``rndv_id``): a park nobody will ever push must
+        not pin the caller's buffers or stall the close quiesce."""
+        state = self.ft_state
+        if state is None:
+            return
+
+        def fail(exc) -> None:
+            if rndv_id is not None:
+                with self._rndv_lock:
+                    if req._owned:
+                        return  # CTS push started: transport owns it
+                    self._pending_rndv.pop(rndv_id, None)
+                    self._rndv_meta.pop(rndv_id, None)
+                    self._rndv_trace.pop(rndv_id, None)
+            req.complete_error(exc)
+
+        def prog():
+            if req.done or req._owned:
+                # a worker is mid-send: its outcome (delivered, or a
+                # transport error classified typed) is authoritative
+                return
+            if state.is_revoked(cid):
+                fail(errors.Revoked(
+                    f"isend on revoked cid={cid}", cid=cid))
+            elif state.is_failed(dest):
+                fail(errors.ProcFailed(
+                    f"rank {dest} failed with an isend in flight "
+                    f"(cause: {state.cause_of(dest)})",
+                    failed_ranks=state.failed()))
+
+        req._progress = prog
+
+    def _fail_inflight(self, rank: int, cause: str) -> None:
+        """Failure-listener hook (``FailureState.add_failure_listener``):
+        a peer's death completes every parked isend toward it as typed
+        ``ProcFailed`` — queued channel frames and parked rendezvous
+        descriptors both — so waitall loops observe the failure instead
+        of wedging on a corpse (the deferred twin of the blocking
+        path's discovery-at-send classification)."""
+        state = self.ft_state
+        if state is None:
+            return
+        exc = errors.ProcFailed(
+            f"rank {rank} failed with isends in flight (cause: {cause})",
+            failed_ranks=state.failed(),
+        )
+        ch = self._out_channels.get(rank)
+        if ch is not None:
+            with ch.lock:
+                # under ch.lock: an item is either still queued HERE
+                # (error it — it will be skipped at pop) or already
+                # popped-and-owned by a worker (its outcome is
+                # authoritative); never both
+                for _work, req, _finish in ch.queue:
+                    if req is not None and not req._owned:
+                        req.complete_error(exc)
+        with self._rndv_lock:
+            doomed = [(rid, meta[1])
+                      for rid, meta in self._rndv_meta.items()
+                      if meta[0] == rank
+                      and (meta[1] is None or not meta[1]._owned)]
+            for rid, _req in doomed:
+                self._pending_rndv.pop(rid, None)
+                self._rndv_meta.pop(rid, None)
+                self._rndv_trace.pop(rid, None)
+        for _rid, req in doomed:
+            if req is not None:
+                req.complete_error(exc)
 
     def _rndv_undelivered(self) -> bool:
         """Parked transfers still owed to the peers — the close-quiesce
@@ -1632,6 +2352,7 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         )
         segments = [header, *oob]
         req = SendRequest(pinned=segments, dispatch=dispatch)
+        self._arm_isend_poison(req, dest, cid)
         self._inflight.add(req)
         spc.record("tcp_isend_deferred", 1)
         if oob:
@@ -1654,12 +2375,14 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         and the receiver's CTS releases a push of those buffers
         directly over the data socket.  The request completes when the
         push has the bytes in the kernel (or errored, typed, when the
-        push fails or the proc closes first)."""
+        push fails, the proc closes first, or the peer dies / the cid is
+        revoked while parked)."""
         req = SendRequest(dispatch=dispatch)
         self._inflight.add(req)
         spc.record("tcp_isend_deferred", 1)
         rndv_id, _oob = self._park_rndv(obj, dest, seq, req=req,
                                         tctx=tctx, parent=parent)
+        self._arm_isend_poison(req, dest, cid, rndv_id=rndv_id)
         rts = dss.pack(
             *self._frame_objs(
                 tag, cid, seq, (_RTS_MARK, self.rank, rndv_id, nbytes),
@@ -1690,6 +2413,7 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         nonblocking); otherwise a producer continuation parks on the
         progress engine instead of blocking the caller."""
         req = SendRequest(dispatch=dispatch)
+        self._arm_isend_poison(req, dest, cid)
         ch = self._out_channels.get(dest)
         idle = ch is None or not ch.busy()
         oob_min = int(mca_var.get("tcp_zero_copy_min", 0))
@@ -1767,9 +2491,12 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         the descriptor, CTS pushes the pinned buffers over the data
         socket; sm: slot copy-in, or a parked producer continuation when
         the ring is full).  ``wait()``/``test()`` gate buffer reuse and surface
-        failures at completion.  A tensor the wire cannot carry raises
-        dss's ``TypeError_`` here, before anything is queued.
-        ``poll=True`` marks a framework-internal send: errors raise raw
+        failures at completion: on an ft proc a revoked cid or
+        known-failed destination returns an ERRORED request (never a
+        synchronous raise), an in-flight send whose peer dies completes
+        as ``ProcFailed``, and a revoke flood poisons parked sends.  A
+        tensor the wire cannot carry raises dss's ``TypeError_`` here,
+        before anything is queued.  ``poll=True`` marks a framework-internal send: errors raise raw
         at wait, bypassing the errhandler disposition."""
         if not 0 <= dest < self.size:
             raise errors.RankError(f"rank {dest} out of range")
@@ -1780,6 +2507,21 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             flightrec.record(flightrec.SEND, rank=self.rank, dest=dest,
                              tag=tag, cid=cid, nb=True)
         dispatch = None if poll else self.call_errhandler
+        state = self.ft_state
+        if state is not None and state.is_revoked(cid):
+            return SendRequest.errored(
+                errors.Revoked(f"isend on revoked cid={cid}", cid=cid),
+                dispatch=dispatch,
+            )
+        if state is not None and state.is_failed(dest):
+            return SendRequest.errored(
+                errors.ProcFailed(
+                    f"rank {dest} is known failed "
+                    f"(cause: {state.cause_of(dest)})",
+                    failed_ranks=state.failed(),
+                ),
+                dispatch=dispatch,
+            )
         seq = next(self._seq)
         # tracing plane (armed only): the deferred send span is an
         # instant at dispatch — the rendezvous push/deliver legs carry
@@ -1824,19 +2566,48 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
     def irecv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
               cid: int = 0, poll: bool = False):
         """Nonblocking matched receive returning a Request (a rendezvous
-        message completes it when its data lands)."""
-        req = Request()
+        message completes it when its data lands).  On an ft proc the
+        request is failure-aware: classification (revoked cid, named
+        dead source, ANY_SOURCE pending semantics) completes it ERRORED
+        — typed, from the waiter's progress tick — and a message matched
+        after classification re-enters the engine for a retry.
+        ``poll=True`` marks a framework-internal receive (the agreement
+        protocol's frame waits): typed errors raise raw at wait/test,
+        bypassing the errhandler disposition."""
+        state = self.ft_state
+        abandoned = [False]
+        req = Request(dispatch=None if poll else self.call_errhandler) \
+            if state is not None else Request()
+
+        def finalize(env: Envelope, payload: Any) -> None:
+            # runs while _incoming_cv is held (all engine entry points
+            # in this class take it), so `abandoned` is consistent
+            if abandoned[0]:
+                self.engine.incoming(env, payload)
+                return
+            req.complete(payload, source=env.src, tag=env.tag)
 
         def on_match(env: Envelope, payload: Any) -> None:
             if self._resolve_rndv(env, payload, finalize):
                 return
             finalize(env, payload)
 
-        def finalize(env: Envelope, payload: Any) -> None:
-            req.complete(payload, source=env.src, tag=env.tag)
-
         with self._incoming_cv:
             self.engine.post_recv(source, tag, cid, on_match)
+        if state is not None:
+            def prog():
+                if req.done:
+                    return
+                exc = ulfm.classify_recv_failure(state, source, cid)
+                if exc is None:
+                    return
+                with self._incoming_cv:
+                    if req.done:
+                        return
+                    abandoned[0] = True
+                req.complete_error(exc)
+
+            req._progress = prog
         return req
 
     def recv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
@@ -1884,13 +2655,40 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                 return
             finalize(env, payload)
 
+        state = self.ft_state
+        if state is not None:
+            # revocation poisons pending AND future receives
+            fail_exc = ulfm.classify_recv_failure(state, source, cid)
+            if isinstance(fail_exc, errors.Revoked):
+                if poll:
+                    raise fail_exc
+                return self.call_errhandler(fail_exc)
         with self._incoming_cv:
             self.engine.post_recv(source, tag, cid, on_match)
-        if not done.wait(timeout):
+        fail_exc = None
+        if state is None:
+            completed = done.wait(timeout)
+        else:
+            # sliced wait so peer death classifies promptly: a receive
+            # blocked on a rank that dies mid-wait must surface typed
+            # ProcFailed, not ride out the full stall timeout
+            wait_deadline = time.monotonic() + timeout
+            while True:
+                if done.wait(0.02):
+                    break
+                fail_exc = ulfm.classify_recv_failure(state, source, cid)
+                if fail_exc is not None or time.monotonic() > wait_deadline:
+                    break
+            completed = done.is_set()
+        if not completed:
             with self._incoming_cv:
                 if not done.is_set():
                     abandoned[0] = True
             if not done.is_set():
+                if fail_exc is not None:
+                    if poll:
+                        raise fail_exc
+                    return self.call_errhandler(fail_exc)
                 # diagnosis: is the message parked unexpected while our
                 # posted recv failed to match it?
                 hit = self.engine.probe(source, tag, cid)
@@ -1942,15 +2740,112 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         receiver's CTS) move them, so the deferred-send channels and
         outstanding rendezvous sends drain first (ompi_mpi_finalize's
         quiesce-before-teardown contract), bounded by the stall timeout;
-        leftovers are abandoned ERRORED at the end."""
-        if self._closed.is_set():
+        leftovers are abandoned ERRORED at the end.  On an ft proc the
+        control floods still in flight are flushed first, and an orderly
+        goodbye (``FT_BYE_CID``) tells the survivors this rank is
+        leaving; a severed proc (a simulated crash) says nothing, but
+        its segment, reader and sockets are still released here."""
+        if self._torn_down:
             return
+        self._torn_down = True
+        # control floods first: an in-flight agreement announce or
+        # revoke notice must reach the peers before the wire comes down
+        # (a closing rank that takes its announce to the grave strands
+        # survivors waiting to adopt it).  Bounded: each flood's
+        # per-peer connect deadline is 1 s, and a wedged flood must not
+        # hang shutdown.
+        flood_deadline = time.monotonic() + 5.0
+        with self._flood_lock:
+            floods = list(self._flood_threads)
+        for t in floods:
+            while True:
+                try:
+                    t.join(max(0.0, flood_deadline - time.monotonic()))
+                    break
+                except RuntimeError:
+                    # registered but not yet started (the flood's
+                    # spawner is between append and start()): wait it
+                    # into existence, bounded by the same deadline
+                    if time.monotonic() >= flood_deadline:
+                        break
+                    time.sleep(0.001)
+        if self.ft_state is not None:
+            # re-sweep known-dead peers' in-flight sends before waiting
+            # on them: a one-shot failure-listener sweep may have found
+            # a frame transiently owned (RTS mid-send) and skipped it
+            for r in self.ft_state.failed():
+                self._fail_inflight(int(r), "known failed at close")
         deadline = time.monotonic() + self._timeout
         while time.monotonic() < deadline and any(
                 ch.busy() for ch in list(self._out_channels.values())):
             time.sleep(0.005)
         while self._rndv_undelivered() and time.monotonic() < deadline:
             time.sleep(0.005)
+        if self.ft_state is not None and not self._ft_dead:
+            # the goodbye rides TCP while data may still sit in peers'
+            # rings: wait (bounded) for our outbound rings to drain so
+            # the BYE cannot overtake delivered-but-unread ring frames
+            # — the per-socket-FIFO ordering argument, restored across
+            # the transport split
+            self._sm_quiesce(min(deadline, time.monotonic() + 5.0))
+        if self.ft_state is not None and not self._ft_dead:
+            # orderly departure: tell the survivors we are LEAVING, so
+            # their detectors reconfigure the ring instead of suspecting
+            # us via missed beats (cause="goodbye", pre-acknowledged:
+            # never a detector false positive, and never a pending gate
+            # on survivors' wildcard receives — finalize skew is not a
+            # crash) — the goodbye the crash paths (sever/mute)
+            # deliberately omit.  Per-socket FIFO puts the goodbye after
+            # every frame already sent, so no delivered message is
+            # reclassified as lost.
+            goodbye = dss.pack(self.rank, 0, ulfm.FT_BYE_CID, 0,
+                               [self.rank])
+            # sm peers get the goodbye THROUGH their ring: it then
+            # trails every data frame this direction ever produced
+            # (exact per-direction FIFO — the same argument per-socket
+            # ordering makes below), and it reaches peers the data
+            # plane never warmed a TCP connection for
+            ring_done: set[int] = set()
+            with self._sm_lock:
+                ring_peers = [(r, s) for r, s in self._sm_senders.items()
+                              if s is not None]
+            for r, smtx in ring_peers:
+                if self.ft_state.is_failed(r):
+                    continue
+                try:
+                    smtx.send_frame(goodbye, [],
+                                    time.monotonic() + 2.0, None)
+                    ring_done.add(r)
+                except errors.MpiError:
+                    pass  # wedged/stopped ring: fall through to TCP
+            # remaining peers: only ALREADY-CONNECTED ones get the
+            # goodbye directly — they are the ones holding delivered
+            # frames the notice must trail, and our observer is among
+            # them by construction (we beat toward it over a cached
+            # socket).  Dialing fresh connections just to say goodbye
+            # would stall shutdown on refused-connect retries for peers
+            # already gone; recipients gossip the BYE onward
+            # (_ft_ctrl), so never-connected survivors still learn.
+            with self._conn_lock:
+                connected = list(self._conns.items())
+            for r, sock in connected:
+                if not isinstance(r, int) or r in ring_done \
+                        or r == self.rank or self.ft_state.is_failed(r):
+                    # tuple keys are intercomm-bridge peers: a DIFFERENT
+                    # job's rank namespace, where our departing rank
+                    # number would poison their unrelated local rank
+                    continue
+                try:
+                    self._framed_send(sock, goodbye)
+                except OSError:
+                    pass  # peer already gone: nothing to notify
+        # the heartbeat thread stops only NOW: the goodbye above already
+        # reconfigured the peers' rings, and our beats had to stay alive
+        # through the quiesce so nobody suspected us mid-shutdown.  It
+        # must still stop before teardown (no emitting into dying
+        # sockets; fixtures assert no detector thread leaks).
+        if self._detector is not None:
+            self._detector.stop()
         self._closed.set()
         # shutdown() first, close() only after the reader thread exits:
         # closing a socket another thread is reading frees the fd number

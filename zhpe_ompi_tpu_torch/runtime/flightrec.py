@@ -4,7 +4,9 @@
 Where SPC counters say *how much* happened, the flight recorder says
 *what, in order*: a lock-cheap per-process ring of small typed events
 recorded at the runtime's seams.  The event table is the JAX package's;
-the seams the port has so far are the revocations (``ft/ulfm.py``).  In
+the seams the port has so far are the send/recv and han seams, the ft
+plane's classifications, revocations and recovery legs (``ft/ulfm.py``,
+``ft/recovery.py``) and the device probe's faults.  In
 the JAX package a metrics publisher ships the window to the PMIx store on
 a typed failure; the port's publisher waits for ``runtime/pmix.py``, so
 here the window is read in process (:func:`window`).
@@ -37,8 +39,8 @@ mca_var.register(
     type=int,
 )
 
-# event types (the seams that record them in the JAX package; the port
-# records REVOKE in ft/ulfm.py so far)
+# event types (the seams that record them in the JAX package; the port's
+# runtime/dvm.py and io/ckptio.py seams wait for those modules)
 SEND = "send"              # pt2pt/tcp.py send/isend dispatch
 RECV = "recv"              # pt2pt/tcp.py recv post
 MATCH = "match"            # matching engines, via the PERUSE events

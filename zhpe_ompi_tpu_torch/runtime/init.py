@@ -18,8 +18,8 @@ The host plane (launcher-started multi-process jobs) has its own entry:
 process into a ``pt2pt/tcp.TcpProc`` universe (``host_world``,
 ``host_finalize``).  Against the namesake: ``ZMPI_PMIX`` (the daemon-hosted
 store) raises ``UnsupportedError`` naming ``runtime/pmix.py``,
-``ZMPI_FT=1`` raises naming ``ft/ulfm.py``, and the ``ZMPI_LIFELINE``
-watch (``_arm_lifeline``) comes with the DVM.  The ``sm`` MCA var keeps
+``ZMPI_FT=1`` builds the endpoint with fault tolerance on (``ft/ulfm.py``),
+and the ``ZMPI_LIFELINE`` watch (``_arm_lifeline``) comes with the DVM.  The ``sm`` MCA var keeps
 its default (1): ranks on one host exchange their frames through the
 shared-memory rings of ``pt2pt/sm.py``, and ``ZMPI_MCA_sm=0`` puts every
 pair on TCP.
@@ -227,8 +227,9 @@ def host_init(timeout: float = 30.0):
     connect step (``ompi_mpi_init.c:508``).  A missing or malformed
     variable raises ``NotInitializedError``.  Idempotent; returns this
     process's :class:`~zhpe_ompi_tpu_torch.pt2pt.tcp.TcpProc` endpoint.
-    ``ZMPI_PMIX`` and ``ZMPI_FT=1`` raise ``UnsupportedError`` (see the
-    module doc); the ``sm`` MCA var (default 1: same-host ranks ride the
+    ``ZMPI_FT=1`` builds it with ``ft=True`` (the ULFM surface: failure
+    ack, agree, shrink, revoke); ``ZMPI_PMIX`` raises ``UnsupportedError``
+    (see the module doc); the ``sm`` MCA var (default 1: same-host ranks ride the
     shared-memory rings) applies as to any ``TcpProc``.
     """
     with _host_lock:
@@ -240,10 +241,6 @@ def host_init(timeout: float = 30.0):
                 "store-served wire-up needs runtime/pmix.py, which the "
                 "PyTorch port has not ported yet; use the ZMPI_COORD_HOST/"
                 "ZMPI_COORD_PORT contract")
-        if os.environ.get("ZMPI_FT") == "1":
-            raise errors.UnsupportedError(
-                "host_init: ZMPI_FT=1 asks for fault tolerance, which needs "
-                "ft/ulfm.py, not yet ported to the PyTorch port")
         try:
             rank = int(os.environ["ZMPI_RANK"])
             size = int(os.environ["ZMPI_SIZE"])
@@ -256,9 +253,13 @@ def host_init(timeout: float = 30.0):
             ) from None
         from ..pt2pt.tcp import TcpProc
 
+        # ZMPI_FT=1: the endpoint carries the ULFM machinery (failure
+        # state, ring detector, typed failure delivery)
+        ft = os.environ.get("ZMPI_FT") == "1"
         t0 = time.perf_counter()
         proc = TcpProc(
             rank, size, coordinator=(chost, cport), timeout=timeout,
+            ft=ft,
             external_coordinator=os.environ.get(
                 "ZMPI_COORD_EXTERNAL") == "1",
         )

@@ -122,6 +122,15 @@ Device-plane liveness counters (``parallel/mesh.py``):
   ``utils/deadline`` idiom).
 - ``device_probe_misses`` — probes that came back "hung"/"deadline"
   (the device plane did not answer inside its window).
+- ``device_faults`` — typed ``cause="device"`` classifications fed into
+  the FailureState (the DEVICE_FAULT flightrec event lands with each;
+  zero across any run with no injected wedge).
+- ``device_probes`` — background rounds the always-on DeviceProber ran
+  between guarded regions (each also counts in
+  ``device_probe_rounds``).
+- ``device_probe_faults`` — background-prober rounds that missed and
+  classified a typed device fault (each also counts in
+  ``device_faults``).
 
 Fault-tolerance counters (``comm/communicator.py``, ``ft/ulfm.py``):
 
@@ -129,6 +138,17 @@ Fault-tolerance counters (``comm/communicator.py``, ``ft/ulfm.py``):
   (``Communicator.revoke``).
 - ``comm_revokes_received`` — communicators marked revoked here because
   another rank revoked them (the revocation watcher's store reads).
+- ``ft_overlay_hops`` — FT control frames (notice/revoke/agree/BYE
+  floods and their gossip-once relays) sent over overlay links,
+  recorded at each sender (``pt2pt/tcp.py``).
+- ``tcp_deferred_dials`` — live peers a control flood skipped because
+  they are not overlay neighbors (per flood evaluation).
+- ``dvm_fault_events`` — authoritative daemon fault events a rank
+  ingested (``FT_DVM_CID`` frames; the daemon that sends them waits for
+  ``runtime/dvm.py``).
+- ``ckpt_async_overlapped`` — training steps that committed while the
+  previous checkpoint still drained (``models/ftloop.py``; an async
+  checkpointer's overlap gate, zero with the serial one).
 
 One-sided and PGAS counters (``shmem/device.py``):
 
