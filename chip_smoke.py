@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
    (one ``nvcc`` per source, started together) and time the build.
 3. Hold each kernel against its plain PyTorch version at the shapes the
    main path gives it (layernorm forward and backward 8192 x 1024 bf16;
-   flash attention forward, dq and dk/dv (16, 512, 16, 64) bf16 causal),
+   flash attention forward, dq and dk/dv (16, 512, 16, 64) bf16 causal;
+   the serving forward's layernorm (2048, 1024) and flash (4, 512, 16, 64)),
    plus ragged and strided shapes and the flash kernels' edges (a 4096-long
    sequence, causal and not, whose ring phases wrap many times; S = 192,
    not a multiple of their 128-row blocks), check that dq (with delta) and
@@ -203,7 +204,18 @@ Phases, each of which exits non-zero on failure:
    (the sm death listener or the transport), ack, agree on the failed
    set, shrink to 3 and reduce exactly against numpy.  The victim's
    ring files are swept as a launcher would (``ZMPI_SESSION``); the
-   survivors must leave no ring file, poll thread or detector.
+   survivors must leave no ring file, poll thread or detector.  Then the
+   same job under the port's ``Dvm`` hosted by this process
+   (``drive_ft_dvm``, ``--ft-dvm-child``: the ``ZMPI_PMIX`` contract, the
+   heartbeat window of the namesake's DVM drills): after the shrink to 3
+   and its exact reduce, the lowest survivor asks the daemon to relaunch
+   rank 3 (``recovery.daemon_respawn``), the replacement rejoins through
+   the store, and the four reduce exactly on a fresh window.  Gates: one
+   respawn counted by the daemon (and one fault event, unless the respawn
+   RPC found the corpse still exiting and reaped it itself), no
+   namespace, ring file or daemon left.  Printed: the classification ms and cause, the
+   respawn RPC ms, the replacement's start-up (imports, CUDA, its
+   ``host_init`` with the FT_JOIN) and the respawn-to-rejoin ms.
 19. Multi-slice training (``drive_hybrid``): 4 children of this script
    (``--hybrid-child``), one slice each, through ``zmpi.host_init()`` with
    the sm var at its default (this process hosts the rendezvous), each at
@@ -226,10 +238,47 @@ Phases, each of which exits non-zero on failure:
    the host allreduce or reduce-scatter and allgather, host-to-device,
    optimizer), the host-plane bytes sent per rank and step, the peak
    device bytes per rank, the ring bytes, and the phase's seconds.
-20. Print one ``{"kernels": [...]}`` line (``launches``: per training
+20. The serving loop (``drive_serve``): the port's ``Dvm`` in this process
+   hosts ``--serve-child`` ranks (``ft=True``, ``metrics=True``), each
+   ``zmpi.host_init()`` through the store and the flagship at full width
+   on the card (bf16, parameters from ``bench.numpy_params(SERVE_SEED)``)
+   under ``models/inferloop.FtInferLoop`` (``batch_max`` 16,
+   ``respawner=recovery.daemon_respawn``).  A serve step: each live rank
+   runs ``transformer.forward`` on its rows of the admitted batch
+   (``batch[rank::size]``), scores each row (the mean next-token
+   cross-entropy in f32, the last position's argmax) and the rows return
+   through one host-plane ``allgather``; rank 0 resolves the tickets.  The
+   kill run: 4 ranks, rank 0 submits 64 sequences in 4 bursts of 16;
+   rank 2 SIGKILLs itself entering its third forward; the survivors
+   requeue the batch, recover, the daemon relaunches rank 2, and the
+   replacement, rejoined through the store, receives rank 0's parameters
+   (``parallel/hybrid.dcn_bcast_params`` in the loop's ``remesh_fn``) and
+   serves.  The elastic run: 2 of 4 slots; rank 0 holds a burst of 32 so
+   its published backlog reaches a ``LoadController`` in this process,
+   whose ``QueueDepthPolicy`` votes a grow to 4 through the ``metrics``
+   RPC; the loop adopts it at a step boundary, the grown ranks receive
+   the parameters, and a last burst of 16 is served by 4.  Gates: every
+   ticket served once with status ``served`` and each value against this
+   process's own forward of the same sequences (``SERVE_CE_TOL``,
+   ``SERVE_ARGMAX_TOL``); a requeued ticket and ``infer_requeues``; the
+   survivors' cause ``daemon``; the daemon's ``dvm_fault_events`` and
+   ``dvm_respawns`` each up by 1 (``dvm_resizes`` by 1 in the elastic
+   run); the fleet back at 4; every rank's parameters equal in their bits
+   to rank 0's; each forward a rank ran launched 9 layernorm-forward and
+   4 flash-forward kernels by its thread's tally and nothing else; no
+   namespace, ring file, daemon, serving thread or parked ticket left.
+   Printed: rank 0's serve step ms (median, q1-q3, admit to resolve),
+   requests/s and tokens/s, the kill-to-classification ms, the recovery
+   legs (agree, respawn RPC, the replacement's start-up with the imports
+   and the kernel load, its ``host_init`` with the FT_JOIN, the parameters'
+   re-broadcast), the requeued tickets' extra latency, the elastic run's
+   controller-vote-to-adopted-resize ms, the peak device bytes per rank
+   and the phase's seconds.
+21. Print one ``{"kernels": [...]}`` line (``launches``: per training
    step; ``launches_by_path``: per forward, training, remat, sp, runtime,
-   long-context, Adam, ft rank, hybrid and ZeRO step), the smoke's total
-   seconds, the card's line, and last ``{"ok": true, "device": {...}}``.
+   long-context, Adam, ft rank, hybrid, ZeRO and serve step), the smoke's
+   total seconds, the card's line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
@@ -261,8 +310,13 @@ contract.
 
     python3 chip_smoke.py --ft
 
-runs only phases 17 and 18 (after the kernel build); ``--ft-child`` is
-phase 18's child.
+runs only phases 17 and 18 (after the kernel build); ``--ft-child`` and
+``--ft-dvm-child`` are phase 18's children.
+
+    python3 chip_smoke.py --serve
+
+runs only phase 20 (after the kernel build); ``--serve-child kill|elastic``
+is its child.
 
     python3 chip_smoke.py --hybrid
 
@@ -284,6 +338,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+_T0 = time.time()  # this process's start, for a rank's start-up legs
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -453,6 +509,44 @@ HYBRID_SEED = 1919
 #   within REMAT_UPDATE_REL_TOL (f32 summation order).
 HYBRID_ZERO_REL_TOL = REMAT_UPDATE_REL_TOL
 
+# Phase 18's DVM run and phase 20 (the serving loop), daemon-hosted by the
+# port's Dvm in this process:
+# - SERVE_REQUESTS sequences of the flagship's seq from SERVE_SEED + 1, in
+#   bursts of SERVE_BURST (the loop's batch_max), each scored by the rank
+#   that holds its row: the mean next-token cross-entropy (f32) and the
+#   last position's argmax.  Held against this process's own forward of the
+#   same sequences on the card in batches of SERVE_BURST: the mean CE
+#   within SERVE_CE_TOL (the forward phase's LOSS_TOL: bf16 operands with
+#   f32 accumulation, where a rank's 4-row products may tile differently
+#   from the 16-row ones), the argmax equal unless the reference's logit at
+#   the served argmax is within SERVE_ARGMAX_TOL (LOGITS_TOL) of its
+#   maximum (a tie within bf16).
+# - the kill run: SERVE_RANKS ranks, rank SERVE_VICTIM SIGKILLs itself
+#   entering its SERVE_KILL_STEP-th forward; the elastic run starts
+#   SERVE_ELASTIC_START of SERVE_RANKS slots, rank 0 submits
+#   SERVE_ELASTIC_BURST requests and holds them SERVE_ELASTIC_HOLD_S so the
+#   published backlog reaches the controller before the loop serves it.
+# - SERVE_MCA: the heartbeat window of the namesake's DVM drills (only the
+#   daemon's waitpid classifies a death in time) and a 300 ms publish
+#   interval; SERVE_REJOIN_S covers a rank process's start on the card's
+#   host (import torch alone took 8-10 s there).
+SERVE_DEVICE = "cuda"
+SERVE_RANKS = 4
+SERVE_REQUESTS = 64
+SERVE_BURST = 16
+SERVE_SEED = 2112
+SERVE_VICTIM = 2
+SERVE_KILL_STEP = 3
+SERVE_CE_TOL = LOSS_TOL
+SERVE_ARGMAX_TOL = LOGITS_TOL
+SERVE_ELASTIC_START = 2
+SERVE_ELASTIC_BURST = 32
+SERVE_ELASTIC_HOLD_S = 1.5
+SERVE_JOB_S = 600.0
+SERVE_REJOIN_S = 240.0
+SERVE_MCA = [("ft_detector_period", "2.0"), ("ft_detector_timeout", "60.0"),
+             ("spc_publish_interval_ms", "300")]
+
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
 # sequence, so the ring's mbarrier phases wrap many times (64 key or query
 # tiles a block), and an S that is not a multiple of the forward's 128-row
@@ -572,9 +666,12 @@ def check_layernorm(torch, F, fused_norm):
     gen = torch.Generator(device="cuda").manual_seed(1)
     n, d = BATCH * HEADLINE["seq"], HEADLINE["d_model"]
     # odd shapes: the register path's masked edge, the generic path, f32
+    # ... and the serving shape: one rank's 4 rows of a 16-request batch
     for shape, dtype in (((1000, 1000), torch.bfloat16),
                          ((77, 1001), torch.bfloat16),
                          ((333, 640), torch.float32),
+                         ((SERVE_BURST // SERVE_RANKS * HEADLINE["seq"], d),
+                          torch.bfloat16),
                          ((n, d), torch.bfloat16)):
         x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
         g = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
@@ -622,9 +719,12 @@ def check_flash(torch, F, fa):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     # odd shapes: ragged S, other head dims, strided views of a fused qkv
+    # ... and the serving shape: one rank's 4 rows of a 16-request batch
     cases = [((2, 300, 3, 64), True, False), ((2, 300, 3, 64), False, False),
              ((1, 129, 2, 32), True, False), ((1, 200, 2, 128), True, False),
-             ((2, 256, 4, 64), True, True), *EDGE_CASES, ((B, S, h, hd), True, False)]
+             ((2, 256, 4, 64), True, True), *EDGE_CASES,
+             ((SERVE_BURST // SERVE_RANKS, S, h, hd), True, False),
+             ((B, S, h, hd), True, False)]
     for shape, causal, strided in cases:
         if strided:
             b_, s_, h_, d_ = shape
@@ -678,9 +778,12 @@ def _bound(nbytes, nflop, flop_rate):
 def check_layernorm_bwd(torch, fused_norm):
     gen = torch.Generator(device="cuda").manual_seed(3)
     n, d = BATCH * HEADLINE["seq"], HEADLINE["d_model"]
+    # ... and the serving shape: one rank's 4 rows of a 16-request batch
     for shape, dtype in (((1000, 1000), torch.bfloat16),
                          ((77, 1001), torch.bfloat16),
                          ((333, 640), torch.float32),
+                         ((SERVE_BURST // SERVE_RANKS * HEADLINE["seq"], d),
+                          torch.bfloat16),
                          ((n, d), torch.bfloat16)):
         x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
         dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -2694,6 +2797,684 @@ def drive_hybrid(torch, card_line) -> dict:
     return report
 
 
+# -- phase 18's DVM run and phase 20 (the serving loop) ----------------------
+
+
+def _dvm_launch(n, argv, mca, **kw):
+    """One job of this script's children in a port ``Dvm`` hosted by this
+    process: returns (rc, stdout, stderr, the daemon's counter deltas, its
+    stat after the job, the daemon's session tag).  The daemon stops only
+    after the job ended (its ranks hold a lifeline to it)."""
+    import io
+    import threading
+
+    from zhpe_ompi_tpu_torch.runtime import dvm as dvm_mod
+
+    d = dvm_mod.Dvm()
+    try:
+        cli = dvm_mod.DvmClient(d.address)
+        before = cli.stat()
+        out, err, res = io.StringIO(), io.StringIO(), {}
+        controller = kw.pop("controller", None)
+
+        def run():
+            try:
+                res["rc"] = cli.launch(n, [os.path.abspath(__file__), *argv],
+                                       mca=mca, ft=True, stdout=out, stderr=err,
+                                       **kw)
+            except Exception as e:  # noqa: BLE001 - reported below
+                res["error"] = f"{type(e).__name__}: {e}"
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        ctl = None if controller is None else controller(d.address, out, err)
+        t.join(kw.get("timeout", 600.0) + 60.0)
+        if t.is_alive() or "error" in res:
+            raise SystemExit(f"dvm job {argv}: {res.get('error', 'hung')}\n"
+                             f"{out.getvalue()[-3000:]}\n{_rank_tails(err.getvalue())}")
+        stat = cli.stat()
+        deltas = {k: stat[k] - before.get(k, 0)
+                  for k in ("dvm_jobs_launched", "dvm_fault_events", "dvm_respawns",
+                            "dvm_resizes", "pmix_gets")}
+        cli.stop()
+        cli.close()
+    finally:
+        d.stop()
+    if dvm_mod.live_dvms() or dvm_mod.orphaned_daemon_processes():
+        raise SystemExit("dvm: a daemon outlived its job")
+    return res["rc"], out.getvalue(), err.getvalue(), deltas, stat, d.session, ctl
+
+
+def _rank_tails(err, lines=80) -> str:
+    """The last ``lines`` stderr lines of each rank of a daemon-hosted job
+    (the daemon prefixes each with ``[rank:err] ``), rank by rank."""
+    by_rank: dict = {}
+    for line in err.splitlines():
+        head = line.split("] ", 1)[0]
+        by_rank.setdefault(head, []).append(line)
+    return "\n".join("\n".join(v[-lines:]) for _, v in sorted(by_rank.items()))
+
+
+def _child_json(text, tag):
+    """The ``tag {json}`` lines the job's ranks printed, in the order
+    printed (each behind the daemon's ``[rank] `` prefix)."""
+    return [json.loads(line.split(f"{tag} ", 1)[1])
+            for line in text.splitlines() if f"] {tag} " in line]
+
+
+def _no_ring_files(session):
+    import glob
+
+    from zhpe_ompi_tpu_torch.pt2pt import sm
+
+    left = glob.glob(os.path.join(sm.segment_dir(), f"zompi_pyring_{session}_*"))
+    if left:
+        raise SystemExit(f"dvm: ring files left after the job: {left}")
+
+
+def ft_dvm_child() -> int:
+    """Phase 18's DVM run's child: one rank of a daemon-hosted ft job (the
+    ``ZMPI_PMIX`` contract); rank FT_PROC_VICTIM dies inside the ring
+    allreduce, the survivors shrink to 3 and reduce exactly, the lowest
+    asks the daemon to relaunch it (``recovery.daemon_respawn``), and all
+    four reduce exactly again.  Prints one ``FTDVM {json}`` line."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.coll import han
+    from zhpe_ompi_tpu_torch.coll import host as coll_host
+    from zhpe_ompi_tpu_torch.core import errhandler as errh
+    from zhpe_ompi_tpu_torch.core import errors
+    from zhpe_ompi_tpu_torch.ft import recovery, ulfm
+    from zhpe_ompi_tpu_torch.ft.inject import FaultPlan
+
+    legs = {"imports_s": time.time() - _T0}
+    t = time.time()
+    torch.zeros(1, device=SERVE_DEVICE)
+    legs["cuda_init_s"] = time.time() - t
+    rejoin = os.environ.get("ZMPI_REJOIN") == "1"
+    t = time.time()
+    p = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    legs["host_init_s"] = time.time() - t
+    p.set_errhandler(errh.ERRORS_RETURN)
+    r = p.rank
+    x = (torch.arange(FT_PROC_ELEMS, dtype=torch.int64, device=SERVE_DEVICE)
+         * (r + 1) - r).cpu()
+    full = sum(np.arange(FT_PROC_ELEMS, dtype=np.int64) * (q + 1) - q
+               for q in range(p.size))
+    out = {"rank": r, "rejoin": rejoin, "legs": legs}
+    if rejoin:
+        # pairs with the survivors' post-rejoin shrink: the full-size
+        # window is a fresh one (the survivors revoked the old)
+        four = p.shrink()
+        out["exact4"] = bool(np.array_equal(four.allreduce(x, zmpi.SUM).numpy(),
+                                            full))
+        zmpi.host_finalize()
+        print("FTDVM " + json.dumps(out), flush=True)
+        return 0 if out["exact4"] else 1
+    seen = {}
+    p.ft_state.add_failure_listener(
+        lambda rank, cause: seen.setdefault(rank, (time.time(), cause)))
+    p.barrier()
+    inj = FaultPlan(seed=FT_SEED).kill_rank(FT_PROC_VICTIM,
+                                            after_ops=FT_KILL_AFTER_OPS).arm(p)
+    t_op = time.time()
+    try:
+        inj.allreduce(x, zmpi.SUM)
+    except ulfm.RankKilled:
+        os.kill(os.getpid(), signal.SIGKILL)  # a real crash: nothing cleans up
+    except errors.ProcFailed:
+        # the collective's other survivors may still wait on this rank
+        p.revoke(coll_host.COLL_CID)
+    except errors.Revoked:
+        pass
+    deadline = time.monotonic() + 60.0
+    while FT_PROC_VICTIM not in seen:  # the listener runs after the mark
+        if time.monotonic() > deadline:
+            return 1
+        time.sleep(0.001)
+    three = {}
+
+    def on_three(sh):
+        want = sum(np.arange(FT_PROC_ELEMS, dtype=np.int64) * (q + 1) - q
+                   for q in range(p.size) if q != FT_PROC_VICTIM)
+        three["exact3"] = bool(np.array_equal(sh.allreduce(x, zmpi.SUM).numpy(),
+                                              want))
+        three["shrunk"] = [sh.rank, sh.size]
+        three["t"] = time.time()
+
+    def respawner(victims):
+        t0 = time.time()
+        pids = recovery.daemon_respawn(victims)
+        out["respawn_rpc_ms"] = (time.time() - t0) * 1e3
+        return pids
+
+    t_class, cause = seen[FT_PROC_VICTIM]
+    _, victims = recovery.respawn_victims(p, respawner, rollback_fn=on_three,
+                                          timeout=SERVE_REJOIN_S)
+    ok = recovery.await_rejoin(p, FT_PROC_VICTIM, SERVE_REJOIN_S)
+    t_join = time.time()
+    out.update(three, victims=victims, rejoined=ok, cause=cause,
+               classify_ms=(t_class - t_op) * 1e3,
+               shrink_ms=(three["t"] - t_class) * 1e3,
+               respawn_to_rejoin_ms=(t_join - three["t"]) * 1e3)
+    # a fresh generation for the full-size window (FtInferLoop's recovery
+    # tail): the epoch floor rises, the locality topology is re-derived
+    p.ft_state.raise_epoch(p.ft_state.crash_epoch() + 1)
+    han.invalidate(p)
+    four = p.shrink()
+    out["exact4"] = bool(np.array_equal(four.allreduce(x, zmpi.SUM).numpy(), full))
+    zmpi.host_finalize()
+    print("FTDVM " + json.dumps(out), flush=True)
+    return 0 if out["exact4"] and three["exact3"] else 1
+
+
+def drive_ft_dvm(torch, card_line) -> dict:
+    """Phase 18's second run: FT_PROC_RANKS children of this script hosted
+    by the port's ``Dvm`` in this process (``--ft-dvm-child``; the sm var
+    at its default, the ``ZMPI_PMIX`` contract), the heartbeat window the
+    namesake's DVM drills use (only the daemon's waitpid classifies in
+    time).  Gates: the survivors reduce exactly at 3, the daemon relaunches
+    the victim, it rejoins, and all four reduce exactly; one respawn (and
+    at most one fault event) counted by the daemon; no namespace, ring
+    file or daemon left."""
+    t0 = time.perf_counter()
+    rc, text, err, deltas, stat, session, _ = _dvm_launch(
+        FT_PROC_RANKS, ["--ft-dvm-child"], SERVE_MCA, timeout=SERVE_JOB_S)
+    rows = _child_json(text, "FTDVM")
+    if rc != 0 or len(rows) != FT_PROC_RANKS:
+        raise SystemExit(f"ft dvm: rc {rc}, {len(rows)} results\n{text[-3000:]}\n"
+                         f"{_rank_tails(err)}")
+    surv = [x for x in rows if not x["rejoin"]]
+    repl = [x for x in rows if x["rejoin"]]
+    if not (len(repl) == 1 and repl[0]["rank"] == FT_PROC_VICTIM
+            and all(x["exact4"] for x in rows)
+            and all(x["exact3"] and x["rejoined"] and x["victims"] == [FT_PROC_VICTIM]
+                    for x in surv)):
+        raise SystemExit(f"ft dvm: {rows}")
+    # the daemon counts the fault event only when the corpse's exit beats
+    # the respawn RPC: a SIGKILLed rank that held a CUDA context takes
+    # 0.2-0.3 s to exit, and the transport classifies it sooner, so the
+    # RPC may find the corpse still exiting, kill and reap it itself
+    if deltas["dvm_fault_events"] not in (0, 1) or deltas["dvm_respawns"] != 1 \
+            or stat["pmix"] != {}:
+        raise SystemExit(f"ft dvm: daemon counters {deltas}, store {stat['pmix']}")
+    _no_ring_files(session)
+    lead = min(surv, key=lambda x: x["rank"])
+    res = {"survivors": surv, "replacement": repl[0], "daemon": deltas,
+           "s": time.perf_counter() - t0}
+    print(json.dumps({"ft_dvm": res, "card": card_line}))
+    print(f"ft processes under the port's Dvm: victim rank {FT_PROC_VICTIM} "
+          f"classified in {[x['classify_ms'] for x in surv]} ms "
+          f"({[x['cause'] for x in surv]}), exact at 3 ranks; respawn RPC "
+          f"{lead['respawn_rpc_ms']} ms; the replacement's start-up: imports "
+          f"{repl[0]['legs']['imports_s']} s, CUDA init "
+          f"{repl[0]['legs']['cuda_init_s']} s, host_init (rejoin, FT_JOIN) "
+          f"{repl[0]['legs']['host_init_s']} s; respawn to rejoin "
+          f"{[x['respawn_to_rejoin_ms'] for x in surv]} ms; exact at 4 ranks again; "
+          f"phase {res['s']} s on {card_line}")
+    return res
+
+
+def _serve_tokens(np, cfg):
+    """The SERVE_REQUESTS request sequences, from one seed."""
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    return rng.integers(0, cfg.vocab, (SERVE_REQUESTS, cfg.seq), dtype=np.int64)
+
+
+def _serve_scores(torch, F, tfm, params, tok, cfg):
+    """Each row's mean next-token cross-entropy (f32) and last-position
+    argmax, with the last position's f32 logits."""
+    logits = tfm.forward(params, tok, cfg)
+    n = tok.shape[0]
+    ce = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]).float(),
+                         tok[:, 1:].reshape(-1), reduction="none").view(n, -1).mean(1)
+    last = logits[:, -1].float()
+    return ce, last.argmax(-1), last
+
+
+def _serve_param_shapes(cfg) -> dict:
+    D, Fd, V, L = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
+    return {"embed": (V, D), "wqkv": (L, D, 3, D), "wo": (L, D, D), "w1": (L, D, Fd),
+            "w2": (L, Fd, D), "ln1": (L, D), "ln2": (L, D), "lnf": (D,)}
+
+
+def serve_child(mode: str) -> int:
+    """Phase 20's child: one rank of the daemon-hosted serving job (see the
+    module doc).  ``mode`` is ``kill`` or ``elastic``.  Prints one
+    ``SERVE {json}`` line."""
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch import _build
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+    from zhpe_ompi_tpu_torch.core import errhandler as errh
+    from zhpe_ompi_tpu_torch.ft import recovery
+    from zhpe_ompi_tpu_torch.models import inferloop
+    from zhpe_ompi_tpu_torch.models import transformer as tfm
+    from zhpe_ompi_tpu_torch.ops import flash_attention as fa
+    from zhpe_ompi_tpu_torch.ops import fused_norm
+    from zhpe_ompi_tpu_torch.parallel.hybrid import dcn_bcast_params
+    from zhpe_ompi_tpu_torch.runtime import spc
+
+    legs = {"imports_s": time.time() - _T0}
+    on_card = SERVE_DEVICE == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t = time.time()
+    torch.zeros(1, device=SERVE_DEVICE)
+    if on_card:
+        fused_norm._lib()
+        fa._lib()
+    legs["cuda_and_kernel_load_s"] = time.time() - t
+    rejoin = os.environ.get("ZMPI_REJOIN") == "1"
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    if rejoin:
+        # a replacement (or a grown rank) holds no parameters: rank 0's
+        # arrive in remesh_fn; NaN until then
+        params = {k: torch.full(s, float("nan"), device=SERVE_DEVICE)
+                  for k, s in _serve_param_shapes(cfg).items()}
+    else:
+        params = tfm.params_from_numpy(numpy_params(cfg, SERVE_SEED), cfg,
+                                       device=SERVE_DEVICE)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    forwards, rows_run, detail = [], [0], []
+
+    def counted_forward(tok):
+        """One forward and its scores, this thread's kernel launches
+        recorded."""
+        before = _build.thread_launches()
+        scored = _serve_scores(torch, F, tfm, params, tok, cfg)
+        after = _build.thread_launches()
+        forwards.append({k: v - before.get(k, 0) for k, v in after.items()
+                         if v != before.get(k, 0)})
+        return scored
+
+    # one forward at the serving shape before joining (its lazy library
+    # and allocator set-up out of the served steps; on a replacement's NaN
+    # parameters as well)
+    t = time.time()
+    counted_forward(torch.zeros((SERVE_BURST // SERVE_RANKS, cfg.seq),
+                                dtype=torch.int64, device=SERVE_DEVICE))
+    sync()
+    legs["warmup_forward_s"] = time.time() - t
+    t = time.time()
+    ep = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    legs["host_init_s"] = time.time() - t
+    ep.set_errhandler(errh.ERRORS_RETURN)
+    seen = {}
+    ep.ft_state.add_failure_listener(
+        lambda rank, cause: seen.setdefault(rank, [time.time(), cause]))
+    out = {"rank": ep.rank, "mode": mode, "rejoin": rejoin, "legs": legs}
+
+    def infer_fn(live, state, batch):
+        rows = batch[live.rank::live.size]
+        mine = []
+        t0 = time.perf_counter()
+        if rows:
+            rows_run[0] += 1
+            if (mode == "kill" and not rejoin and ep.rank == SERVE_VICTIM
+                    and rows_run[0] == SERVE_KILL_STEP):
+                print("SERVE-KILL " + json.dumps({"t": time.time()}), flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)  # with a batch in flight
+            ce, arg, _ = counted_forward(torch.stack(rows).to(SERVE_DEVICE))
+            mine = [[c, a] for c, a in zip(ce.tolist(), arg.tolist())]
+        t1 = time.perf_counter()
+        gathered = live.allgather(mine)
+        # rows, this rank's forward and scores (ms, to the host), the
+        # allgather (ms, waiting for the slowest rank included)
+        detail.append([len(rows), (t1 - t0) * 1e3,
+                       (time.perf_counter() - t1) * 1e3])
+        return state, [gathered[i % live.size][i // live.size]
+                       for i in range(len(batch))]
+
+    pending = [rejoin]
+
+    def remesh_fn(live, state):
+        """Rank 0's parameters to every member that lacks them (a
+        replacement, a grown rank): one host-plane broadcast, or nothing
+        when every member holds them."""
+        if live.allreduce(int(pending[0]), zmpi.SUM) == 0:
+            return
+        out.setdefault("t_remesh", time.time())
+        sync()
+        t0 = time.perf_counter()
+        new = dcn_bcast_params(live, state, root=0)
+        for k in state:
+            state[k].copy_(new[k])
+        sync()
+        out["bcast_ms"] = (time.perf_counter() - t0) * 1e3
+        pending[0] = False
+
+    def respawner(victims):
+        t0 = time.time()
+        pids = recovery.daemon_respawn(victims, timeout=SERVE_REJOIN_S)
+        out["respawn_rpc"] = [t0, time.time()]
+        return pids
+
+    ses = (recovery.ElasticSession(ep, timeout=SERVE_REJOIN_S)
+           if mode == "elastic" else None)
+    loop = inferloop.FtInferLoop(ep, infer_fn=infer_fn, state=params,
+                                 batch_max=SERVE_BURST, elastic=ses,
+                                 respawner=respawner, remesh_fn=remesh_fn,
+                                 rejoin_timeout=SERVE_REJOIN_S)
+    if rejoin:
+        remesh_fn(loop.live, params)
+    step_ms, membership = [], [(0, 0)]
+    plain_step = loop.serve_step
+
+    def timed_step():
+        """One serve step timed (admit to resolve); a served step is
+        marked when the membership changed (a recovery, a resize) since
+        the last served one: it waits for the new members to catch up."""
+        t0 = time.perf_counter()
+        act = plain_step()
+        if act == "served":
+            now = (loop.recoveries, loop.resizes)
+            step_ms.append([(time.perf_counter() - t0) * 1e3,
+                            now != membership[0]])
+            membership[0] = now
+        return act
+
+    loop.serve_step = timed_step
+    if ep.rank == 0 and not rejoin:
+        # rank 0 serves on this thread (the one its warm-up forward ran
+        # on); a client thread submits the bursts and waits their tickets
+        toks = torch.from_numpy(_serve_tokens(np, cfg))
+        tickets, failed = [], []
+
+        def wait_all(got, t_sub):
+            for i, tk in got:
+                val = tk.result(SERVE_JOB_S)
+                tickets.append({"i": i, "ce": val[0], "arg": val[1],
+                                "status": tk.status, "requeues": tk.requeues,
+                                "latency_ms": (time.time() - t_sub) * 1e3})
+
+        def burst(lo, hi):
+            t_sub = time.time()
+            wait_all([(i, loop.queue.submit(toks[i])) for i in range(lo, hi)],
+                     t_sub)
+
+        def client(pre):
+            try:
+                if mode == "kill":
+                    for b in range(SERVE_REQUESTS // SERVE_BURST):
+                        burst(b * SERVE_BURST, (b + 1) * SERVE_BURST)
+                else:
+                    wait_all(*pre)
+                    deadline = time.monotonic() + SERVE_REJOIN_S
+                    while loop.resizes < 1 and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                    burst(SERVE_ELASTIC_BURST, SERVE_ELASTIC_BURST + SERVE_BURST)
+            except BaseException as e:  # noqa: BLE001 - reported in the result
+                failed.append(f"{type(e).__name__}: {e}")
+            finally:
+                loop.stop()
+
+        served0 = spc.read("infer_requests_served")
+        t_first = time.time()
+        pre = None
+        if mode == "elastic":
+            # the burst's backlog is published before the loop serves it,
+            # so the controller's policy sees it and votes
+            pre = ([(i, loop.queue.submit(toks[i]))
+                    for i in range(SERVE_ELASTIC_BURST)], time.time())
+            time.sleep(SERVE_ELASTIC_HOLD_S)
+        submitter = threading.Thread(target=client, args=(pre,),
+                                     name="serve-client")
+        submitter.start()
+        out["act"] = loop.serve()
+        submitter.join(SERVE_JOB_S)
+        out["serve_s"] = time.time() - t_first
+        out.update(tickets=tickets, client_errors=failed, served=loop.served,
+                   served_counter=spc.read("infer_requests_served") - served0,
+                   requeues=spc.read("infer_requeues"), recoveries=loop.recoveries,
+                   resizes=loop.resizes, live=loop.live.size)
+    else:
+        out["act"] = loop.serve()
+    out.update(step_ms=step_ms, detail=detail, forwards=forwards, steps=loop.steps,
+               peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0,
+               digest=_params_digest(torch, params),
+               cause=seen.get(SERVE_VICTIM), live_end=loop.live.size,
+               threads=inferloop.live_worker_threads(),
+               parked=inferloop.parked_tickets())
+    if ses is not None:
+        ses.close()
+    zmpi.host_finalize()
+    print("SERVE " + json.dumps(out), flush=True)
+    return 0
+
+
+def _serve_reference(torch, F, np, tfm, cfg):
+    """The smoke's own forward of the SERVE_REQUESTS sequences on the card,
+    in batches of SERVE_BURST: (ce, argmax, last-position logits)."""
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+
+    params = tfm.params_from_numpy(numpy_params(cfg, SERVE_SEED), cfg,
+                                   device=SERVE_DEVICE)
+    toks = torch.from_numpy(_serve_tokens(np, cfg)).to(SERVE_DEVICE)
+    ce, arg, last = [], [], []
+    with torch.no_grad():
+        for lo in range(0, SERVE_REQUESTS, SERVE_BURST):
+            c, a, lg = _serve_scores(torch, F, tfm, params, toks[lo:lo + SERVE_BURST],
+                                     cfg)
+            ce.append(c)
+            arg.append(a)
+            last.append(lg)
+    return (torch.cat(ce).tolist(), torch.cat(arg).tolist(), torch.cat(last).cpu(),
+            _params_digest(torch, params))
+
+
+def _serve_agreement(tickets, ref, n_expected, label):
+    """Every ticket served once, each value against the reference: the mean
+    CE within SERVE_CE_TOL, the argmax equal unless the reference's top two
+    logits are within SERVE_ARGMAX_TOL of each other."""
+    ref_ce, ref_arg, ref_last, _ = ref
+    idx = sorted(t["i"] for t in tickets)
+    if idx != list(range(n_expected)) or any(t["status"] != "served" for t in tickets):
+        raise SystemExit(f"serve {label}: tickets {idx} "
+                         f"{[t['status'] for t in tickets]}")
+    worst, ties = 0.0, 0
+    for t in tickets:
+        i = t["i"]
+        worst = max(worst, abs(t["ce"] - ref_ce[i]))
+        if t["arg"] != ref_arg[i]:
+            gap = float(ref_last[i, ref_arg[i]] - ref_last[i, t["arg"]])
+            if gap > SERVE_ARGMAX_TOL:
+                raise SystemExit(f"serve {label}: request {i} argmax {t['arg']} vs "
+                                 f"{ref_arg[i]} (logit gap {gap})")
+            ties += 1
+    if worst > SERVE_CE_TOL:
+        raise SystemExit(f"serve {label}: mean CE differs by {worst} "
+                         f"(tolerance {SERVE_CE_TOL})")
+    return {"ce_max_abs_err": worst, "argmax_ties": ties}
+
+
+def _serve_launch_gate(rows, label):
+    """Every forward a rank ran launched the layernorm forward 2L + 1 and
+    the flash forward L times by that thread's own tally, and nothing
+    else; every rank ran at least one forward."""
+    L = HEADLINE["n_layers"]
+    want = ({"ln_fwd": 2 * L + 1, "flash_fwd": L} if SERVE_DEVICE == "cuda"
+            else {})
+    for x in rows:
+        bad = [f for f in x["forwards"] if f != want]
+        if bad or not x["forwards"]:
+            raise SystemExit(f"serve {label}: rank {x['rank']} forwards launched "
+                             f"{bad or x['forwards']} (expected {want} each)")
+    return want
+
+
+def _serve_stats(rank0):
+    """Rank 0's served steps: the quartiles of all, and of the steady ones
+    (no membership change since the previous served step), whose median
+    gives requests/s and tokens/s."""
+    every = _quartiles([ms for ms, _ in rank0["step_ms"]])
+    q = _quartiles([ms for ms, changed in rank0["step_ms"] if not changed])
+    rps = SERVE_BURST / (q["median"] / 1e3)
+    return q, every, rps, rps * HEADLINE["seq"]
+
+
+def drive_serve(torch, np, tfm, card_line) -> dict:
+    """Phase 20: the serving loop over a daemon-hosted job (see the module
+    doc): the kill run, then the elastic grow."""
+    import torch.nn.functional as F
+
+    from zhpe_ompi_tpu_torch.models import inferloop
+
+    t_phase = time.perf_counter()
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    ref = _serve_reference(torch, F, np, tfm, cfg)
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # the kill run
+    rc, text, err, deltas, stat, session, _ = _dvm_launch(
+        SERVE_RANKS, ["--serve-child", "kill"], SERVE_MCA, metrics=True,
+        timeout=SERVE_JOB_S)
+    rows = _child_json(text, "SERVE")
+    kills = _child_json(text, "SERVE-KILL")
+    if rc != 0 or len(rows) != SERVE_RANKS or len(kills) != 1:
+        raise SystemExit(f"serve kill: rc {rc}, {len(rows)} results, {len(kills)} "
+                         f"kills\n{text[-3000:]}\n{_rank_tails(err)}")
+    r0 = next(x for x in rows if x["rank"] == 0 and not x["rejoin"])
+    surv = [x for x in rows if not x["rejoin"]]
+    repl = [x for x in rows if x["rejoin"]]
+    if not (len(repl) == 1 and repl[0]["rank"] == SERVE_VICTIM):
+        raise SystemExit(f"serve kill: replacement {repl}")
+    if r0["client_errors"]:
+        raise SystemExit(f"serve kill: rank 0's client {r0['client_errors']}")
+    agree = _serve_agreement(r0["tickets"], ref, SERVE_REQUESTS, "kill")
+    want = _serve_launch_gate(rows, "kill")
+    if not (r0["served"] == r0["served_counter"] == SERVE_REQUESTS
+            and any(t["requeues"] >= 1 for t in r0["tickets"]) and r0["requeues"] >= 1
+            and r0["recoveries"] == 1 and r0["live"] == SERVE_RANKS):
+        raise SystemExit(f"serve kill: rank 0 {dict((k, r0[k]) for k in ('served', 'served_counter', 'requeues', 'recoveries', 'live'))}")
+    if any(x["cause"] is None or x["cause"][1] != "daemon" for x in surv):
+        raise SystemExit(f"serve kill: classification {[x['cause'] for x in surv]}")
+    if deltas["dvm_fault_events"] != 1 or deltas["dvm_respawns"] != 1 \
+            or stat["pmix"] != {}:
+        raise SystemExit(f"serve kill: daemon {deltas}, store {stat['pmix']}")
+    if repl[0]["digest"] != r0["digest"] or r0["digest"] != ref[3]:
+        raise SystemExit("serve kill: the replacement's parameters are not rank 0's")
+    if any(x["threads"] or x["parked"] or x["live_end"] != SERVE_RANKS for x in rows):
+        raise SystemExit(f"serve kill: leftovers {[(x['threads'], x['parked']) for x in rows]}")
+    _no_ring_files(session)
+    t_kill = kills[0]["t"]
+    classify_ms = [(x["cause"][0] - t_kill) * 1e3 for x in surv]
+    rpc = r0["respawn_rpc"]
+    requeued = [t["latency_ms"] for t in r0["tickets"] if t["requeues"]]
+    plain = [t["latency_ms"] for t in r0["tickets"] if not t["requeues"]]
+    q, q_all, rps, tps = _serve_stats(r0)
+    kill_legs = {
+        "kill_to_classify_ms": classify_ms,
+        "agree_ms": (rpc[0] - r0["cause"][0]) * 1e3,
+        "respawn_rpc_ms": (rpc[1] - rpc[0]) * 1e3,
+        "replacement_startup_s": repl[0]["legs"],
+        "replacement_remesh_after_rpc_ms": (repl[0]["t_remesh"] - rpc[1]) * 1e3,
+        "params_bcast_ms": {"rank0": r0.get("bcast_ms"), "replacement": repl[0]["bcast_ms"]},
+        "requeued_extra_latency_ms": (_median(requeued) - _median(plain)),
+    }
+    kill_report = {
+        "step_ms": q, "step_ms_all": q_all, "requests_per_s": rps,
+        "tokens_per_s": tps, "overall_requests_per_s": SERVE_REQUESTS / r0["serve_s"],
+        "legs": kill_legs, "agreement": agree, "daemon": deltas,
+        "peak_bytes": [x["peak_bytes"] for x in rows],
+        "launches_per_forward": want, "forwards": {x["rank"]: len(x["forwards"]) for x in rows},
+        "rank0_steps": {"ms": r0["step_ms"], "rows_forward_allgather_ms": r0["detail"]},
+    }
+
+    # the elastic grow: 2 ranks of a max_size 4 job; the controller here
+    ctl_out = {}
+
+    def controller(addr, out, err):
+        from zhpe_ompi_tpu_torch.runtime import dvm as dvm_mod
+
+        cli = dvm_mod.DvmClient(addr)
+        try:
+            deadline = time.monotonic() + SERVE_JOB_S
+            while not cli.stat()["jobs"]:
+                if time.monotonic() > deadline:
+                    raise SystemExit(f"serve elastic: no job\n{err.getvalue()[-4000:]}")
+                time.sleep(0.05)
+            job = next(iter(cli.stat()["jobs"]))
+            lc = inferloop.LoadController(cli, job, policy=inferloop.QueueDepthPolicy(
+                high=SERVE_BURST // 2, low=-1, patience=1, cooldown=1 << 30,
+                max_size=SERVE_RANKS, step=SERVE_RANKS - SERVE_ELASTIC_START),
+                resize_timeout=SERVE_JOB_S)
+            while not lc.applied and time.monotonic() < deadline:
+                t_vote = time.time()
+                if lc.tick() is not None:
+                    ctl_out["t_vote"] = t_vote
+                    break
+                time.sleep(0.1)
+            ctl_out["applied"] = lc.applied
+        finally:
+            cli.close()
+
+    rc, text, err, deltas, stat, session, _ = _dvm_launch(
+        SERVE_ELASTIC_START, ["--serve-child", "elastic"], SERVE_MCA, metrics=True,
+        max_size=SERVE_RANKS, timeout=SERVE_JOB_S, controller=controller)
+    rows = _child_json(text, "SERVE")
+    if rc != 0 or len(rows) != SERVE_RANKS or not ctl_out.get("applied"):
+        raise SystemExit(f"serve elastic: rc {rc}, {len(rows)} results, controller "
+                         f"{ctl_out}\n{text[-3000:]}\n{_rank_tails(err)}")
+    e0 = next(x for x in rows if x["rank"] == 0)
+    grown = sorted(x["rank"] for x in rows if x["rejoin"])
+    if e0["client_errors"]:
+        raise SystemExit(f"serve elastic: rank 0's client {e0['client_errors']}")
+    eagree = _serve_agreement(e0["tickets"], ref, SERVE_ELASTIC_BURST + SERVE_BURST,
+                              "elastic")
+    _serve_launch_gate(rows, "elastic")
+    if not (ctl_out["applied"][0]["grown"] == grown == [2, 3] and e0["resizes"] >= 1
+            and e0["live"] == SERVE_RANKS and deltas["dvm_resizes"] == 1
+            and stat["pmix"] == {}
+            and all(x["digest"] == e0["digest"] for x in rows)
+            and all(not x["threads"] and not x["parked"] for x in rows)):
+        raise SystemExit(f"serve elastic: grown {grown}, controller {ctl_out}, rank 0 "
+                         f"resizes {e0['resizes']} live {e0['live']}, daemon {deltas}")
+    _no_ring_files(session)
+    eq, eq_all, erps, etps = _serve_stats(e0)
+    elastic_report = {
+        "step_ms": eq, "step_ms_all": eq_all, "requests_per_s": erps,
+        "tokens_per_s": etps,
+        "vote_to_adopt_ms": (e0["t_remesh"] - ctl_out["t_vote"]) * 1e3,
+        "params_bcast_ms": e0.get("bcast_ms"),
+        "grown_startup_s": [x["legs"] for x in rows if x["rejoin"]],
+        "agreement": eagree, "daemon": deltas,
+        "peak_bytes": [x["peak_bytes"] for x in rows],
+        "rank0_steps": {"ms": e0["step_ms"], "rows_forward_allgather_ms": e0["detail"]}}
+    report = {"kill": kill_report, "elastic": elastic_report,
+              "launches_per_step_and_rank": want,
+              "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"serve": report, "card": card_line}))
+    print(f"serve ({SERVE_RANKS} daemon-hosted ranks, flagship width, batches of "
+          f"{SERVE_BURST}): a steady step {q['median']} ms (q1 {q['q1']}, q3 "
+          f"{q['q3']}, n {q['n']}; every step {q_all}), {rps} requests/s, {tps} "
+          f"tokens/s; kill to classification "
+          f"{classify_ms} ms; agree {kill_legs['agree_ms']} ms, respawn RPC "
+          f"{kill_legs['respawn_rpc_ms']} ms, the replacement's imports "
+          f"{repl[0]['legs']['imports_s']} s + CUDA and kernel load "
+          f"{repl[0]['legs']['cuda_and_kernel_load_s']} s + a warm-up forward "
+          f"{repl[0]['legs']['warmup_forward_s']} s + host_init (FT_JOIN) "
+          f"{repl[0]['legs']['host_init_s']} s, parameters re-broadcast "
+          f"{repl[0]['bcast_ms']} ms; requeued tickets' extra latency "
+          f"{kill_legs['requeued_extra_latency_ms']} ms; CE max err "
+          f"{agree['ce_max_abs_err']} (tol {SERVE_CE_TOL}); elastic: a steady "
+          f"step {eq['median']} ms (every step {eq_all}), vote to adopted resize "
+          f"{elastic_report['vote_to_adopt_ms']} ms; peak bytes "
+          f"{kill_report['peak_bytes']}; phase {report['phase_s']} s on {card_line}")
+    return report
+
+
 def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
     """Phase 5: the MPI entry point, the monitored train step, the ULFM
     methods on CUDA tensors, the device probe, the bench, finalize."""
@@ -3108,6 +3889,29 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _take_widths()
         return hybrid_child()
+    if args == ["--ft-dvm-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return ft_dvm_child()
+    if len(args) == 2 and args[0] == "--serve-child" and args[1] in ("kill", "elastic"):
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        return serve_child(args[1])
+    if args == ["--serve"]:
+        # phase 20 alone, after the kernel build
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        import numpy as np
+
+        from zhpe_ompi_tpu_torch import _build
+        from zhpe_ompi_tpu_torch.models import transformer as tfm
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card_line = _card_line()
+        print(f"card: {card_line}")
+        print(f"kernel build: per source {_build.build()}")
+        drive_serve(torch, np, tfm, card_line)
+        print(card_line)
+        return 0
     if args == ["--hybrid"]:
         # phase 19 alone, after the kernel build
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3137,6 +3941,7 @@ def main() -> int:
         print(f"kernel build: per source {_build.build()}")
         drive_ft(torch, np, tfm, fused_norm, fa, card_line)
         drive_ft_processes(torch, card_line)
+        drive_ft_dvm(torch, card_line)
         print(card_line)
         return 0
     if args == ["--host-plane"]:
@@ -3154,7 +3959,8 @@ def main() -> int:
     if args and (args[0] != "--wrapper-host-us" or len(args) != 2):
         print("usage: chip_smoke.py [--bench-after | --wrapper-host-us PORT_ROOT "
               "| --compare-host-us OTHER_ROOT [PAIRS] | --host-plane "
-              "| --host-moe-child | --ft | --ft-child | --hybrid | --hybrid-child]",
+              "| --host-moe-child | --ft | --ft-child | --ft-dvm-child | --hybrid "
+              "| --hybrid-child | --serve | --serve-child kill|elastic]",
               file=sys.stderr)
         return 2
     if args:
@@ -3262,7 +4068,12 @@ def main() -> int:
     host_moe = drive_host_moe_both(torch, card_line)
     ft_launches, ft = drive_ft(torch, np, tfm, fused_norm, fa, card_line)
     ft_processes = drive_ft_processes(torch, card_line)
+    ft_dvm = drive_ft_dvm(torch, card_line)
     hybrid = drive_hybrid(torch, card_line)
+    serve = drive_serve(torch, np, tfm, card_line)
+    serve_launches = {"layernorm_fwd": serve["launches_per_step_and_rank"]["ln_fwd"],
+                      "flash_attention_fwd":
+                          serve["launches_per_step_and_rank"]["flash_fwd"]}
     for k in kernels:
         # ``launches``: per training step; the other paths beside it
         k["launches"] = launches[k["name"]]
@@ -3274,7 +4085,8 @@ def main() -> int:
             "long_context": lc_launches[k["name"]],
             "adam": adam_launches[k["name"]], "ft": ft_launches[k["name"]],
             "hybrid": hybrid["launches_per_step"]["hybrid"][k["name"]],
-            "zero": hybrid["launches_per_step"]["zero"][k["name"]]}
+            "zero": hybrid["launches_per_step"]["zero"][k["name"]],
+            "serve": serve_launches.get(k["name"], 0)}
     steps = {"train": steady, "remat": remat_steady,
              **{label: sp[label][1] for label in sp}, "adam": adam_steady}
     print(json.dumps({"steps": steps, "card": card_line}))
@@ -3287,7 +4099,8 @@ def main() -> int:
                       "checkpoint": ckpt, "adam_vs_plain": adam_cmp,
                       "moe_pipeline": moe_pipe, "device_plane": device_plane,
                       "host_plane": host_plane, "host_moe": host_moe,
-                      "ft": ft, "ft_processes": ft_processes, "hybrid": hybrid,
+                      "ft": ft, "ft_processes": ft_processes, "ft_dvm": ft_dvm,
+                      "hybrid": hybrid, "serve": serve,
                       "smoke_s": time.perf_counter() - t_start}))
     print(f"smoke total: {time.perf_counter() - t_start} s")
     print(card_line)

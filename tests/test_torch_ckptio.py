@@ -17,8 +17,8 @@ loop), restore placements, and bfloat16 leaves beside the namesake's
 
 Left out: ``TestRollbackLegInstrumentation::test_mttr_legs_name_the_rollback``
 (the namesake's own run of it fails in the repo's test runs; ROADMAP queue
-C item 7) and ``TestCkptCrashDrillDvm`` (``tests/test_ckptio.py:663``: real
-DVM processes, which wait for ``runtime/dvm.py``, ROADMAP queue A).
+C item 7).  ``TestCkptCrashDrillDvm``'s counterpart runs port rank
+processes under the port's daemon, marked ``slow`` as the namesake's is.
 """
 
 import threading
@@ -594,3 +594,140 @@ def test_restore_places_leaves_by_prefix_tree(tmp_path):
     with pytest.raises(terrors.ArgError, match="dtype"):
         ck.save(2, {"s": np.asarray(["text"])}, blocking=True)
     assert tulfm.live_detectors() == []
+
+
+# ---------------------------------- the real-process crash drill (slow)
+
+
+_DVM_CKPT_DRILL_PROG = '''
+import os, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import zhpe_ompi_tpu_torch as zmpi
+from zhpe_ompi_tpu_torch.core import errhandler as errh
+from zhpe_ompi_tpu_torch.ft import inject, recovery
+from zhpe_ompi_tpu_torch.ft.inject import FaultPlan
+from zhpe_ompi_tpu_torch.io import ckptio
+from zhpe_ompi_tpu_torch.io.ckptio import CollectiveCheckpointer
+from zhpe_ompi_tpu_torch.models.ftloop import FtTrainLoop
+from zhpe_ompi_tpu_torch.runtime import flightrec, spc
+
+DIM = 256
+STEPS = 6
+SEAM = os.environ.get("TEST_CKPT_SEAM", "")
+VICTIM = int(os.environ.get("TEST_CKPT_VICTIM", "-1"))
+AFTER = int(os.environ.get("TEST_CKPT_AFTER", "1"))
+CKPT_DIR = os.environ["TEST_CKPT"]
+
+proc = zmpi.host_init()
+proc.set_errhandler(errh.ERRORS_RETURN)
+flightrec.arm()
+
+rng = np.random.default_rng(7)  # same seed: replicated SPMD state
+target = torch.from_numpy(rng.normal(size=DIM).astype(np.float32))
+first_life = os.environ.get("ZMPI_REJOIN") != "1"
+
+
+def step_fn(ep, state, i):
+    w = state["w"]
+    grad = (2.0 / w.numel()) * (w - target)
+    loss = float(((w - target) ** 2).mean())
+    # one collective per step: survivors discover faults typed here
+    total = ep.allreduce(torch.tensor(loss, dtype=torch.float64), zmpi.SUM)
+    return {{"w": w - 0.1 * grad}}, float(total) / ep.size
+
+
+# slow the aggregator's stream (well under the deadline) so checkpoint
+# drains overlap the next training step
+if proc.rank == 0:
+    def _slow(seam, rank, **info):
+        if seam == "write":
+            time.sleep(0.05)
+    ckptio.install_fault_hook(_slow)
+
+if SEAM and proc.rank == VICTIM and first_life:
+    # first incarnation only: the replacement must not re-kill itself
+    plan = FaultPlan(seed=11).ckpt_fault(VICTIM, SEAM, after=AFTER,
+                                         action="kill9")
+    plan.arm_ckpt(proc.rank, ep=proc, state=proc.ft_state).__enter__()
+
+ck = CollectiveCheckpointer(CKPT_DIR, keep=20, check_quiescent=False)
+loop = FtTrainLoop(proc, step_fn=step_fn,
+                   state={{"w": torch.zeros(DIM)}},
+                   checkpointer=ck, ckpt_every=1,
+                   respawner=recovery.daemon_respawn,
+                   shardings_fn=lambda ep: "cpu")
+state, losses = loop.run(STEPS)
+window = flightrec.window()
+restores = [e for e in window if e["type"] == flightrec.CKPT_RESTORE]
+flightrec.disarm()
+print(f"CKPT-OK rank={{proc.rank}} size={{proc.size}} "
+      f"recoveries={{loop.recoveries}} steps={{len(losses)}} "
+      f"final={{losses[-1]:.6f}} "
+      f"overlapped={{spc.read('ckpt_async_overlapped')}} "
+      f"restores={{len(restores)}}", flush=True)
+zmpi.host_finalize()
+'''
+
+
+def _ckpt_drill(tmp_path, seam, victim=1):
+    """The drill's 4 rank processes under the port's daemon; returns the
+    ranks' CKPT-OK rows."""
+    import io
+    import os
+    import re
+
+    from zhpe_ompi_tpu_torch.runtime import dvm as tdvm
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tag = seam or "ref"
+    prog = tmp_path / f"ckpt_drill_{tag}.py"
+    prog.write_text(_DVM_CKPT_DRILL_PROG.format(repo=repo))
+    env = {"TEST_CKPT": str(tmp_path / f"ckpt_{tag}"), "TEST_CKPT_SEAM": seam,
+           "TEST_CKPT_VICTIM": str(victim) if seam else "-1",
+           "TEST_CKPT_AFTER": "1"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    d = tdvm.Dvm()
+    try:
+        cli = tdvm.DvmClient(d.address)
+        out, err = io.StringIO(), io.StringIO()
+        rc = cli.launch(4, [str(prog)], ft=True, timeout=240.0,
+                        mca=[("ft_detector_period", "0.2"),
+                             ("ft_detector_timeout", "5.0"),
+                             ("flightrec_capacity", "16384")],
+                        stdout=out, stderr=err)
+        assert rc == 0, (out.getvalue(), err.getvalue())
+        cli.stop()
+        cli.close()
+    finally:
+        d.stop()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return re.findall(r"CKPT-OK rank=(\d+) size=(\d+) recoveries=(\d+) "
+                      r"steps=(\d+) final=([\d.]+) overlapped=(\d+) "
+                      r"restores=(\d+)", out.getvalue())
+
+
+@pytest.mark.slow
+def test_kill9_mid_gather_recovers_and_matches(tmp_path):
+    """TestCkptCrashDrillDvm's counterpart: 4 port rank processes under
+    the port's daemon train with async collective checkpoints; kill -9 of
+    rank 1 at the gather seam (first incarnation only): the survivors
+    shrink, roll back from the newest complete step, the daemon respawns
+    the rank, and the run ends at full size with the fault-free run's
+    losses, rank for rank."""
+    ref = {int(r[0]): float(r[4]) for r in _ckpt_drill(tmp_path, "")}
+    assert sorted(ref) == [0, 1, 2, 3]
+    rows = {int(r[0]): r for r in _ckpt_drill(tmp_path, "gather")}
+    assert sorted(rows) == [0, 1, 2, 3], rows
+    for rank, (_, size, recov, steps, final, _, restores) in rows.items():
+        assert int(size) == 4 and int(steps) == 6
+        assert abs(float(final) - ref[rank]) < 1e-5
+        assert int(restores) >= 1
+        if rank != 1:
+            assert int(recov) >= 1

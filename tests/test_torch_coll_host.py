@@ -33,7 +33,6 @@ from zhpe_ompi_tpu.pt2pt.universe import LocalUniverse as JUniverse
 from zhpe_ompi_tpu_torch import ops as tops
 from zhpe_ompi_tpu_torch.coll import host as thost
 from zhpe_ompi_tpu_torch.coll import inter as tinter
-from zhpe_ompi_tpu_torch.core import errors
 from zhpe_ompi_tpu_torch.mca import var as tvar
 from zhpe_ompi_tpu_torch.pt2pt.universe import LocalUniverse as TUniverse
 
@@ -308,11 +307,45 @@ def test_topology_key_and_store_rung(tmp_path, monkeypatch):
         assert than.topology_key(Wire()) == (3, 3, 1)
         with _vars(tmp_path, coll_tuned_topology="2:2:2"):
             assert than.topology_key(Wire()) == (2, 2, 2)
-        monkeypatch.setenv("ZMPI_PMIX", "127.0.0.1:1/job")
-        with pytest.raises(errors.UnsupportedError, match="runtime/pmix.py"):
-            uni.contexts[0].alltoall([0] * 4)
     finally:
         uni.close()
+    # the store rung under ZMPI_PMIX: a table published into a PMIx store
+    # routes the host plane's allreduce in both packages (a flat algorithm
+    # named by a rule; its answer unchanged), and an unreachable store
+    # degrades to the builtin decision without raising
+    from zhpe_ompi_tpu.coll import ztable as jztable
+    from zhpe_ompi_tpu_torch.coll import ztable as tztable
+    from zhpe_ompi_tpu_torch.runtime import pmix as tpmix
+
+    def routed(U, ops):
+        uni = U(4)
+        try:
+            return uni.run(lambda c: (c.allreduce(np.arange(4) * (c.rank + 1),
+                                                  ops.SUM).tolist(),
+                                      thost._rule_alg(c, "allreduce")
+                                      if U is TUniverse else None))
+        finally:
+            if hasattr(uni, "close"):
+                uni.close()
+
+    srv = tpmix.PmixServer()
+    try:
+        tpmix.publish_tuned_table(srv.store, "allreduce 0 0 ring\n")
+        for env, want in ((f"127.0.0.1:{srv.address[1]}/job", "ring"),
+                          ("127.0.0.1:1/job", None)):
+            monkeypatch.setenv("ZMPI_PMIX", env)
+            for zt in (jztable, tztable):
+                zt.invalidate_cache()
+            port = routed(TUniverse, tops)
+            ref = routed(JUniverse, jops)
+            assert [p[0] for p in port] == [r[0] for r in ref] == \
+                [[0, 10, 20, 30]] * 4
+            assert {p[1] for p in port} == {want}, (env, port)
+        srv.store.destroy_ns(tpmix.ZTUNE_NS)
+    finally:
+        srv.close()
+        for zt in (jztable, tztable):
+            zt.invalidate_cache()
 
 
 class _Bridge(tinter.InterCollectives):

@@ -26,6 +26,10 @@ seq 32, f32) on four thread ranks of an ft ``LocalUniverse`` on the CPU:
 - the JAX package's ``FtTrainLoop`` under the same plans records the same
   recoveries, rollback step and loss-history lengths.
 
+``TestDeviceFaultTrainRecoveryDvm``'s counterpart runs 3 port rank
+processes under the port's daemon (``runtime/dvm.py``), the wedged one
+respawned by it; ``slow``, as the namesake's is.
+
 An autouse fixture checks after each test that no port detector,
 prober, watchdog or respawn thread is alive, that no probe child is
 orphaned and that the port's false-positive count did not move.
@@ -1070,3 +1074,130 @@ def test_ftloop_jax_package_records_the_same_recoveries(ftloop_runs, fault):
 
     assert discrete(ftloop_runs[("port", fault)]) == \
         discrete(ftloop_runs[("jax", fault)])
+
+
+# ------------------------------ the real-process DVM drill (slow) ----------
+
+
+_DVM_DEVICE_DRILL_PROG = '''
+import os, sys, time
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import zhpe_ompi_tpu_torch as zmpi
+from zhpe_ompi_tpu_torch.core import errhandler as errh
+from zhpe_ompi_tpu_torch.ft import recovery
+from zhpe_ompi_tpu_torch.ft.inject import FaultPlan
+from zhpe_ompi_tpu_torch.models.ftloop import FtTrainLoop
+from zhpe_ompi_tpu_torch.parallel import mesh as mesh_mod
+from zhpe_ompi_tpu_torch.runtime.checkpoint import Checkpointer
+
+DIM = 8
+STEPS = 6
+WEDGE_RANK = int(os.environ.get("TEST_WEDGE_RANK", "-1"))
+
+proc = zmpi.host_init()
+proc.set_errhandler(errh.ERRORS_RETURN)
+rng = np.random.default_rng(100 + proc.rank)
+target = torch.from_numpy(rng.normal(size=DIM).astype(np.float32))
+observed = {{}}
+
+
+def step_fn(ep, state, i):
+    w = torch.as_tensor(state["w"])  # a restored snapshot holds arrays
+    loss = float(((w - target) ** 2).mean())
+    grad = (2.0 / w.numel()) * (w - target)
+    total = ep.allreduce(grad, zmpi.SUM)
+    return {{"w": w - 0.1 * total / ep.size}}, loss
+
+
+def remesh_fn(ep, state):
+    # where the agreed cause is known: sample it for the gate
+    if WEDGE_RANK >= 0 and proc.rank != WEDGE_RANK:
+        c = proc.ft_state.cause_of(WEDGE_RANK)
+        if c:
+            observed.setdefault("cause", c)
+
+
+plan = FaultPlan(seed=3)
+if WEDGE_RANK >= 0 and os.environ.get("ZMPI_REJOIN") != "1":
+    # the first incarnation only: a replacement re-arming the schedule
+    # would wedge itself at the same step forever
+    plan.wedge_device(WEDGE_RANK, after_steps=2)
+# hold=True: the victim never unwinds (healthy heartbeats, hung device)
+# until the recovery's respawn SIGKILLs it
+wedge = plan.arm_device(proc.rank, state=proc.ft_state, hold=True)
+probe = mesh_mod.DeviceLivenessProbe(
+    state=proc.ft_state, rank=proc.rank, enable=True, device="cpu",
+    timeout=float(os.environ.get("TEST_PROBE_TIMEOUT", "40")),
+    deadline=float(os.environ.get("TEST_PROBE_DEADLINE", "8")))
+loop = FtTrainLoop(
+    proc, step_fn=step_fn, state={{"w": torch.zeros(DIM)}},
+    checkpointer=Checkpointer(
+        os.path.join(os.environ["TEST_CKPT"], f"r{{proc.rank}}"),
+        keep=20, check_quiescent=False),
+    ckpt_every=1, probe=probe, wedge=wedge,
+    respawner=recovery.daemon_respawn, remesh_fn=remesh_fn)
+state, losses = loop.run(STEPS)
+print(f"TRAIN-OK rank={{proc.rank}} size={{proc.size}} "
+      f"recoveries={{loop.recoveries}} steps={{len(losses)}} "
+      f"final={{losses[-1]:.6f}} cause={{observed.get('cause', '-')}}",
+      flush=True)
+zmpi.host_finalize()
+'''
+
+
+def _dvm_device_drill(tmp_path, wedge):
+    import io
+    import re
+
+    from zhpe_ompi_tpu_torch.runtime import dvm as tdvm
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tag = "wedge" if wedge else "ref"
+    prog = tmp_path / f"drill_{tag}.py"
+    prog.write_text(_DVM_DEVICE_DRILL_PROG.format(repo=repo))
+    env = {"TEST_CKPT": str(tmp_path / f"ckpt_{tag}"),
+           "TEST_WEDGE_RANK": "1" if wedge else "-1",
+           "TEST_PROBE_DEADLINE": "8", "TEST_PROBE_TIMEOUT": "40"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    d = tdvm.Dvm()
+    try:
+        cli = tdvm.DvmClient(d.address)
+        out, err = io.StringIO(), io.StringIO()
+        rc = cli.launch(3, [str(prog)], ft=True, timeout=240.0,
+                        mca=[("ft_detector_period", "2.0"),
+                             ("ft_detector_timeout", "120.0")],
+                        stdout=out, stderr=err)
+        assert rc == 0, (out.getvalue(), err.getvalue())
+        cli.stop()
+        cli.close()
+    finally:
+        d.stop()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return re.findall(r"TRAIN-OK rank=(\d+) size=(\d+) recoveries=(\d+) "
+                      r"steps=(\d+) final=([\d.]+) cause=(\S+)",
+                      out.getvalue())
+
+
+@pytest.mark.slow
+def test_train_loop_survives_wedged_participant_under_the_daemon(tmp_path):
+    """TestDeviceFaultTrainRecoveryDvm's counterpart: 3 port rank
+    processes under the port's daemon train; rank 1's device wedges at
+    step 2 and never unwinds: its probe classifies ``cause="device"``,
+    the survivors shrink, roll back, the daemon respawns the rank, and
+    every rank finishes at full size with the fault-free run's losses."""
+    ref = {int(r[0]): float(r[4]) for r in _dvm_device_drill(tmp_path, False)}
+    assert sorted(ref) == [0, 1, 2]
+    rows = {int(r[0]): r for r in _dvm_device_drill(tmp_path, True)}
+    assert sorted(rows) == [0, 1, 2], rows
+    for rank, (_, size, recov, steps, final, cause) in rows.items():
+        assert int(size) == 3
+        assert abs(float(final) - ref[rank]) < 1e-5
+        if rank != 1:
+            assert int(recov) == 1 and cause == "device"

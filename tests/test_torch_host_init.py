@@ -11,9 +11,14 @@
   under ``ZMPI_COORD_EXTERNAL``), so no port number is guessed.
 - In process, a one-rank job: ``host_init`` is idempotent, ``host_world``
   returns its proc and ``host_finalize`` closes it.
-- A bad contract raises ``NotInitializedError`` in both packages;
-  ``ZMPI_PMIX`` raises ``UnsupportedError`` naming ``runtime/pmix.py``;
-  ``ZMPI_FT=1`` builds an ft endpoint (one rank agrees and shrinks).
+- A bad contract raises ``NotInitializedError`` in both packages, a
+  malformed ``ZMPI_PMIX`` too, with the namesake's message; a well-formed
+  one modexes a one-rank job through a PMIx store (``runtime/pmix.py``)
+  and warms the tuned-table cache from it; ``ZMPI_FT=1`` builds an ft
+  endpoint (one rank agrees and shrinks).  The daemon-hosted paths
+  (``ZMPI_LIFELINE``, ``ZMPI_REJOIN``, ``ZMPI_ELASTIC_LIVE``) run in real
+  rank processes in ``tests/test_torch_dvm_tree.py`` and
+  ``tests/test_torch_ulfm.py``.
 """
 
 import json
@@ -161,15 +166,57 @@ def test_bad_contract_raises_not_initialized_in_both(monkeypatch, env):
 
 
 def test_pmix_and_ft_wait_for_their_modules(monkeypatch):
+    """``ZMPI_PMIX=host:port/namespace``: a one-rank job modexes through
+    the store (``runtime/pmix.py``: one card put, one get) and warms the
+    tuned-table cache from it; a malformed URI raises the namesake's
+    ``NotInitializedError``.  ``ZMPI_FT=1`` builds an ft endpoint."""
+    from zhpe_ompi_tpu_torch.coll import ztable
+    from zhpe_ompi_tpu_torch.runtime import pmix as tpmix
+    from zhpe_ompi_tpu_torch.runtime import spc
+
+    for k in ("ZMPI_COORD_HOST", "ZMPI_COORD_PORT", "ZMPI_LIFELINE",
+              "ZMPI_REJOIN", "ZMPI_ELASTIC_LIVE", "ZMPI_METRICS",
+              "ZMPI_TRACE"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("ZMPI_RANK", "0")
     monkeypatch.setenv("ZMPI_SIZE", "1")
-    monkeypatch.setenv("ZMPI_PMIX", "127.0.0.1:1/job")
-    with pytest.raises(errors.UnsupportedError, match="runtime/pmix.py"):
-        zmpi.host_init()
+    for bad in ("127.0.0.1:1", "nohost/job"):
+        monkeypatch.setenv("ZMPI_PMIX", bad)
+        with pytest.raises(errors.NotInitializedError) as port:
+            zmpi.host_init()
+        with pytest.raises(jerrors.NotInitializedError) as ref:
+            jinit.host_init()
+        assert str(port.value) == str(ref.value)
+        assert "malformed ZMPI_PMIX" in str(port.value)
     assert zmpi.host_world() is None
-    # ft/ulfm.py is ported: ZMPI_FT=1 builds an ft endpoint
+    srv = tpmix.PmixServer()
+    try:
+        tpmix.publish_tuned_table(srv.store, "allreduce 0 0 ring\n")
+        monkeypatch.setenv("ZMPI_PMIX", f"127.0.0.1:{srv.address[1]}/job")
+        monkeypatch.setenv("ZMPI_FT", "1")
+        ztable.invalidate_cache()
+        puts0, gets0 = spc.read("pmix_puts"), spc.read("pmix_gets")
+        fetches0 = spc.read("tuned_table_store_fetches")
+        p = zmpi.host_init(timeout=10.0)
+        try:
+            assert zmpi.host_init() is p and (p.rank, p.size) == (0, 1)
+            assert p.ft_state is not None and p.ft_state.live() == [0]
+            assert p.agree(True) is True and p.shrink().size == 1
+            assert spc.read("pmix_puts") - puts0 == 1
+            assert spc.read("pmix_gets") - gets0 == 1
+            assert srv.store.get("job", "card:0")[:2] == list(p.address)
+            assert spc.read("tuned_table_store_fetches") - fetches0 == 1
+            assert ztable.resolve_rule("allreduce", 4, 64) == "ring"
+        finally:
+            zmpi.host_finalize()
+            ztable.invalidate_cache()
+        assert srv.store.destroy_ns("job")
+        srv.store.destroy_ns(tpmix.ZTUNE_NS)
+    finally:
+        srv.close()
+    # ft/ulfm.py through the coordinator contract: ZMPI_FT=1 builds an
+    # ft endpoint
     monkeypatch.delenv("ZMPI_PMIX")
-    monkeypatch.setenv("ZMPI_FT", "1")
     monkeypatch.setenv("ZMPI_COORD_HOST", "127.0.0.1")
     monkeypatch.setenv("ZMPI_COORD_PORT", "0")
     p = zmpi.host_init(timeout=10.0)

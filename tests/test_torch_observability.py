@@ -93,11 +93,37 @@ def test_every_recorded_counter_is_documented():
 
 
 def test_metrics_publisher_waits_for_pmix():
-    from zhpe_ompi_tpu_torch.core import errors
+    """The publisher (the PMIx store is ported): one port and one JAX
+    publisher into one store ship snapshots of the same shape — the
+    start-of-life and the final one, every documented counter zero-filled
+    — and stop leaves no publisher thread and its flight-recorder arm
+    released."""
+    from zhpe_ompi_tpu_torch.runtime import pmix as tpmix
 
-    with pytest.raises(errors.UnsupportedError, match="runtime/pmix.py"):
-        tspc.MetricsPublisher(("127.0.0.1", 1), "job", 0)
-    assert tspc.live_publisher_threads() == []
+    srv = tpmix.PmixServer()
+    try:
+        got = {}
+        for name, spc in (("port", tspc), ("jax", jspc)):
+            srv.store.ensure_ns(name, 1)
+            pub = spc.MetricsPublisher(srv.address, name, 0)
+            pub.start()
+            deadline = time.monotonic() + 10.0
+            while not srv.store.lookup(name, "metrics:"):
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+            pub.stop()
+            got[name] = srv.store.lookup(name, "metrics:")[f"metrics:{name}:0"]
+            assert spc.live_publisher_threads() == []
+            assert not got[name]["counters"].keys() ^ (
+                spc.documented_counters() | set(spc.snapshot()))
+            srv.store.destroy_ns(name)
+        assert got["port"].keys() == got["jax"].keys()
+        assert got["port"]["final"] is True and got["port"]["seq"] >= 1
+        assert got["port"]["interval_ms"] == got["jax"]["interval_ms"] == 1000
+        assert got["port"]["counters"]["spc_publishes"] >= 2
+        assert tfr.active is False
+    finally:
+        srv.close()
 
 
 def _peruse_sequence(peruse):

@@ -11,9 +11,10 @@ checkpoint seams (``ft/inject.py``) held against the JAX package's.
   fault tolerance.
 - ``mttr_legs`` over the same flight-recorder windows gives the same
   legs in both packages.
-- What waits for the runtime half raises ``UnsupportedError`` naming
-  its module: ``daemon_respawn`` (``runtime/dvm.py``) and
-  ``ElasticSession`` (``runtime/pmix.py``).  The checkpoint seams
+- The runtime half: ``daemon_respawn`` and ``ElasticSession`` keep the
+  namesake's error contract, and ``ElasticSession`` reads resize events
+  from a store as the namesake's does (the real-process respawns are in
+  ``tests/test_torch_ulfm.py``).  The checkpoint seams
   ``ckpt_fault``, ``arm_ckpt``, ``CkptSeamContext`` and
   ``corrupt_ckpt_shard`` (``io/ckptio.py``) build the namesake's
   schedules.
@@ -213,15 +214,59 @@ def test_mttr_legs_match_on_the_same_window():
     assert legs[1]["legs_ms"] == {"respawn": 3.0, "grow": 4.0}
 
 
-def test_what_waits_for_the_runtime_half_raises_naming_it(tmp_path):
-    with pytest.raises(terrors.UnsupportedError, match="runtime/dvm.py"):
-        trecovery.daemon_respawn([1], dvm=("127.0.0.1", 1), job="j")
+def test_what_waits_for_the_runtime_half_raises_naming_it(tmp_path, monkeypatch):
+    """The runtime half is ported: ``daemon_respawn`` and
+    ``ElasticSession`` keep the namesake's error contract (the same types
+    and messages) without a daemon, and ``ElasticSession`` reads the
+    daemon's ``resize:<seq>`` events from a store as the namesake's does
+    (one live rank's window, probing only the next dense seq)."""
+    from zhpe_ompi_tpu.core import errors as jerrors
+    from zhpe_ompi_tpu.runtime import pmix as jpmix
+    from zhpe_ompi_tpu_torch.runtime import pmix as tpmix
 
-    class Ep:
-        ft_state = tulfm.FailureState(2)
+    for k in ("ZMPI_DVM", "ZMPI_JOB", "ZMPI_PMIX", "ZMPI_ELASTIC_SEEN"):
+        monkeypatch.delenv(k, raising=False)
+    for call in (lambda rec: rec.daemon_respawn([1]),
+                 lambda rec: rec.daemon_respawn([1], dvm=("127.0.0.1", 1))):
+        with pytest.raises(terrors.UnsupportedError) as port:
+            call(trecovery)
+        with pytest.raises(jerrors.UnsupportedError) as ref:
+            call(jrecovery)
+        assert str(port.value) == str(ref.value)
 
-    with pytest.raises(terrors.UnsupportedError, match="runtime/pmix.py"):
-        trecovery.ElasticSession(Ep())
+    def events(recovery, ulfm, pmix, errors):
+        class Ep:
+            rank, size = 0, 1
+            ft_state = ulfm.FailureState(1)
+
+            def shrink(self):
+                return self
+
+        msgs = []
+        for kw in ({}, {"store": object()}):
+            with pytest.raises((errors.UnsupportedError, errors.ArgError)) as e:
+                recovery.ElasticSession(Ep(), **kw)
+            msgs.append((type(e.value).__name__, str(e.value)))
+        store = pmix.PmixStore()
+        store.ensure_ns("job", 1)
+        ses = recovery.ElasticSession(Ep(), store=store, ns="job", seen=0)
+        seen = [ses.event()]
+        for seq, kind in ((2, "grow"), (1, "shrink"), (10, "grow")):
+            store.put("job", -1, f"resize:{seq}",
+                      {"seq": seq, "kind": kind, "ranks": [3],
+                       "live": [0], "generation": seq})
+            store.commit("job", -1)
+            seen.append(ses.event())
+        ses.close()
+        store.close()
+        return msgs, seen
+
+    got = events(trecovery, tulfm, tpmix, terrors)
+    assert got == events(jrecovery, julfm, jpmix, jerrors)
+    assert got[1] == [None, None, {"seq": 1, "kind": "shrink", "ranks": [3],
+                                   "live": [0], "generation": 1},
+                      {"seq": 1, "kind": "shrink", "ranks": [3], "live": [0],
+                       "generation": 1}]
     # the checkpoint seams no longer wait (io/ckptio.py is ported; its
     # drills are in tests/test_torch_ckptio.py): the schedules they build
     # are the namesake's

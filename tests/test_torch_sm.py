@@ -180,10 +180,86 @@ def test_leader_class_geometry_and_table_sizes(port_vars, tmp_path, monkeypatch)
     assert tsm._class_geometry(tsm.CLASS_LEADER) == (8, 1024)
     tvar.set_var("sm_leader_ring_bytes", 4096)  # explicit: outranks the table
     assert tsm._class_geometry(tsm.CLASS_LEADER) == (4, 1024)
-    monkeypatch.setenv("ZMPI_PMIX", "127.0.0.1:1/job")
-    for call in (ztable.active, lambda: ztable.table_geometry("sm_ring_bytes")):
-        with pytest.raises(errors.UnsupportedError, match="runtime/pmix.py"):
-            call()
+    # under ZMPI_PMIX the store-served table's geometry comes first (the
+    # namesake's rung order), while the var holds its default
+    from zhpe_ompi_tpu_torch.runtime import pmix as tpmix
+
+    srv = tpmix.PmixServer()
+    try:
+        tpmix.publish_tuned_table(
+            srv.store, "[topology * * *]\ngeometry sm_leader_ring_bytes 16384\n")
+        monkeypatch.setenv("ZMPI_PMIX", f"127.0.0.1:{srv.address[1]}/job")
+        ztable.invalidate_cache()
+        tvar.registry.lookup("sm_leader_ring_bytes")._source = tvar.VarSource.DEFAULT
+        assert ztable.active()
+        assert ztable.table_geometry("sm_leader_ring_bytes") == 16384
+        assert ztable.table_geometry("sm_ring_bytes") is None
+        assert tsm._class_geometry(tsm.CLASS_LEADER) == (16, 1024)
+        srv.store.destroy_ns(tpmix.ZTUNE_NS)
+    finally:
+        srv.close()
+        ztable.invalidate_cache()
+
+
+_TAIL_WRITER = """
+import mmap, os, sys
+from zhpe_ompi_tpu_torch.pt2pt import sm
+fd = os.open(sys.argv[1], os.O_RDWR)
+mm = mmap.mmap(fd, 4096)
+os.close(fd)
+mv = memoryview(mm)
+words = sm._ring_words(mv)
+print("ready", flush=True)
+for i in range(1, int(sys.argv[2])):
+    words[sm._TAIL_WORD] = i
+words.release()
+mv.release()
+mm.close()
+"""
+
+
+def test_ring_words_are_never_read_torn_across_processes(tmp_path):
+    """A ring's tail, written by its consumer process and read by its
+    producer, must never be read as a value it never held.  struct's
+    ``pack_into`` zero-fills the word before writing it (and
+    ``unpack_from`` assembles it byte by byte), so a producer racing the
+    consumer could read a tail of 0 and find a ring with proven free
+    slots "full"; the port loads and stores the head and tail words
+    whole.  A writer process counts the tail up while this process reads
+    it: the reads never go down."""
+    import mmap
+    import subprocess
+    import sys
+
+    path = tmp_path / "ring"
+    path.write_bytes(b"\0" * 4096)
+    fd = os.open(path, os.O_RDWR)
+    mm = mmap.mmap(fd, 4096)
+    os.close(fd)
+    mv = memoryview(mm)
+    words = tsm._ring_words(mv)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    writer = subprocess.Popen(
+        [sys.executable, "-c", _TAIL_WRITER, str(path), "2000000"],
+        env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE,
+        text=True)
+    try:
+        assert writer.stdout.readline().strip() == "ready"
+        last, reads, drops = 0, 0, 0
+        while writer.poll() is None:
+            v = words[tsm._TAIL_WORD]
+            reads += 1
+            drops += v < last
+            last = max(last, v)
+        assert writer.wait(30) == 0
+    finally:
+        if writer.poll() is None:
+            writer.kill()
+        words.release()
+        mv.release()
+        mm.close()
+    assert reads > 1000 and drops == 0, (reads, drops)
+    assert last == 1999999
 
 
 def test_stale_segment_unlinked_at_create():

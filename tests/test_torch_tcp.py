@@ -6,9 +6,13 @@ and its wire compatibility with the JAX package's.
   messages of numpy arrays and CPU tensors, deferred isends, per-source
   non-overtaking order across eager and rendezvous sizes, probe, the
   barrier and host collectives over the wire (the ring allreduce too).
-- What waits: ``pmix=``, ``rejoin=True``, elastic ``live_ranks``,
-  ``metrics`` and ``trace`` name ``runtime/pmix.py``; a proc without
-  ``ft=True`` refuses the ULFM surface.
+- The store-served keywords (``pmix=``, ``rejoin=True``, elastic
+  ``live_ranks``, ``metrics``, ``trace``) keep the namesake's error
+  contract; a 4-rank universe modexes through a PMIx store (of either
+  package), starts an elastic job on a proper subset of its slots, and a
+  killed rank's replacement rejoins through the store at the recovery
+  window's generation.  A proc without ``ft=True`` refuses the ULFM
+  surface.
   A 2-rank ``TcpProc`` at the ``sm`` var's default (1) builds its
   shared-memory segment and advertises one host (``pt2pt/sm.py``, held
   in ``tests/test_torch_sm.py``).
@@ -215,20 +219,31 @@ def test_device_tensors_are_refused_before_any_frame():
 
 
 def test_what_waits_raises_naming_its_module():
-    # ft/ulfm.py is ported: what still waits is the store
+    """The store-served keywords keep the namesake's error contract:
+    each misuse raises the namesake's ``ArgError`` with its message (the
+    store itself is ``runtime/pmix.py``, held in
+    ``tests/test_torch_pmix.py``; the working paths are in
+    ``test_store_served_modex_rejoin_and_elastic_slots`` below)."""
+    from zhpe_ompi_tpu.core import errors as jerrors
+
     cases = [
-        (dict(sm=False, ft=True, rejoin=True), "runtime/pmix.py"),
-        (dict(sm=False, ft=True, live_ranks=[0]), "runtime/pmix.py"),
-        (dict(sm=False, pmix=("127.0.0.1", 1)), "runtime/pmix.py"),
-        (dict(sm=False, metrics=True), "runtime/pmix.py"),
-        (dict(sm=False, trace=True), "runtime/pmix.py"),
+        dict(sm=False, rejoin=True),                    # rejoin needs ft
+        dict(sm=False, ft=True, rejoin=True),           # ... and a store
+        dict(sm=False, ft=True, live_ranks=[0]),        # elastic needs pmix
+        dict(sm=False, live_ranks=[0], pmix=("127.0.0.1", 1)),  # and ft
+        dict(sm=False, ft=True, live_ranks=[1]),        # must hold the rank
+        dict(sm=False, ft=True, live_ranks=[0, 5]),     # inside the universe
+        dict(sm=False, metrics=True),                   # metrics needs pmix
+        dict(sm=False, trace=True),                     # trace needs metrics
+        dict(sm=False, rejoin_book=[("h", 1)] * 2),     # rejoin_book needs ft
     ]
     assert tvar.get("sm") == 1
-    for kwargs, module in cases:
-        with pytest.raises(errors.UnsupportedError, match=module):
+    for kwargs in cases:
+        with pytest.raises(errors.ArgError) as port:
             TcpProc(0, 2, **kwargs)
-    with pytest.raises(errors.ArgError, match="ft=True"):
-        TcpProc(0, 2, sm=False, rejoin_book=[("h", 1)] * 2)
+        with pytest.raises(jerrors.ArgError) as ref:
+            JTcpProc(0, 2, **kwargs)
+        assert str(port.value) == str(ref.value), kwargs
     # the sm var's default (1): TcpProc(0, 2) builds its sm segment
     def prog(p):
         assert p._sm_seg is not None and os.path.exists(p._sm_seg.path)
@@ -268,6 +283,113 @@ def test_what_waits_raises_naming_its_module():
         assert solo.allreduce(5, tops.SUM) == 5
     finally:
         solo.close()
+
+
+def run_pmix(kinds, fn, pmix_addr, ns, timeout=60.0, **kw):
+    """``run_tcp`` through a PMIx store: rank r is ``kinds[r]`` (or absent
+    when None), every rank modexes with ``pmix=pmix_addr``."""
+    n = len(kinds)
+    results, excs = [None] * n, [None] * n
+
+    def main(r):
+        try:
+            proc = kinds[r](r, n, pmix=pmix_addr, namespace=ns, sm=False,
+                            timeout=RANK_TIMEOUT, **kw)
+            try:
+                results[r] = fn(proc)
+            finally:
+                proc.close()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            excs[r] = e
+
+    threads = [threading.Thread(target=main, args=(r,))
+               for r in range(n) if kinds[r] is not None]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+        assert not t.is_alive(), "pmix rank hung"
+    for e in excs:
+        if e is not None:
+            raise e
+    return results
+
+
+@pytest.mark.parametrize("server", ["jax", "port"])
+def test_store_served_modex_rejoin_and_elastic_slots(server):
+    """Ranks 0 and 2 are the port's, 1 and 3 the JAX package's, wired up
+    through one package's PMIx store (``pmix=``): the modex is 4 puts and
+    16 gets, the cards hold the namesake's ``card:<rank>`` keys, and an
+    allreduce agrees.  Then an ft job starts on slots {0, 1} of 3
+    (elastic ``live_ranks``): slot 2 is a pre-acknowledged departure, a
+    port rank rejoins it through the store (``rejoin=True`` at the bumped
+    generation), and the three reduce at full size."""
+    from zhpe_ompi_tpu.runtime import pmix as jpmix
+    from zhpe_ompi_tpu.runtime import spc as jspc
+    from zhpe_ompi_tpu_torch.ft import recovery as trecovery
+    from zhpe_ompi_tpu_torch.runtime import pmix as tpmix
+
+    pmix, sspc = (tpmix, spc) if server == "port" else (jpmix, jspc)
+    srv = pmix.PmixServer()
+    addr = f"127.0.0.1:{srv.address[1]}"
+    try:
+        g0, p0 = sspc.read("pmix_gets"), sspc.read("pmix_puts")
+
+        def prog(p):
+            port = isinstance(p, TcpProc)
+            x = np.arange(4, dtype=np.int64) * (p.rank + 1)
+            got = p.allreduce(torch.from_numpy(x) if port else x,
+                              (tops if port else jops).SUM)
+            p.barrier()
+            return np.asarray(got).tolist()
+
+        res = run_pmix([TcpProc, JTcpProc, TcpProc, JTcpProc], prog, addr,
+                       "mixjob")
+        assert res == [[0, 10, 20, 30]] * 4
+        assert sspc.read("pmix_puts") - p0 == 4
+        assert sspc.read("pmix_gets") - g0 == 16
+        assert sorted(srv.store.lookup("mixjob", "card:")) == [
+            f"card:{r}" for r in range(4)]
+        assert srv.store.destroy_ns("mixjob")
+
+        # elastic slots, then a store-served rejoin into slot 2
+        joined = threading.Event()
+
+        def elastic(p):
+            state = p.ft_state
+            assert state.cause_of(2) == "goodbye"  # pre-acknowledged
+            if p.rank == 0:
+                srv.store.bump_generation("ejob")
+                gen = srv.store.generation("ejob")
+                t = threading.Thread(target=rejoiner, args=(gen,))
+                t.start()
+            assert trecovery.await_rejoin(p, 2, RANK_TIMEOUT)
+            out = float(p.allreduce(torch.tensor(float(p.rank + 1)), tops.SUM)
+                        if isinstance(p, TcpProc) else
+                        p.allreduce(np.float64(p.rank + 1), jops.SUM))
+            if p.rank == 0:
+                t.join(RANK_TIMEOUT)
+            return out
+
+        rejoin_out = []
+
+        def rejoiner(gen):
+            q = TcpProc(2, 3, pmix=addr, namespace="ejob", ft=True, sm=False,
+                        rejoin=True, rejoin_gen=gen, rejoin_ranks=[2],
+                        live_ranks=[0, 1, 2], timeout=RANK_TIMEOUT)
+            try:
+                rejoin_out.append(float(q.allreduce(torch.tensor(3.0),
+                                                    tops.SUM)))
+            finally:
+                q.close()
+
+        res = run_pmix([TcpProc, JTcpProc, None], elastic, addr, "ejob",
+                       ft=True, live_ranks=[0, 1])
+        assert res[:2] == [6.0, 6.0] and rejoin_out == [6.0]
+        assert srv.store.get_meta("ejob", "card:2", timeout=1.0)[1] == 1
+        assert srv.store.destroy_ns("ejob")
+    finally:
+        srv.close()
 
 
 def test_wire_compatibility_with_the_jax_package():

@@ -8,8 +8,9 @@ against the JAX package's.
 - ``coll/ztable.parse_table`` parses the same sections, rules, geometry
   and problems from the same texts (headers, wildcards, malformed and
   quarantined lines), and ``resolve_rule`` picks the same rule per
-  topology key; with ``ZMPI_PMIX`` set it raises ``UnsupportedError``
-  naming ``runtime/pmix.py`` (the store rung is not ported).
+  topology key; with ``ZMPI_PMIX`` set, a table published into the PMIx
+  store answers first in both packages, and an unreachable store leaves
+  the file rung in charge.
 - each communicator's memo of decisions follows a change of an MCA
   variable and a rewrite of the rules file.
 - ``ops.check_datatype``, ``identity_for`` and ``op_reduce`` agree with
@@ -162,13 +163,57 @@ def test_rules_file_matches_namesake(both_vars, tmp_path, topology):
                     == jzt.resolve_rule(opname, n, 20000, key))
 
 
-def test_store_rung_raises_until_pmix_is_ported(both_vars, monkeypatch):
-    monkeypatch.setenv("ZMPI_PMIX", "127.0.0.1:1")
-    with pytest.raises(terrors.UnsupportedError, match="runtime/pmix.py"):
-        tzt.resolve_rule("allreduce", 4, 64)
-    with pytest.raises(terrors.UnsupportedError, match="runtime/pmix.py"):
-        ttuned.decide("allreduce", types.SimpleNamespace(size=4),
-                      torch.empty(16), tz.PROD)
+def test_store_rung_raises_until_pmix_is_ported(both_vars, monkeypatch, tmp_path):
+    """The store rung (``ZMPI_PMIX``): a table published into a PMIx store
+    answers before the rules file in both packages, with the same
+    decisions; an unreachable store is fetched once, negative-cached and
+    leaves the file rung in charge, never raising."""
+    import socket
+
+    from zhpe_ompi_tpu_torch.runtime import pmix as tpmix
+    from zhpe_ompi_tpu_torch.runtime import spc as tspc
+
+    file_rules = tmp_path / "file.table"
+    file_rules.write_text("allreduce 0 0 recursive_doubling\n")
+    both_vars("coll_tuned_dynamic_rules", str(file_rules))
+    both_vars("coll_tuned_topology", "2:2:2")
+    srv = tpmix.PmixServer()
+    try:
+        tpmix.publish_tuned_table(srv.store, RULES)
+        monkeypatch.setenv("ZMPI_PMIX", f"127.0.0.1:{srv.address[1]}/job")
+        for zt in (jzt, tzt):
+            zt.invalidate_cache()
+        f0 = tspc.read("tuned_table_store_fetches")
+        assert tzt.active() and jzt.active()
+        out_j, out_t = _decisions()
+        assert out_t == out_j
+        key = tzt.job_topology_key()
+        for opname in ("allreduce", "bcast", "reduce", "scan", "alltoall"):
+            for n in SIZES:
+                assert (tzt.resolve_rule(opname, n, 20000, key)
+                        == jzt.resolve_rule(opname, n, 20000, key))
+        # the store's table ([topology 2 * *]), not the file's, answered
+        assert tzt.resolve_rule("allreduce", 4, 20000, key) == "linear"
+        assert tspc.read("tuned_table_store_fetches") - f0 == 1  # cached
+        srv.store.destroy_ns(tpmix.ZTUNE_NS)
+    finally:
+        srv.close()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead = s.getsockname()[1]
+    s.close()
+    monkeypatch.setenv("ZMPI_PMIX", f"127.0.0.1:{dead}/job")
+    for zt in (jzt, tzt):
+        zt.invalidate_cache()
+    assert tzt.resolve_rule("allreduce", 4, 64) == "recursive_doubling"
+    assert jzt.resolve_rule("allreduce", 4, 64) == "recursive_doubling"
+    assert tzt.table_geometry("sm_ring_bytes") is None
+    assert ttuned.decide("allreduce", types.SimpleNamespace(size=4),
+                         torch.empty(16), tz.PROD) == jtuned.decide(
+        "allreduce", types.SimpleNamespace(uniform_size=4),
+        np.empty(16, np.float32), jz.PROD)
+    for zt in (jzt, tzt):
+        zt.invalidate_cache()
 
 
 def test_no_profile_is_shipped():

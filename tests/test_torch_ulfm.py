@@ -11,9 +11,11 @@ results and renumbering — must be equal.  Where the namesake's outcome is
 timing-dependent (which survivor's detector fired first), both must fall
 in the set the namesake's test allows.
 
-Left out, with what they wait for: the device-plane ``Communicator`` ULFM
-(held in ``tests/test_torch_comm_split.py``), the passive-lock drill
-(``osc/direct.py``) and the real-process DVM drills (``runtime/dvm.py``).
+The real-process DVM drills (the namesake's ``TestDvmRealProcessRecovery``
+and ``TestDvmMultiVictimRecovery``) run port rank processes under the
+port's daemon.  Left out, with what they wait for: the device-plane
+``Communicator`` ULFM (held in ``tests/test_torch_comm_split.py``) and the
+passive-lock drill (``osc/direct.py``).
 
 An autouse fixture checks, after each test, that no port detector,
 prober, watchdog or respawn thread is alive, that no probe child is
@@ -1992,3 +1994,188 @@ def check_mixed_ft(res, victim, how):
                - 0.37 * r for r in survivors)
     np.testing.assert_allclose(np.frombuffer(rows[0][8], np.float32), want,
                                rtol=1e-5, atol=1e-3)
+
+
+# ------------------------------------ the real-process DVM drills (port)
+
+
+_DVM_RECOVERY_PROG = '''
+import os, signal, sys, time
+sys.path.insert(0, {repo!r})
+import torch
+import zhpe_ompi_tpu_torch as zmpi
+from zhpe_ompi_tpu_torch.core import errhandler as errh
+from zhpe_ompi_tpu_torch.ft import recovery
+from zhpe_ompi_tpu_torch.runtime import spc
+from zhpe_ompi_tpu_torch.runtime.checkpoint import Checkpointer
+
+VICTIM = int(os.environ["TEST_VICTIM"])
+CKPT = os.environ["TEST_CKPT"]
+
+proc = zmpi.host_init()
+proc.set_errhandler(errh.ERRORS_RETURN)
+ck = Checkpointer(os.path.join(CKPT, f"r{{proc.rank}}"),
+                  check_quiescent=False)
+
+
+def total_of(x):
+    return float(proc.allreduce(torch.tensor(x, dtype=torch.float64),
+                                zmpi.SUM))
+
+
+if os.environ.get("ZMPI_REJOIN") == "1":
+    # second life: restore from the snapshot, join the full-size op
+    state, step = recovery.rollback(ck)
+    assert step == 1 and state["x"] == float(proc.rank)
+    print(f"REJOIN-OK rank={{proc.rank}} total={{total_of(state['x'])}}",
+          flush=True)
+    zmpi.host_finalize()
+    sys.exit(0)
+
+ck.save(1, {{"x": float(proc.rank)}}, blocking=True)
+proc.barrier()  # checkpoint published before anyone dies
+t0 = time.monotonic()
+if proc.rank == VICTIM:
+    os.kill(os.getpid(), signal.SIGKILL)  # kill -9: no cleanup, no goodbye
+# the daemon's waitpid event classifies the corpse long before the
+# (deliberately huge) heartbeat window could
+assert proc.ft_state.wait_failed(VICTIM, timeout=10.0), "never classified"
+latency = time.monotonic() - t0
+cause = proc.ft_state.cause_of(VICTIM)
+
+
+def rollback_fn(shrunk):
+    state, step = recovery.rollback(ck)
+    assert step == 1 and state["x"] == float(proc.rank)
+
+
+shrunk, victims = recovery.respawn_victims(
+    proc, recovery.daemon_respawn, rollback_fn=rollback_fn)
+assert victims == [VICTIM], victims
+assert recovery.await_rejoin(proc, VICTIM, timeout=30.0), "no rejoin"
+total = total_of(float(proc.rank))
+events = spc.read("dvm_fault_events")
+print(f"SURVIVOR-OK rank={{proc.rank}} cause={{cause}} "
+      f"latency={{latency:.3f}} events={{events}} total={{total}}",
+      flush=True)
+zmpi.host_finalize()
+'''
+
+_DVM_MULTI_VICTIM_PROG = '''
+import os, signal, sys
+sys.path.insert(0, {repo!r})
+import torch
+import zhpe_ompi_tpu_torch as zmpi
+from zhpe_ompi_tpu_torch.core import errhandler as errh
+from zhpe_ompi_tpu_torch.ft import recovery
+
+VICTIMS = sorted(int(x) for x in os.environ["TEST_VICTIMS"].split(","))
+proc = zmpi.host_init()
+proc.set_errhandler(errh.ERRORS_RETURN)
+
+
+def total_of(x):
+    return float(proc.allreduce(torch.tensor(x, dtype=torch.float64),
+                                zmpi.SUM))
+
+
+if os.environ.get("ZMPI_REJOIN") == "1":
+    # fellow replacements of ONE recovery window: each read the other's
+    # card at the window's bumped generation
+    print(f"REJOIN-OK rank={{proc.rank}} total={{total_of(float(proc.rank))}}",
+          flush=True)
+    zmpi.host_finalize()
+    sys.exit(0)
+proc.barrier()
+if proc.rank in VICTIMS:
+    os.kill(os.getpid(), signal.SIGKILL)
+for v in VICTIMS:
+    assert proc.ft_state.wait_failed(v, timeout=10.0), f"victim {{v}}?"
+shrunk, victims = recovery.respawn_victims(proc, recovery.daemon_respawn)
+assert victims == VICTIMS, (victims, VICTIMS)
+for v in VICTIMS:
+    assert recovery.await_rejoin(proc, v, timeout=30.0), f"no rejoin {{v}}"
+print(f"SURVIVOR-OK rank={{proc.rank}} total={{total_of(float(proc.rank))}}",
+      flush=True)
+zmpi.host_finalize()
+'''
+
+DVM_FT_MCA = [("ft_detector_period", "2.0"), ("ft_detector_timeout", "60.0")]
+
+
+def _dvm_launch(prog_text, tmp_path, name):
+    """Launch the port program on 4 ft ranks of an in-process port
+    daemon; returns (rc, stdout, stderr, the daemon's counter deltas and
+    its store's namespaces after the job)."""
+    import io
+    import os
+
+    from zhpe_ompi_tpu_torch.runtime import dvm as tdvm
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    prog = tmp_path / name
+    prog.write_text(prog_text.format(repo=repo))
+    before = tspc.snapshot()
+    d = tdvm.Dvm()
+    try:
+        cli = tdvm.DvmClient(d.address)
+        out, err = io.StringIO(), io.StringIO()
+        rc = cli.launch(4, [str(prog)], ft=True, timeout=120.0,
+                        mca=DVM_FT_MCA, stdout=out, stderr=err)
+        stat = cli.stat()
+        cli.stop()
+        cli.close()
+    finally:
+        d.stop()
+    assert tdvm.live_dvms() == []
+    deltas = {k: stat[k] - before.get(k, 0)
+              for k in ("dvm_fault_events", "dvm_respawns")}
+    return rc, out.getvalue(), err.getvalue(), deltas, stat["pmix"]
+
+
+def test_dvm_kill9_daemon_event_shrink_rollback_respawn(tmp_path, monkeypatch):
+    """TestDvmRealProcessRecovery's counterpart: a daemon-hosted 4-rank
+    port job survives kill -9 through the daemon's authoritative fault
+    event (cause "daemon", well inside the heartbeat window), shrink,
+    checkpoint rollback, the daemon's relaunch, the replacement's rejoin
+    through the store, and a full-size allreduce."""
+    import re
+
+    victim = 2
+    monkeypatch.setenv("TEST_VICTIM", str(victim))
+    monkeypatch.setenv("TEST_CKPT", str(tmp_path / "ckpt"))
+    rc, text, err, deltas, namespaces = _dvm_launch(
+        _DVM_RECOVERY_PROG, tmp_path, "recover.py")
+    assert rc == 0, (text, err)
+    survivors = re.findall(
+        r"SURVIVOR-OK rank=(\d+) cause=(\w+) latency=([\d.]+) "
+        r"events=(\d+) total=([\d.]+)", text)
+    assert len(survivors) == 3, text
+    for rank, cause, latency, events, total in survivors:
+        assert int(rank) != victim and cause == "daemon"
+        assert float(latency) < 1.5 and int(events) >= 1
+        assert float(total) == 6.0
+    assert re.findall(r"REJOIN-OK rank=(\d+) total=([\d.]+)", text) == [
+        (str(victim), "6.0")], text
+    assert deltas == {"dvm_fault_events": 1, "dvm_respawns": 1}
+    assert namespaces == {}  # the job's namespace went with it
+
+
+def test_dvm_two_victims_one_daemon_window(tmp_path, monkeypatch):
+    """TestDvmMultiVictimRecovery's counterpart: two ranks die, one
+    agree/shrink/daemon-respawn pass recovers both, and the two
+    replacements resolve each other through the window's bumped
+    generation."""
+    import re
+
+    monkeypatch.setenv("TEST_VICTIMS", "1,2")
+    rc, text, err, deltas, namespaces = _dvm_launch(
+        _DVM_MULTI_VICTIM_PROG, tmp_path, "recover2.py")
+    assert rc == 0, (text, err)
+    totals = re.findall(r"(SURVIVOR|REJOIN)-OK rank=(\d+) total=([\d.]+)",
+                        text)
+    assert len(totals) == 4, text
+    assert sorted(r for k, r, _ in totals if k == "REJOIN") == ["1", "2"]
+    assert all(t == "6.0" for _, _, t in totals), text
+    assert deltas == {"dvm_fault_events": 2, "dvm_respawns": 2}
+    assert namespaces == {}

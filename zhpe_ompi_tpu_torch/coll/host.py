@@ -50,8 +50,8 @@ topology, ``on``, or a ``han`` line of the rules table).  The phases of
 han run on ``GroupView`` sub-endpoints, which re-enter the flat
 algorithms here.  A rules table naming a flat algorithm (``ring``,
 ``pipeline``, ``bruck``) works through the port's
-``coll/ztable.resolve_rule`` (its file rung; the store rung raises,
-naming ``runtime/pmix.py``), keyed by ``han.topology_key``.
+``coll/ztable.resolve_rule`` (the store rung under ``ZMPI_PMIX``, then
+the file rung), keyed by ``han.topology_key``.
 """
 
 from __future__ import annotations
@@ -145,8 +145,8 @@ HOST_RULE_ALGS = {
 
 
 def _rule_alg(ctx, opname: str, payload: Any = None) -> "str | None":
-    """The host plane's tuned-table consult (coll/ztable.py's file rung;
-    the store rung raises under ``ZMPI_PMIX``), topology-keyed from this
+    """The host plane's tuned-table consult (coll/ztable.py's store rung
+    under ``ZMPI_PMIX``, then its file rung), topology-keyed from this
     endpoint's locality probe.  Returns a flat algorithm name from
     ``HOST_RULE_ALGS`` or None — builtin thresholds and the auto han
     decision apply.  "han" rules return None HERE: the _han_route seam

@@ -1,5 +1,5 @@
-"""coll/ztable — topology-keyed tuned decision tables, the file rung
-(namesake: ``zhpe_ompi_tpu/coll/ztable.py``).
+"""coll/ztable — topology-keyed tuned decision tables, the store and file
+rungs (namesake: ``zhpe_ompi_tpu/coll/ztable.py``).
 
 The reference's coll/tuned reads decision tables distilled from benchmark
 sweeps (``coll_tuned_dynamic_file.c``).  This module parses, caches and
@@ -22,12 +22,11 @@ fires for ``(op, comm_size, nbytes)`` wins, and within a section the most
 specific ``(comm_min, bytes_min)`` rule wins.  A job with no known
 topology key matches only all-wildcard sections.
 
-Only the file rung is ported: the table named by the
-``coll_tuned_dynamic_rules`` MCA variable.  The store rung (a table served
-from the DVM's PMIx store when ``ZMPI_PMIX`` is set) needs
-``runtime/pmix.py``, which the port does not have yet, so
-:func:`active`, :func:`resolve_rule` and :func:`table_geometry` raise
-``UnsupportedError`` when ``ZMPI_PMIX`` is set rather than ignore it.  Malformed table lines degrade loudly: each is
+The rungs, in the namesake's order: the table a sweep published into the
+DVM's PMIx store (``runtime/pmix.fetch_tuned_table``, fetched once per
+process when ``ZMPI_PMIX`` is set; an absent or unreachable store is
+negative-cached and never raises), then the file named by the
+``coll_tuned_dynamic_rules`` MCA variable.  Malformed table lines degrade loudly: each is
 reported on the ``coll_ztable`` stream and skipped, never raised into a
 collective call.
 """
@@ -36,7 +35,6 @@ from __future__ import annotations
 
 import os
 
-from ..core import errors
 from ..mca import output as mca_output
 from ..mca import var as mca_var
 
@@ -209,9 +207,16 @@ def _section_rule(sections, opname, comm_size, nbytes, job_key):
 _file_cache: dict = {}
 
 
+# ZMPI_PMIX value -> sections or None (negative cache: a dead/absent
+# store is probed once per process, then the file/builtin ladder applies
+# without ever raising — the store-loss degradation contract).
+_store_cache: dict = {}
+
+
 def invalidate_cache() -> None:
-    """Drop all cached table state."""
+    """Drop all cached table state (file stamps and the store fetch)."""
     _file_cache.clear()
+    _store_cache.clear()
 
 
 def file_stamp(path):
@@ -271,29 +276,46 @@ def job_topology_key():
     return tuple(fields)
 
 
-def _refuse_store() -> None:
-    """With ``ZMPI_PMIX`` set, the store-served table would come first;
-    that rung needs ``runtime/pmix.py``, so raise instead of silently
-    skipping it."""
-    if os.environ.get("ZMPI_PMIX", ""):
-        raise errors.UnsupportedError(
-            "ZMPI_PMIX is set: the store-served tuned table needs "
-            "runtime/pmix.py, which the PyTorch port has not ported yet; "
-            "unset ZMPI_PMIX or use coll_tuned_dynamic_rules")
+def _store_sections():
+    env = os.environ.get("ZMPI_PMIX", "")
+    if not env:
+        return None
+    if env in _store_cache:
+        return _store_cache[env]
+    from ..runtime import pmix as pmix_mod
+
+    addr = env.split("/", 1)[0]
+    text = pmix_mod.fetch_tuned_table(addr)
+    sections = parse_table(text, origin=f"pmix:{addr}") if text else None
+    _store_cache[env] = sections
+    return sections
+
+
+def prefetch() -> None:
+    """Warm the store-served table cache (called from ``host_init`` when
+    ``ZMPI_PMIX`` is set, so the first collective pays no fetch)."""
+    _store_sections()
 
 
 def active() -> bool:
-    """Cheap gate for the hot seams: is a table configured (the
-    ``coll_tuned_dynamic_rules`` file)?  Raises under ``ZMPI_PMIX``."""
-    _refuse_store()
+    """Cheap gate for the hot seams: is any table source configured (the
+    store under ``ZMPI_PMIX``, or the ``coll_tuned_dynamic_rules``
+    file)?"""
+    if os.environ.get("ZMPI_PMIX", ""):
+        return True
     return bool(mca_var.get("coll_tuned_dynamic_rules", ""))
 
 
 def resolve_rule(opname, comm_size, nbytes, job_key=None):
-    """Resolve ``(op, comm_size, nbytes)`` through the table named by
-    ``coll_tuned_dynamic_rules``, else None (the caller's builtin fixed
-    decision applies).  Raises under ``ZMPI_PMIX`` (the store rung)."""
-    _refuse_store()
+    """Resolve ``(op, comm_size, nbytes)`` through the table ladder: the
+    store-served table first, then the ``coll_tuned_dynamic_rules`` file,
+    else None (the caller's builtin fixed decision applies)."""
+    sections = _store_sections()
+    if sections:
+        algname = _section_rule(sections, opname, comm_size, nbytes,
+                                job_key)
+        if algname is not None:
+            return algname
     path = mca_var.get("coll_tuned_dynamic_rules", "")
     if not path:
         return None
@@ -302,12 +324,16 @@ def resolve_rule(opname, comm_size, nbytes, job_key=None):
 
 
 def table_geometry(varname, job_key=None):
-    """A swept segment-geometry var (one of :data:`GEOMETRY_VARS`) from
-    the first section of the rules file that matches ``job_key`` and
-    sizes it; None when none does.  Raises under ``ZMPI_PMIX``."""
-    _refuse_store()
+    """A swept segment-geometry var (one of :data:`GEOMETRY_VARS`) through
+    the same ladder: the first matching section of the store-served
+    table, then of the rules file, that sizes it; None when none does."""
     if varname not in GEOMETRY_VARS:
         return None
+    sections = _store_sections()
+    if sections:
+        for key, _rules, geom in sections:
+            if _matches(key, job_key) and varname in geom:
+                return geom[varname]
     path = mca_var.get("coll_tuned_dynamic_rules", "")
     if path:
         for key, _rules, geom in load_file(str(path)):

@@ -39,10 +39,10 @@ fixtures clean up) and every checkpoint directory a rollback touched is
 scanned for orphaned ``.tmp``/``.old`` partials
 (:func:`orphaned_checkpoint_partials`) — test fixtures assert both.
 
-Against the namesake: :func:`daemon_respawn` (real processes through the
-runtime daemon) raises naming ``runtime/dvm.py``, and
-:class:`ElasticSession` (the DVM's elastic resize) raises naming
-``runtime/pmix.py``.
+Over real processes, :func:`daemon_respawn` asks the resident runtime
+daemon (``runtime/dvm.py``) to exec the replacements, and
+:class:`ElasticSession` applies the daemon's elastic resize events that it
+reads from the job's PMIx namespace (``runtime/pmix.py``).
 """
 
 from __future__ import annotations
@@ -197,28 +197,208 @@ def spawn_replacement(fn: Callable[[], Any], rank: int | None = None,
 def daemon_respawn(ranks, dvm: str | tuple | None = None,
                    job: str | None = None,
                    timeout: float = 30.0) -> list[int]:
-    """Step 5 over REAL OS processes: the namesake asks the resident
-    runtime daemon (``zprted``, ``runtime/dvm.py``) to exec fresh
-    replacements for ``ranks``.  The port has no daemon yet: this raises
-    ``UnsupportedError`` naming ``runtime/dvm.py``."""
-    raise errors.UnsupportedError(
-        "daemon_respawn needs the resident runtime daemon "
-        "(runtime/dvm.py), which the PyTorch port has not ported yet")
+    """Step 5 over REAL OS processes: ask the resident runtime daemon
+    (``zprted``, :mod:`zhpe_ompi_tpu_torch.runtime.dvm`) to exec fresh
+    replacements for ``ranks``.  ONE RPC carries the whole batch — the
+    daemon bumps the job's PMIx generation once, so every replacement
+    of this recovery window publishes its fresh card under the same tag
+    and FT_JOINs the same name-served job.  Inside a daemon-hosted rank
+    the daemon address and job id come from the ``ZMPI_DVM``/``ZMPI_JOB``
+    environment the daemon exported at launch; callers outside the job
+    (a controller) pass them explicitly.  Returns the replacement pids.
+    """
+    from ..runtime.dvm import DvmClient
+
+    dvm = dvm if dvm is not None else os.environ.get("ZMPI_DVM")
+    job = job if job is not None else os.environ.get("ZMPI_JOB")
+    if dvm is None or job is None:
+        raise errors.UnsupportedError(
+            "daemon_respawn needs a resident daemon: run the job under "
+            "zmpirun --dvm (ZMPI_DVM/ZMPI_JOB exported) or pass "
+            "dvm=(host, port) and job explicitly"
+        )
+    batch = sorted(int(r) for r in ranks)
+    flightrec.record(flightrec.RESPAWN, ranks=batch, via="daemon")
+    sp = ztrace.begin(ztrace.RESPAWN, -1, via="daemon",
+                      ranks=batch) if ztrace.active else None
+    client = DvmClient(dvm, timeout=timeout)
+    try:
+        pids = client.respawn(job, batch, timeout=timeout)
+        if sp is not None:
+            # the recovery timeline's respawn leg: RPC round trip
+            # included — usually the longest leg the critical-path
+            # report names
+            sp.end(n=len(batch))
+        return pids
+    finally:
+        client.close()
 
 
 class ElasticSession:
-    """Worker-side half of the DVM's elastic resize (namesake:
-    ``ElasticSession``): it reads the ``resize:<seq>`` event stream the
-    daemon publishes into the job's PMIx namespace.  The port has no
-    store yet: constructing one raises ``UnsupportedError`` naming
-    ``runtime/pmix.py``."""
+    """Worker-side half of the DVM's elastic resize (the
+    torchrun-elastic shape): wraps a daemon-hosted ft endpoint whose
+    universe is the launch-time ``max_size``, keeps ``live`` — the
+    dense shrunken endpoint over the CURRENT membership — and applies
+    the ``resize:<seq>`` event stream the daemon publishes into the
+    job's namespace.
+
+    The loop contract::
+
+        ep = zmpi.host_init()
+        ses = recovery.ElasticSession(ep)
+        while True:
+            result = ses.live.allreduce(x)       # traffic on `live`
+            act = ses.step()                     # COLLECTIVE boundary
+            if act in ("retire", "halt"):
+                break                            # close + exit 0
+
+    :meth:`step` is collective over ``live``: rank 0 reads the event
+    stream and broadcasts, so every member applies each event at the
+    SAME loop boundary — two ranks polling the store independently
+    could observe a publish at different iterations and deadlock the
+    next collective.  Applying a grow waits for the new ranks'
+    FT_JOINs (:func:`await_rejoin`); applying a shrink waits for the
+    retiring ranks' orderly BYEs; both then raise the crash-epoch
+    floor (so the rebuilt window's generation is provably fresh),
+    invalidate the han locality topology, and re-shrink.  A grown
+    rank constructs its session AFTER host_init — its constructor
+    shrink pairs with the survivors' post-grow shrink, and
+    ``ZMPI_ELASTIC_SEEN`` makes it skip the event that spawned it.
+    """
 
     def __init__(self, ep, store=None, ns: str | None = None,
                  seen: int | None = None, timeout: float = 30.0):
-        raise errors.UnsupportedError(
-            "ElasticSession reads the job's resize events from the PMIx "
-            "store (runtime/pmix.py), which the PyTorch port has not "
-            "ported yet")
+        if getattr(ep, "ft_state", None) is None:
+            raise errors.UnsupportedError(
+                "ElasticSession needs fault tolerance enabled (ft=True)")
+        self._ep = ep
+        self._timeout = timeout
+        self._own_client = False
+        if store is None:
+            uri = os.environ.get("ZMPI_PMIX", "")
+            if "/" not in uri:
+                raise errors.UnsupportedError(
+                    "ElasticSession needs the job's store: run under "
+                    "zmpirun --dvm (ZMPI_PMIX exported) or pass "
+                    "store= and ns= explicitly")
+            from ..runtime.pmix import PmixClient
+
+            addr, env_ns = uri.rsplit("/", 1)
+            store = PmixClient(addr, timeout=timeout)
+            self._own_client = True
+            ns = ns if ns is not None else env_ns
+        if ns is None:
+            raise errors.ArgError(
+                "ElasticSession: pass ns= alongside store=")
+        self._store = store
+        self._ns = str(ns)
+        self._seen = int(os.environ.get("ZMPI_ELASTIC_SEEN", "-1")) \
+            if seen is None else int(seen)
+        self.live = ep.shrink()
+
+    # -- event stream ------------------------------------------------------
+
+    def event(self) -> dict | None:
+        """The next unapplied resize event, or None.  Non-collective —
+        rank 0 of the live endpoint calls this inside :meth:`step` and
+        broadcasts the answer.  Event seqs are DENSE (the daemon
+        increments once per applied event), so only ``resize:<seen+1>``
+        is probed — a full ``resize:`` history scan would pay
+        O(events) wire bytes per loop iteration, forwarded up the
+        whole daemon tree (lookup keys are never leaf-cached)."""
+        nxt = self._seen + 1
+        try:
+            published = self._store.lookup(self._ns, f"resize:{nxt}")
+        except errors.MpiError:
+            return None  # store unreachable mid-teardown: no event
+        for value in published.values():
+            try:
+                seq = int(value["seq"])
+                kind = str(value["kind"])
+            except (TypeError, KeyError, ValueError):
+                continue  # foreign key shape: not a resize event
+            if seq != nxt:
+                continue  # prefix over-match (resize:1 vs resize:10)
+            return {"seq": seq, "kind": kind,
+                    "ranks": [int(r) for r in value.get("ranks")
+                              or ()],
+                    "live": [int(r) for r in value.get("live") or ()],
+                    "generation": int(value.get("generation") or 0)}
+        return None
+
+    def step(self) -> str | None:
+        """One COLLECTIVE resize boundary: agree on the next event
+        (rank 0 reads, everyone adopts), apply it, return what this
+        rank should do — None (no event), "resized" (membership
+        rebuilt, keep looping on the fresh ``live``), "retire" (this
+        rank leaves: close the endpoint and exit 0), or "halt" (the
+        whole job winds down)."""
+        evt = self.live.bcast(
+            self.event() if self.live.rank == 0 else None, root=0)
+        if evt is None:
+            return None
+        return self.apply(evt)
+
+    def apply(self, evt: dict) -> str:
+        """Apply one resize event (every live member calls this with
+        the SAME event — :meth:`step` guarantees it)."""
+        from ..coll import han as han_mod
+
+        self._seen = int(evt["seq"])
+        kind = str(evt["kind"])
+        ranks = [int(r) for r in evt.get("ranks") or ()]
+        if kind == "halt":
+            return "halt"
+        flightrec.record(flightrec.RESIZE, kind=kind, ranks=ranks,
+                         seq=self._seen)
+        sp = ztrace.begin(ztrace.RESIZE, self._ep.rank, kind=kind,
+                          seq=self._seen) if ztrace.active else None
+        state = self._ep.ft_state
+        if kind == "shrink":
+            if self._ep.rank in ranks:
+                # this rank retires: the orderly BYE rides close() —
+                # the caller exits 0 and the daemon's accounting takes
+                # it as a clean finish, not a failure
+                if sp is not None:
+                    sp.end(action="retire")
+                return "retire"
+            for r in ranks:
+                # the retiring rank's BYE marks it departed; a crash
+                # while retiring still classifies (typed) and the
+                # consensus shrink below absorbs it either way
+                if not state.wait_failed(r, self._timeout):
+                    raise errors.InternalError(
+                        f"elastic shrink: retiring rank {r} neither "
+                        f"said goodbye nor died within "
+                        f"{self._timeout}s")
+        elif kind == "grow":
+            for r in ranks:
+                if r == self._ep.rank:
+                    continue
+                if not await_rejoin(self._ep, r, self._timeout):
+                    raise errors.InternalError(
+                        f"elastic grow: rank {r} never FT_JOINed "
+                        f"within {self._timeout}s")
+        else:
+            raise errors.ArgError(
+                f"elastic session: unknown resize kind {kind!r}")
+        # a FRESH generation for the rebuilt window: every member
+        # raises the epoch floor once per event (deterministic), so
+        # the consensus shrink below can never reuse a cid window an
+        # earlier membership already used
+        state.raise_epoch(state.crash_epoch() + 1)
+        # membership changed: the next hierarchical collective must
+        # re-derive locality from the post-resize cards
+        han_mod.invalidate(self._ep)
+        self.live = self._ep.shrink()
+        if sp is not None:
+            sp.end(action="resized", survivors=self.live.size,
+                   gen=int(evt.get("generation") or 0))
+        return "resized"
+
+    def close(self) -> None:
+        if self._own_client:
+            self._store.close()
 
 
 def respawn_victims(ep, respawner: Callable[[list[int]], Any],

@@ -244,8 +244,8 @@ class FtTrainLoop:
         if self.respawner is None:
             raise errors.UnsupportedError(
                 "FtTrainLoop: a typed fault arrived with no respawner "
-                "configured — pass a thread-plane respawn loop over "
-                "recovery.respawn_ranks")
+                "configured — pass respawner=recovery.daemon_respawn "
+                "(DVM jobs) or a thread-plane respawn loop")
         self.recoveries += 1
         mca_output.verbose(
             1, _stream, "rank %d: typed fault; entering recovery %d",

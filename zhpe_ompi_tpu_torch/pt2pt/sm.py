@@ -171,6 +171,18 @@ _SLOT_HDR = 16  # _SLOT padded to 16 for payload alignment
 
 _MAGIC = 0x335F4D5359505A00  # "\0ZPYSM_3" little-endian (v3: ring files)
 _RING_HDR = 128              # head @+0, tail @+64 (cache-line separated)
+# head and tail as u64 words of a native-order view of the ring header
+# (the ring layout is little-endian; so are the hosts it runs on).  A
+# word is stored and loaded whole: struct's pack_into zero-fills its
+# bytes before writing them and unpack_from assembles bytes one by one,
+# so a peer process racing either can read a torn value — a tail of 0
+# read as "the ring is full" by a producer whose free slots are proven
+_HEAD_WORD, _TAIL_WORD = 0, 64 // 8
+
+
+def _ring_words(mv: memoryview, base: int = 0) -> memoryview:
+    """The ring header at ``base`` as native u64 words (head, tail)."""
+    return mv[base:base + _RING_HDR].cast("Q")
 # control-segment header field offsets
 _OFF_MAGIC = 0
 _OFF_NRINGS = 12
@@ -528,13 +540,12 @@ def segment_audit_failures() -> list[str]:
 
 def _tuned_ring_bytes(varname: str, current: int) -> int:
     """Per-class ring sizing from a ztune-swept decision table (served
-    through coll/ztable.py's file rung): adopted ONLY while ``varname``
-    still holds its registered default — an operator's explicit setting
-    (env/file/API) always outranks the swept value.  No table, a table
-    without a geometry line, or a table that fails to load keep the
-    var's own value (said on the verbose stream); the store rung, which
-    needs runtime/pmix.py, raises ``UnsupportedError`` as it does
-    everywhere in the port."""
+    through coll/ztable.py's store rung under ``ZMPI_PMIX``, then its
+    file rung): adopted ONLY while ``varname`` still holds its registered
+    default — an operator's explicit setting (env/file/API) always
+    outranks the swept value.  No table, a table without a geometry
+    line, or a table that fails to load keep the var's own value (said
+    on the verbose stream)."""
     held = mca_var.lookup(varname)
     if held is not None and held.source != mca_var.VarSource.DEFAULT:
         return current
@@ -542,8 +553,6 @@ def _tuned_ring_bytes(varname: str, current: int) -> int:
 
     try:
         swept = ztable.table_geometry(varname, ztable.job_topology_key())
-    except errors.UnsupportedError:
-        raise
     except Exception as e:  # noqa: BLE001 - a bad table file keeps the var
         mca_output.verbose(
             2, _stream,
@@ -608,7 +617,7 @@ class _RingState:
     each ring owns ITS OWN file mapping (layout v3: one file per
     materialized ring, head/tail at the file's start)."""
 
-    __slots__ = ("src", "path", "mm", "mv", "tail", "buf", "fill",
+    __slots__ = ("src", "path", "mm", "mv", "words", "tail", "buf", "fill",
                  "nslots", "slot_bytes")
 
     def __init__(self, src: int, path: str, mm: mmap.mmap,
@@ -617,6 +626,7 @@ class _RingState:
         self.path = path
         self.mm = mm
         self.mv = memoryview(mm)
+        self.words = _ring_words(self.mv)
         self.nslots = nslots
         self.slot_bytes = slot_bytes
         self.tail = 0
@@ -624,6 +634,7 @@ class _RingState:
         self.fill = 0
 
     def close(self) -> None:
+        self.words.release()
         self.mv.release()
         try:
             self.mm.close()
@@ -789,13 +800,13 @@ class SmSegment:
 
     def _any_ready(self) -> bool:
         for st in self._rings:
-            if _U64.unpack_from(st.mm, 0)[0] != st.tail:
+            if st.words[_HEAD_WORD] != st.tail:
                 return True
         return False
 
     def _drain_ring(self, st: _RingState) -> bool:
         mm = st.mm
-        head = _U64.unpack_from(mm, 0)[0]
+        head = st.words[_HEAD_WORD]
         if head == st.tail:
             return False
         _fence()  # acquire edge: slot reads must not pass the head load
@@ -837,7 +848,7 @@ class SmSegment:
             # copy-out above must be globally done first (a producer
             # reuses the slot the moment it sees the new tail)
             _fence()
-            _U64.pack_into(mm, 64, st.tail)
+            st.words[_TAIL_WORD] = st.tail
         return True
 
     def _poll_loop(self) -> None:
@@ -1081,8 +1092,9 @@ class SmSender:
             cmm.close()
             raise
         self._base = 0
-        self._head = _U64.unpack_from(self._mm, self._base)[0]
         self._mv = memoryview(self._mm)  # no-copy slot windows
+        self._words = _ring_words(self._mv, self._base)
+        self._head = self._words[_HEAD_WORD]
         self._lock = lockdep.lock("sm.SmSender._lock")
         self._dead = False
 
@@ -1148,7 +1160,7 @@ class SmSender:
                 raise ConsumerStopped(
                     f"sm ring to rank {self.dest}: consumer stopped"
                 )
-            tail = _U64.unpack_from(mm, self._base + 64)[0]
+            tail = self._words[_TAIL_WORD]
             if self._head - tail < self.nslots:
                 if spins:
                     spc.record("sm_ring_full_spins", spins)
@@ -1182,7 +1194,7 @@ class SmSender:
         _SLOT.pack_into(mm, slot, frag_len, total)
         _fence()
         self._head += 1
-        _U64.pack_into(mm, self._base, self._head)
+        self._words[_HEAD_WORD] = self._head
         self._doorbell()
 
     def _slot_at(self, idx: int) -> int:
@@ -1270,7 +1282,7 @@ class SmSender:
                     f"sm ring to rank {self.dest}: consumer stopped"
                 )
             nfrags = max(1, -(-total // pipe))
-            tail = _U64.unpack_from(self._mm, self._base + 64)[0]
+            tail = self._words[_TAIL_WORD]
             if self.nslots - (self._head - tail) < nfrags:
                 return None
             return self._stream_frame(views, total, pipe)
@@ -1339,8 +1351,7 @@ class SmSender:
         if self._dead:
             return 0
         try:
-            return self._head - _U64.unpack_from(self._mm,
-                                                 self._base + 64)[0]
+            return self._head - self._words[_TAIL_WORD]
         except ValueError:  # closed under us: nothing left to wait for
             return 0
 
@@ -1357,6 +1368,7 @@ class SmSender:
             if self._dead:
                 return
             self._dead = True
+            self._words.release()
             self._mv.release()
             for m in (self._mm, self._cmm):
                 try:

@@ -52,15 +52,17 @@ engine).  This module is that wire for the port's host plane:
 .RankContext`'s API (send/recv/probe/sendrecv/barrier and the host and
 nonblocking collectives).
 
-What is not ported yet, against the namesake — each raises
-``UnsupportedError`` naming the module it waits for:
+- **the PMIx store** (``runtime/pmix.py``): ``pmix=``/``namespace=``
+  run the modex through the store (``card:<rank>`` put, commit, fence,
+  get), ``rejoin=True`` re-modexes a respawned rank from the store at
+  the recovery window's generation, elastic ``live_ranks`` start a
+  proper subset of the slots, and ``metrics``/``trace`` publish
+  snapshots and span buffers there through ``spc.MetricsPublisher``
+  (an explicit ``True`` without a store raises ``ArgError``; the
+  ``ZMPI_METRICS``/``ZMPI_TRACE`` environment requests degrade loudly).
 
-- **the PMIx store** (``runtime/pmix.py``, item 4b): ``pmix=`` (the
-  store-served modex), ``rejoin=True`` (the rejoin through the store),
-  elastic ``live_ranks``, and ``metrics``/``trace``, which
-  publish through it (an explicit ``True`` raises; the ``ZMPI_METRICS``
-  and ``ZMPI_TRACE`` environment requests degrade loudly, as the
-  namesake's do without a store).
+What is not ported yet, against the namesake:
+
 - ``_register_wire_pvars`` and its queue-depth reader wait for
   ``tools/mpit.py``; ``bridge_endpoint``/``bridge_send``, the intercomm
   seam, wait for ``comm/dpm.py`` — a bridge peer's hello is still
@@ -495,12 +497,6 @@ def orphaned_rndv_descriptors() -> list[str]:
     return out
 
 
-def _waits_for_pmix(what: str) -> errors.UnsupportedError:
-    return errors.UnsupportedError(
-        f"{what} needs the PMIx store (runtime/pmix.py), which the PyTorch "
-        "port has not ported yet")
-
-
 class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
               NonblockingCollectives):
     """One process's endpoint in a TCP universe of `size` ranks.
@@ -512,8 +508,9 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
     Construction is collective: every rank calls with the same coordinator
     address; rank 0 binds it as the rendezvous socket, the rest connect
     with retry.  `host` is this rank's reachable address.  The namesake's
-    keyword arguments are all accepted; those that need a module the port
-    lacks raise ``UnsupportedError`` naming it (see the module doc).
+    keyword arguments are all accepted with its contracts: ``pmix=``
+    replaces the coordinator with the store-served modex (see the module
+    doc).
     ``sm`` (default: the ``sm`` MCA var, 1) creates this rank's ring
     segment when ``size`` > 1; ``sm_boot_id``/``sm_numa_id`` override the
     host and NUMA-domain tokens its card advertises.  ``ft=True`` arms
@@ -543,14 +540,14 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                  live_ranks: "list[int] | None" = None):
         if size < 1:
             raise errors.ArgError("size must be >= 1")
-        if pmix is not None:
-            raise _waits_for_pmix("pmix= (the store-served modex)")
-        if rejoin:
-            raise _waits_for_pmix("rejoin=True (the name-served rejoin)")
+        # elastic membership (the DVM resize contract): the universe is
+        # `size` slots but only `live_ranks` started — the rest wire up
+        # as pre-acknowledged departures (the orderly-BYE state), so
+        # collectives ride a shrunken endpoint over the live set and a
+        # later grow FT_JOINs an absent slot exactly like a recovery
+        # window's replacement
+        self._live_ranks: frozenset[int] | None = None
         if live_ranks is not None:
-            # elastic membership (the DVM resize contract): only
-            # `live_ranks` of the `size` slots started; the namesake
-            # wires it up through the store only
             live = frozenset(int(r) for r in live_ranks)
             if live != frozenset(range(size)):
                 if rank not in live:
@@ -559,26 +556,89 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                 if not live <= frozenset(range(size)):
                     raise errors.ArgError(
                         "live_ranks outside the universe size")
-                raise _waits_for_pmix("elastic membership (live_ranks)")
-        if rejoin_book is not None and not ft:
+                if pmix is None or not ft:
+                    raise errors.ArgError(
+                        "elastic membership (live_ranks a proper "
+                        "subset) needs the store-served wire-up and "
+                        "fault tolerance: pass pmix=(host, port) and "
+                        "ft=True (the ZMPI_ELASTIC_LIVE contract)")
+                self._live_ranks = live
+        # metrics plane: explicit opt-in (ctor arg) or the ZMPI_METRICS
+        # environment contract a DVM job launched with metrics=True
+        # exports.  Publishing needs a store — an explicit metrics=True
+        # without one is a caller contract error, an env-driven request
+        # degrades loudly (the env may be fleet-global).
+        if metrics is None:
+            metrics = os.environ.get("ZMPI_METRICS", "") not in ("", "0")
+            env_metrics = True
+        else:
+            metrics = bool(metrics)
+            env_metrics = False
+        if metrics and pmix is None:
+            if not env_metrics:
+                raise errors.ArgError(
+                    "metrics=True publishes through the PMIx store: "
+                    "pass pmix=(host, port) (the ZMPI_PMIX contract)"
+                )
+            mca_output.emit(
+                _stream,
+                "rank %s: ZMPI_METRICS set but no PMIx store to "
+                "publish into; metrics plane disabled", rank,
+            )
+            metrics = False
+        self._metrics_on = metrics
+        # tracing plane: rides the metrics publisher (the trace buffer
+        # publishes as trace:<job>:<rank> next to the snapshots), so
+        # trace needs metrics needs a store.  Explicit trace=True
+        # without the metrics plane is a caller contract error; the
+        # env-driven ZMPI_TRACE request degrades loudly.
+        if trace is None:
+            trace = os.environ.get("ZMPI_TRACE", "") not in ("", "0")
+            env_trace = True
+        else:
+            trace = bool(trace)
+            env_trace = False
+        if trace and not metrics:
+            if not env_trace:
+                raise errors.ArgError(
+                    "trace=True publishes span buffers through the "
+                    "metrics publisher: pass metrics=True and "
+                    "pmix=(host, port) (the ZMPI_TRACE contract)"
+                )
+            mca_output.emit(
+                _stream,
+                "rank %s: ZMPI_TRACE set but the metrics plane is off; "
+                "tracing plane disabled", rank,
+            )
+            trace = False
+        self._trace_on = trace
+        self._metrics_pub: spc.MetricsPublisher | None = None
+        if (rejoin_book is not None or rejoin) and not ft:
             raise errors.ArgError(
                 "rejoin_book (respawn into an existing job) requires ft=True"
             )
-        if metrics:
-            raise _waits_for_pmix("metrics=True")
-        if trace:
-            raise _waits_for_pmix("trace=True")
-        for env, plane in (("ZMPI_METRICS", "metrics"),
-                           ("ZMPI_TRACE", "tracing")):
-            if metrics is None and trace is None \
-                    and os.environ.get(env, "") not in ("", "0"):
-                mca_output.emit(
-                    _stream,
-                    "rank %s: %s set but no PMIx store to publish into; "
-                    "%s plane disabled", rank, env, plane,
-                )
-        # the ranks respawned alongside this one in a recovery window
-        # (their JOINs are not this rank's to answer)
+        if rejoin and pmix is None:
+            raise errors.ArgError(
+                "rejoin=True re-modexes through the name-served PMIx "
+                "store: pass pmix=(host, port) (the ZMPI_PMIX contract)"
+            )
+        # PMIx-served wire-up (runtime/pmix.py): the modex rides
+        # put/commit/fence/get verbs against a resident server instead of
+        # the per-job rendezvous coordinator, and a respawned rank
+        # (rejoin=True) fetches the name-served address book from the
+        # same store — no in-process survivor handoff.
+        if isinstance(pmix, str):
+            pmix_host, pmix_port = pmix.rsplit(":", 1)
+            pmix = (pmix_host, int(pmix_port))
+        self._pmix_addr: tuple[str, int] | None = \
+            (pmix[0], int(pmix[1])) if pmix is not None else None
+        self._pmix_ns = str(namespace)
+        # batched-recovery window metadata (ZMPI_REJOIN_GEN/_RANKS): the
+        # ranks respawned ALONGSIDE us this window, whose store cards we
+        # must read at the window's bumped generation — the corpse's
+        # generation-old card would satisfy a plain get and strand both
+        # replacements dialing each other's dead addresses
+        self._rejoin_gen = int(rejoin_gen)
         self._rejoin_ranks = frozenset(
             int(r) for r in (rejoin_ranks or ()))
         self.rank = rank
@@ -650,7 +710,7 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             if sm_numa_id else sm_mod.numa_token()
         )
         sm_on = bool(int(mca_var.get("sm", 1))) if sm is None else bool(sm)
-        if sm_on and size > 1 and rejoin_book is None:
+        if sm_on and size > 1 and rejoin_book is None and not rejoin:
             try:
                 self._sm_seg = sm_mod.SmSegment(
                     rank, size, on_frame=self._sm_incoming
@@ -688,6 +748,14 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             # external_coordinator: a launcher hosts the rendezvous —
             # rank 0 joins as a client instead of binding it itself
             self._external_coordinator = external_coordinator
+            if rejoin and rejoin_book is None:
+                # name-served rejoin: the survivors' cards live in the
+                # job's PMIx namespace — fetch the book from the store
+                # and publish OUR fresh endpoint (generation-tagged: the
+                # daemon bumped the namespace generation when it opened
+                # this recovery window, so the new card is provably not
+                # the corpse's)
+                rejoin_book = self._pmix_rejoin_book(timeout)
             if rejoin_book is not None:
                 # respawned rank: no modex rendezvous exists anymore —
                 # adopt the survivors' address book with OUR fresh
@@ -699,12 +767,31 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                 self._peer_cards = [list(a[:2]) for a in rejoin_book]
                 self.address_book = [tuple(a[:2]) for a in rejoin_book]
                 self.address_book[rank] = tuple(self.address)
+            elif self._pmix_addr is not None:
+                self.address_book = self._modex_pmix(timeout)
             else:
                 self.address_book = self._modex(coordinator, timeout)
+            if self._live_ranks is not None:
+                # absent slots are pre-acknowledged departures from the
+                # first moment: named traffic to them classifies typed,
+                # the detector ring skips them, shrink excludes them —
+                # and a grow's FT_JOIN restores them like any rejoiner
+                for r in range(size):
+                    if r != rank and r not in self._live_ranks:
+                        self.ft_state.mark_departed(r)
             mca_output.verbose(
                 5, _stream, "rank %d up at %s; book=%s", rank, self.address,
                 self.address_book,
             )
+            if self._metrics_on:
+                # rank-side metrics publisher: periodic generation-
+                # tagged snapshots into the job's namespace, final
+                # flush at close() — started after the modex so the
+                # namespace provably exists
+                self._metrics_pub = spc.MetricsPublisher(
+                    self._pmix_addr, self._pmix_ns, rank,
+                    trace=self._trace_on)
+                self._metrics_pub.start()
             if ft:
                 # peer death ⇒ ring teardown: the sm transport unmaps its
                 # ring into a corpse the moment classification learns of
@@ -714,6 +801,13 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                 # toward it (queued frames AND parked rndv descriptors):
                 # a waitall must observe ProcFailed, never wedge
                 self.ft_state.add_failure_listener(self._fail_inflight)
+                if self._metrics_pub is not None:
+                    # typed classification ⇒ this survivor's flight-
+                    # recorder window ships to the store (the FT_CLASS
+                    # event is already the ring's tail: FailureState
+                    # records before it notifies listeners)
+                    self.ft_state.add_failure_listener(
+                        self._metrics_pub.on_classification)
                 if rejoin_book is not None:
                     # announce BEFORE the detector starts: beats toward a
                     # survivor that has not yet swapped in the fresh
@@ -736,6 +830,9 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             # ever call close() on a constructor that raised — the
             # zero-leak lifecycle contract is honored HERE, whichever
             # construction step failed
+            if self._metrics_pub is not None:
+                self._metrics_pub.stop()
+                self._metrics_pub = None
             if self._detector is not None:
                 self._detector.stop()
             if self._chan_engine is not None:
@@ -1386,6 +1483,12 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         stop and every socket is torn down abruptly — no quiescence, no
         goodbye — so peers see connection reset exactly like a crash."""
         self._ft_dead = True
+        if self._metrics_pub is not None:
+            # a crash publishes nothing more — no final flush (a clean
+            # final snapshot from a corpse would lie to the fleet); the
+            # thread still dies with the proc (the publisher leak gate)
+            self._metrics_pub.abort()
+            self._metrics_pub = None
         if self._detector is not None:
             self._detector.stop(join_timeout=0.0)
         self._closed.set()
@@ -1499,6 +1602,79 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             card.append(self._sm_seg.card(self._sm_boot))
             card.append(sm_mod.numa_card_item(self._sm_numa))
         return card
+
+    def _modex_pmix(self, timeout: float) -> list[tuple[str, int]]:
+        """Business-card exchange through the name-served PMIx store
+        (runtime/pmix.py):
+        put our card under ``card:<rank>``, commit, fence the
+        namespace, then get every peer's card — get-until-published
+        blocking means no rank ever races a slower peer's publish.
+        A resident DVM hosts the store across jobs, so this path pays
+        no per-job rendezvous infrastructure at all."""
+        from ..runtime import pmix as pmix_mod
+
+        client = pmix_mod.PmixClient(self._pmix_addr, timeout=timeout)
+        try:
+            # elastic jobs fence over the STARTED set only (the
+            # namespace size is the initial live count — absent slots
+            # would park the barrier forever); their cards are
+            # placeholders until a grow's FT_JOIN announces the truth
+            live = self._live_ranks
+            client.ensure_ns(self._pmix_ns,
+                             self.size if live is None else len(live))
+            client.put(self._pmix_ns, self.rank, f"card:{self.rank}",
+                       self._my_card())
+            client.commit(self._pmix_ns, self.rank)
+            client.fence(self._pmix_ns, self.rank, timeout)
+            book = [
+                client.get(self._pmix_ns, f"card:{r}", timeout)
+                if live is None or r in live else ["0.0.0.0", 0]
+                for r in range(self.size)
+            ]
+        except errors.MpiError as e:
+            return self.call_errhandler(errors.InternalError(
+                f"pmix modex via {self._pmix_addr} "
+                f"ns={self._pmix_ns!r}: {e}"
+            ))
+        finally:
+            client.close()
+        self._peer_cards = [list(a) for a in book]
+        return [tuple(a[:2]) for a in book]
+
+    def _pmix_rejoin_book(self, timeout: float) -> list:
+        """The respawned rank's half of the name-served rejoin: publish
+        OUR fresh card FIRST (so co-replacements blocked on this
+        window's generation release), then read the book — survivors'
+        cards plain, but ranks respawned in the SAME recovery window
+        (``rejoin_ranks``) at ``min_generation=rejoin_gen``: a plain
+        get would be satisfied by the corpse's generation-old card and
+        both replacements would dial each other's dead addresses with
+        nothing ever healing the books (JOIN announces to a dead
+        address are skipped, not relayed).  Publish-before-read keeps
+        the batch deadlock-free.  The JOIN announce to the survivors
+        still rides the FT_JOIN wire family unchanged."""
+        from ..runtime import pmix as pmix_mod
+
+        client = pmix_mod.PmixClient(self._pmix_addr, timeout=timeout)
+        try:
+            client.put(self._pmix_ns, self.rank, f"card:{self.rank}",
+                       self._my_card())
+            client.commit(self._pmix_ns, self.rank)
+            book = []
+            for r in range(self.size):
+                if self._live_ranks is not None \
+                        and r not in self._live_ranks:
+                    # an absent elastic slot: no card to wait for (a
+                    # retired slot's STALE card must not be dialed)
+                    book.append(["0.0.0.0", 0])
+                    continue
+                min_gen = self._rejoin_gen \
+                    if r != self.rank and r in self._rejoin_ranks else 0
+                book.append(client.get(self._pmix_ns, f"card:{r}",
+                                       timeout, min_generation=min_gen))
+        finally:
+            client.close()
+        return book
 
     def _modex(self, coordinator: tuple[str, int], timeout: float
                ) -> list[tuple[str, int]]:
@@ -2748,7 +2924,14 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         if self._torn_down:
             return
         self._torn_down = True
-        # control floods first: an in-flight agreement announce or
+        # metrics final flush first, while the store and our state are
+        # both fully alive: stop() publishes one last snapshot
+        # (final=True) so a job shorter than one publish interval is
+        # still fleet-visible, then joins the publisher
+        if self._metrics_pub is not None:
+            self._metrics_pub.stop()
+            self._metrics_pub = None
+        # control floods next: an in-flight agreement announce or
         # revoke notice must reach the peers before the wire comes down
         # (a closing rank that takes its announce to the grave strands
         # survivors waiting to adopt it).  Bounded: each flood's

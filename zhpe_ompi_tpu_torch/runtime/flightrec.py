@@ -6,10 +6,10 @@ Where SPC counters say *how much* happened, the flight recorder says
 recorded at the runtime's seams.  The event table is the JAX package's;
 the seams the port has so far are the send/recv and han seams, the ft
 plane's classifications, revocations and recovery legs (``ft/ulfm.py``,
-``ft/recovery.py``) and the device probe's faults.  In
-the JAX package a metrics publisher ships the window to the PMIx store on
-a typed failure; the port's publisher waits for ``runtime/pmix.py``, so
-here the window is read in process (:func:`window`).
+``ft/recovery.py``), the device probe's faults and the daemon's fault
+routing and resizes (``runtime/dvm.py``).  On a typed failure a rank's
+metrics publisher (``runtime/spc.py``) ships the window to the PMIx store
+as ``flightrec:<job>:<rank>``; in process it is read with :func:`window`.
 
 Cost discipline mirrors :mod:`.peruse`: the recorder is ARMED only while
 someone holds the refcount — ``arm()``/``disarm()`` flip the module gate
@@ -39,8 +39,7 @@ mca_var.register(
     type=int,
 )
 
-# event types (the seams that record them in the JAX package; the port's
-# runtime/dvm.py seams wait for that module)
+# event types (the seams that record them)
 SEND = "send"              # pt2pt/tcp.py send/isend dispatch
 RECV = "recv"              # pt2pt/tcp.py recv post
 MATCH = "match"            # matching engines, via the PERUSE events

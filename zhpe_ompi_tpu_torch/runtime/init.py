@@ -16,10 +16,11 @@ device), so ``init`` costs one process group and one one-rank group.
 The host plane (launcher-started multi-process jobs) has its own entry:
 :func:`host_init` reads the ``ZMPI_*`` coordinator contract and wires the
 process into a ``pt2pt/tcp.TcpProc`` universe (``host_world``,
-``host_finalize``).  Against the namesake: ``ZMPI_PMIX`` (the daemon-hosted
-store) raises ``UnsupportedError`` naming ``runtime/pmix.py``,
-``ZMPI_FT=1`` builds the endpoint with fault tolerance on (``ft/ulfm.py``),
-and the ``ZMPI_LIFELINE`` watch (``_arm_lifeline``) comes with the DVM.  The ``sm`` MCA var keeps
+``host_finalize``).  ``ZMPI_PMIX`` (a daemon-hosted job) modexes through
+the daemon's PMIx store instead (``runtime/pmix.py``), ``ZMPI_FT=1``
+builds the endpoint with fault tolerance on (``ft/ulfm.py``), and
+``ZMPI_LIFELINE`` (``_arm_lifeline``) ends a daemon-hosted rank when its
+daemon dies.  The ``sm`` MCA var keeps
 its default (1): ranks on one host exchange their frames through the
 shared-memory rings of ``pt2pt/sm.py``, and ``ZMPI_MCA_sm=0`` puts every
 pair on TCP.
@@ -224,45 +225,84 @@ def host_init(timeout: float = 30.0):
     the launcher hosts the rendezvous, so rank 0 joins it as a client) —
     the one the namesake's ``zmpirun`` exports — and performs the TcpProc
     modex, mirroring the reference's ``ompi_rte_init`` → PMIx_Init
-    connect step (``ompi_mpi_init.c:508``).  A missing or malformed
-    variable raises ``NotInitializedError``.  Idempotent; returns this
-    process's :class:`~zhpe_ompi_tpu_torch.pt2pt.tcp.TcpProc` endpoint.
+    connect step (``ompi_mpi_init.c:508``).  A daemon-hosted rank reads
+    ``ZMPI_PMIX=host:port/namespace`` instead (the resident daemon,
+    ``runtime/dvm.py``, exports it) and modexes through the daemon's
+    store; ``ZMPI_REJOIN``/``ZMPI_REJOIN_GEN``/``ZMPI_REJOIN_RANKS`` make
+    it a respawned replacement, ``ZMPI_ELASTIC_LIVE`` an elastic job's
+    live slots, and ``ZMPI_LIFELINE`` ends the process when the daemon
+    dies.  A missing or malformed variable raises
+    ``NotInitializedError``.  Idempotent; returns this process's
+    :class:`~zhpe_ompi_tpu_torch.pt2pt.tcp.TcpProc` endpoint.
     ``ZMPI_FT=1`` builds it with ``ft=True`` (the ULFM surface: failure
-    ack, agree, shrink, revoke); ``ZMPI_PMIX`` raises ``UnsupportedError``
-    (see the module doc); the ``sm`` MCA var (default 1: same-host ranks ride the
-    shared-memory rings) applies as to any ``TcpProc``.
+    ack, agree, shrink, revoke); the ``sm`` MCA var (default 1:
+    same-host ranks ride the shared-memory rings) applies as to any
+    ``TcpProc``.
     """
     with _host_lock:
         if _host["proc"] is not None:
             return _host["proc"]
-        if os.environ.get("ZMPI_PMIX") is not None:
-            raise errors.UnsupportedError(
-                "host_init: ZMPI_PMIX names a daemon-hosted job, whose "
-                "store-served wire-up needs runtime/pmix.py, which the "
-                "PyTorch port has not ported yet; use the ZMPI_COORD_HOST/"
-                "ZMPI_COORD_PORT contract")
+        pmix_uri = os.environ.get("ZMPI_PMIX")
         try:
             rank = int(os.environ["ZMPI_RANK"])
             size = int(os.environ["ZMPI_SIZE"])
-            chost = os.environ["ZMPI_COORD_HOST"]
-            cport = int(os.environ["ZMPI_COORD_PORT"])
+            if pmix_uri is None:
+                chost = os.environ["ZMPI_COORD_HOST"]
+                cport = int(os.environ["ZMPI_COORD_PORT"])
         except (KeyError, ValueError) as e:
             raise errors.NotInitializedError(
                 f"host_init: bad ZMPI_* contract ({e}) — export "
-                "ZMPI_RANK/SIZE/COORD_HOST/COORD_PORT"
+                "ZMPI_RANK/SIZE/COORD_HOST/COORD_PORT (or ZMPI_PMIX for "
+                "a daemon-hosted job)"
             ) from None
         from ..pt2pt.tcp import TcpProc
 
         # ZMPI_FT=1: the endpoint carries the ULFM machinery (failure
-        # state, ring detector, typed failure delivery)
+        # state, ring detector, typed failure delivery); a daemon-hosted
+        # ft job needs it for the daemon's fault events to land in
         ft = os.environ.get("ZMPI_FT") == "1"
         t0 = time.perf_counter()
-        proc = TcpProc(
-            rank, size, coordinator=(chost, cport), timeout=timeout,
-            ft=ft,
-            external_coordinator=os.environ.get(
-                "ZMPI_COORD_EXTERNAL") == "1",
-        )
+        if pmix_uri is not None:
+            # PMIx-served wire-up (the daemon hosts the store): ZMPI_PMIX
+            # is "host:port/namespace"; a respawned replacement
+            # additionally carries ZMPI_REJOIN=1 and re-modexes through
+            # the store
+            if "/" not in pmix_uri or ":" not in pmix_uri.split("/")[0]:
+                raise errors.NotInitializedError(
+                    f"host_init: malformed ZMPI_PMIX {pmix_uri!r} — "
+                    "expected host:port/namespace (zprted exports this)"
+                )
+            addr, ns = pmix_uri.rsplit("/", 1)
+            rejoin_ranks = os.environ.get("ZMPI_REJOIN_RANKS", "")
+            elastic_live = os.environ.get("ZMPI_ELASTIC_LIVE", "")
+            proc = TcpProc(
+                rank, size, pmix=addr, namespace=ns, timeout=timeout,
+                ft=ft, rejoin=os.environ.get("ZMPI_REJOIN") == "1",
+                rejoin_gen=int(os.environ.get("ZMPI_REJOIN_GEN", 0)),
+                rejoin_ranks=[int(r) for r in rejoin_ranks.split(",")
+                              if r],
+                # elastic jobs: only the live slots started (the rest
+                # wire up as pre-acknowledged departures a later grow
+                # restores) — the DVM resize contract
+                live_ranks=[int(r) for r in elastic_live.split(",")
+                            if r] or None,
+            )
+            lifeline = os.environ.get("ZMPI_LIFELINE")
+            if lifeline:
+                _arm_lifeline(lifeline)
+            # warm the tuned decision-table cache from the daemon's
+            # store (coll/ztable.py; negative-cached, never raises), so
+            # the first collective pays no fetch
+            from ..coll import ztable
+
+            ztable.prefetch()
+        else:
+            proc = TcpProc(
+                rank, size, coordinator=(chost, cport), timeout=timeout,
+                ft=ft,
+                external_coordinator=os.environ.get(
+                    "ZMPI_COORD_EXTERNAL") == "1",
+            )
         _host["proc"] = proc
         spc.record("init_count", 1)
         mca_output.verbose(
@@ -270,6 +310,54 @@ def host_init(timeout: float = 30.0):
             (time.perf_counter() - t0) * 1e3,
         )
         return proc
+
+
+def _arm_lifeline(address: str) -> None:
+    """Park one connection on the host daemon's control port for this
+    process's whole life (the ``ZMPI_LIFELINE`` contract): the daemon
+    never replies, and the connection dying means the daemon died —
+    a rank must not outlive the daemon that owns its store, its fault
+    routing, and its exit accounting (the PRRTE local-procs-die-with-
+    their-prted contract, made explicit).  Exit code 143 mirrors the
+    SIGTERM teardown the daemon itself would have applied."""
+    import socket
+    import sys
+
+    from ..pt2pt.tcp import _recv_frame, _send_frame
+    from ..utils import dss
+
+    host, port = address.rsplit(":", 1)
+    try:
+        sock = socket.create_connection((host, int(port)), 10.0)
+        _send_frame(sock, dss.pack(["lifeline"]))
+        sock.settimeout(None)
+    except OSError:
+        # the daemon is already gone: the modex above only succeeded
+        # against a live store, so this is a teardown race — exit the
+        # way the severed lifeline would have made us
+        os._exit(143)
+
+    def watch():
+        try:
+            while True:
+                if _recv_frame(sock) is None:
+                    break
+        except OSError:
+            pass
+        try:
+            sys.stderr.write(
+                "zmpi: host daemon lifeline severed — exiting\n")
+            sys.stderr.flush()
+        except OSError:
+            # stderr IS the daemon's IOF pipe: a dead daemon broke it
+            # too, and the farewell must never outrank the exit
+            pass
+        os._exit(143)
+
+    t = threading.Thread(target=watch, daemon=True,
+                         name="zmpi-lifeline")
+    t.start()
+    _host["lifeline"] = (sock, t)
 
 
 def host_world():

@@ -143,9 +143,87 @@ Fault-tolerance counters (``comm/communicator.py``, ``ft/ulfm.py``):
   recorded at each sender (``pt2pt/tcp.py``).
 - ``tcp_deferred_dials`` — live peers a control flood skipped because
   they are not overlay neighbors (per flood evaluation).
-- ``dvm_fault_events`` — authoritative daemon fault events a rank
-  ingested (``FT_DVM_CID`` frames; the daemon that sends them waits for
-  ``runtime/dvm.py``).
+
+Runtime-plane counters (the PRRTE/PMIx analog — ``runtime/pmix.py``
+records the ``pmix_*`` family in the process hosting the STORE, i.e.
+the daemon; ``runtime/dvm.py`` records the daemon-side ``dvm_*`` events
+and ``pt2pt/tcp.py`` records ``dvm_fault_events`` again in each
+SURVIVOR that ingests the frame — the daemon's ``stat`` RPC surfaces
+the daemon-side values):
+
+- ``pmix_puts`` / ``pmix_gets`` / ``pmix_fences`` — PMIx verb traffic
+  against the name-served KV store: staged puts, blocking
+  get-until-published reads (one per published key read, not per
+  wait wakeup), and completed fence ENTRIES (one per rank released,
+  not per barrier).  A cold 4-rank modex is 4 puts + 4 fence entries
+  + 16 gets.
+- ``dvm_jobs_launched`` — jobs spawned into the resident VM (one per
+  ``launch`` RPC that reached the spawn loop).
+- ``dvm_fault_events`` — authoritative daemon fault events: in the
+  daemon, one per child whose ``waitpid`` returned nonzero in an ft
+  job; in a survivor, one per NEWLY-learned corpse an ``FT_DVM_CID``
+  frame delivered (cause ``"daemon"`` — OS truth, never a detector
+  false positive).
+- ``dvm_respawns`` — replacement processes exec'd by the relaunch RPC
+  (N victims respawned in one batched RPC count N, but share ONE
+  namespace-generation bump — the same recovery window).
+- ``dvm_tree_forwards`` — store verbs a CHILD daemon pushed up its
+  parent link (``runtime/dvmtree.py``): every write
+  (put/commit/fence/mkns/…), every ``lookup`` (mutable keys are never
+  cached), and every ``get`` cache miss.  Recorded in the child
+  daemon's process.
+- ``dvm_store_cache_hits`` — blocking ``get``\\ s a child daemon served
+  from its leaf-local cache instead of forwarding (single-flight
+  waiters of an in-flight fetch count here once it lands).
+- ``dvm_resizes`` — elastic resize RPCs the root daemon applied (one
+  per grow or shrink event published, however many ranks it spawned
+  or retired).
+- ``dvm_jobs_queued`` — launches the admission queue actually BLOCKED
+  (the client saw at least one ``[queued, pos]`` frame) before
+  admitting; an uncontended launch admits without counting.
+- ``dvm_queue_wait_ms`` — WATERMARK: the longest a launch waited in
+  the admission queue (milliseconds, enqueue to admission) — the
+  multi-tenant head-of-line latency the soak harness reports.
+- ``dvm_placement_fallbacks`` — exclusive-placement requests that
+  found no free daemon and degraded (loudly, with a client note) to
+  spread; the capacity-exceeded signal, deliberately distinct from
+  audit failures.
+- ``dvm_placement_audit_failures`` — per-job placement audits that
+  caught two live jobs sharing sessions/namespaces/exclusive
+  subtrees; each raised a typed PlacementViolation and failed the
+  launch.  Must stay zero in any healthy run.
+- ``store_leaf_cache_hits`` / ``store_leaf_cache_misses`` — the leaf
+  cache's hit/miss split on the generation-floored read path
+  (``runtime/dvmtree.py``): hits serve locally (and additionally count
+  in ``dvm_store_cache_hits``), misses forward up; the floor guarantees
+  a post-respawn get can never count a corpse-incarnation entry as a
+  hit.
+- ``dvm_tree_routed_launches`` — spawn frames the root sent DOWN the
+  daemon tree (one per remote daemon per launch/respawn/grow batch).
+
+Serving-plane counters (the continuous-batching inference loop —
+``models/inferloop.py`` records them; rank 0 of a serving job is the
+request plane's control point, so its published snapshot carries the
+load signal the operator-side LoadController scrapes):
+
+- ``infer_requests_submitted`` — requests submitted into a serving
+  queue (monotone; the backlog gauge the elastic policy keys on is
+  ``infer_requests_submitted`` − ``infer_requests_served`` — the
+  counter-difference idiom, derivable from any published snapshot).
+- ``infer_requests_served`` — requests resolved by a completed serve
+  step (rank 0 resolves the whole admitted batch at the step
+  boundary).
+- ``infer_queue_depth_max`` — WATERMARK: the deepest the request
+  backlog ever got, observed at each admission boundary; a burst the
+  resize policy absorbed is still visible here after the queue
+  drains.
+- ``infer_requeues`` — in-flight requests a typed fault sent BACK to
+  the queue head (served or requeued, never silently dropped — the
+  mid-serve kill drill's conservation gate).
+- ``infer_resizes`` — elastic membership changes the serving loop
+  applied at a step boundary (the worker-side count of the closed
+  observability→runtime loop; the daemon's ``dvm_resizes`` is the
+  operator-side twin).
 
 Checkpoint-I/O-plane counters (``io/ckptio.py`` records them at the
 two-phase writer, the digest-verified restore and the deadline-bounded
@@ -181,8 +259,14 @@ One-sided and PGAS counters (``shmem/device.py``):
 - ``pgas_device_epochs`` — device-heap epoch advances (the PGAS
   quiet/fence boundary on the device plane).
 
-Observability-plane counters (``runtime/flightrec.py``):
+Observability-plane counters (this module's :class:`MetricsPublisher`
+and ``runtime/flightrec.py``):
 
+- ``spc_publishes`` — metrics snapshots published into the PMIx store
+  by the rank-side publisher (the periodic interval ticks plus the
+  guaranteed final flush at close — a short-lived job is never
+  invisible).  The interval is ``spc_publish_interval_ms`` (default
+  1000), clamped to a 250 ms floor.
 - ``flightrec_events_dropped`` — flight-recorder ring overwrites: typed
   events displaced from the fixed-size window before anyone read them
   (``flightrec_capacity`` slots).
@@ -193,6 +277,13 @@ Tracing-plane counters (``runtime/ztrace.py``):
   ring while the tracing plane is armed.
 - ``trace_spans_dropped`` — span-ring overwrites: spans displaced from the
   fixed-size buffer (``ztrace_capacity`` slots).
+
+Self-tuning-plane counters (``runtime/pmix.py`` serves the table that
+``coll/ztable.py`` reads):
+
+- ``tuned_table_store_fetches`` — published tables actually fetched
+  from a DVM's PMIx store (once per process; the negative result is
+  cached too).
 
 Templated counter families (dynamic names routed through literal templates
 at the call site):
@@ -207,10 +298,24 @@ from __future__ import annotations
 
 import re
 import threading
+import time
+import weakref
 from collections import defaultdict
 
 from ..core import errors
+from ..mca import output as mca_output
 from ..mca import var as mca_var
+
+_stream = mca_output.open_stream("spc")
+
+mca_var.register(
+    "spc_publish_interval_ms", 1000,
+    "Milliseconds between metrics-plane snapshot publishes into the "
+    "PMIx store (rank-side publisher, armed by ZMPI_METRICS); clamped "
+    "to a 250 ms floor — the publisher must never become sub-interval "
+    "polling",
+    type=int,
+)
 
 # the metrics-plane counters form their own pvar family (spc.metrics)
 mca_var.register_family("spc_publishes", "metrics")
@@ -222,6 +327,10 @@ _reset_epoch = 0
 
 WATERMARK = {"max_bytes_in_collective", "match_unexpected_max_depth",
              "dvm_queue_wait_ms", "infer_queue_depth_max"}
+
+#: publisher interval floor (seconds): below this a fleet of publishers
+#: degenerates into sub-interval polling on shared cores
+PUBLISH_FLOOR_S = 0.25
 
 
 def record(name: str, value: int = 1) -> None:
@@ -299,21 +408,201 @@ def documented_counters() -> frozenset[str]:
 
 # ========================= rank-side publisher =============================
 
+# hygiene registry (read by the tests' hygiene asserts): publisher
+# threads must die with the proc that started them
+_live_publishers: weakref.WeakSet = weakref.WeakSet()
+
 
 def live_publisher_threads() -> list[str]:
-    """Metrics-publisher threads still alive: always [] in the port, which
-    cannot start one until ``runtime/pmix.py`` is ported."""
-    return []
+    """Metrics-publisher threads still alive — must be [] once every
+    proc's close() ran (the final-flush-then-stop contract)."""
+    return [
+        f"spc-publisher:{p.name}"
+        for p in list(_live_publishers)
+        if p.is_alive()
+    ]
 
 
-class MetricsPublisher:
-    """The rank-side half of the metrics plane, which publishes SPC
-    snapshots into the DVM's PMIx store.  It needs ``runtime/pmix.py``'s
-    store client, which the port has not ported yet: constructing one
-    raises."""
+class MetricsPublisher(threading.Thread):
+    """The rank-side half of the metrics plane: a daemon thread that
+    publishes generation-tagged ``metrics:<job>:<rank>`` snapshots
+    (full SPC table zero-filled from the documented universe, plus
+    watermark labels and live state pvars) into the PMIx store every
+    ``spc_publish_interval_ms`` (>= 250 ms), with one snapshot at
+    start and a guaranteed final flush at :meth:`stop` — a job shorter
+    than one interval is still visible.  On a typed failure
+    classification the owning proc's failure listener calls
+    :meth:`on_classification`, which ships the flight recorder's
+    last-N window under ``flightrec:<job>:<rank>`` (the classification
+    event is the tail entry by construction: the FailureState records
+    it before notifying listeners).
+
+    The store traffic rides one :class:`~zhpe_ompi_tpu_torch.runtime.pmix
+    .PmixClient` (its own socket; the client lock serializes the
+    interval thread against a classification-path flightrec publish).
+    Waits are event-based (``Event.wait(interval)``) — never polling.
+    """
 
     def __init__(self, pmix_addr, namespace: str, rank: int,
                  trace: bool = False):
-        raise errors.UnsupportedError(
-            "MetricsPublisher publishes into the PMIx store, which needs "
-            "runtime/pmix.py; the PyTorch port has not ported it yet")
+        super().__init__(
+            daemon=True, name=f"spc-pub-{namespace}-{rank}",
+        )
+        from . import pmix as pmix_mod
+
+        self.namespace = str(namespace)
+        self.rank = int(rank)
+        var_ms = int(mca_var.get("spc_publish_interval_ms", 1000))
+        # the 250 ms floor is a hard contract, not a default
+        self.interval = max(PUBLISH_FLOOR_S, var_ms / 1000.0)
+        self._client = pmix_mod.PmixClient(pmix_addr, timeout=10.0)
+        self._halt = threading.Event()
+        self._dead = False
+        self._launched = False
+        self._seq = 0
+        self._seq_lock = threading.Lock()
+        # the flight recorder is armed for this publisher's whole life
+        # (ctor to stop), so the postmortem window covers everything
+        # the owning proc did — not just what happened after the
+        # publisher thread got scheduled
+        from . import flightrec
+
+        flightrec.arm()
+        # tracing plane (opt-in on top of metrics): arm the span
+        # recorder the same way and ship the trace buffer as
+        # trace:<job>:<rank> with every snapshot — a victim killed -9
+        # mid-job leaves its LAST periodic buffer in the store (the
+        # postmortem the merged timeline is built from); the final
+        # flush at stop() ships the rest
+        self._trace = bool(trace)
+        if self._trace:
+            from . import ztrace
+
+            ztrace.arm(match_events=True)
+        self._armed = True
+        _live_publishers.add(self)
+
+    # -- payloads ---------------------------------------------------------
+
+    def _snapshot_payload(self, final: bool) -> dict:
+        counters = {name: 0 for name in documented_counters()}
+        counters.update(snapshot())
+        # the live state pvars come from tools/mpit.py, which the port
+        # has not ported: the snapshot carries the counters and an
+        # empty pvar table (the namesake's counters-only degradation)
+        pvars: dict[str, float] = {}
+        with self._seq_lock:
+            seq = self._seq
+            self._seq += 1
+        return {
+            "seq": seq,
+            "t": time.time(),
+            "interval_ms": int(self.interval * 1000),
+            "final": bool(final),
+            "counters": counters,
+            "watermark": sorted(n for n in counters if n in WATERMARK),
+            "pvars": pvars,
+        }
+
+    def _put(self, key: str, payload) -> None:
+        self._client.put(self.namespace, self.rank, key, payload)
+        self._client.commit(self.namespace, self.rank)
+
+    def publish(self, final: bool = False) -> bool:
+        """One snapshot into the store; False once the store refuses
+        (namespace destroyed / daemon gone — the publisher is outliving
+        its job and stops)."""
+        if self._dead:
+            return False
+        # counted BEFORE the snapshot is built, so every shipped
+        # snapshot carries its own publish (the very first one already
+        # reads spc_publishes == 1 — the acceptance gate's "rises")
+        record("spc_publishes")
+        payload = self._snapshot_payload(final)
+        try:
+            self._put(f"metrics:{self.namespace}:{self.rank}", payload)
+            if self._trace:
+                from . import ztrace
+
+                self._put(f"trace:{self.namespace}:{self.rank}",
+                          ztrace.payload(self.rank))
+        except errors.MpiError as e:
+            self._dead = True
+            mca_output.verbose(
+                2, _stream, "metrics publisher %s: store refused "
+                "publish (%s); stopping", self.name, e,
+            )
+            return False
+        return True
+
+    def on_classification(self, failed_rank: int, cause: str) -> None:
+        """Failure-listener hook: ship the flight-recorder window under
+        ``flightrec:<job>:<rank>``.  The FT_CLASS event for
+        ``failed_rank`` is already in the ring (FailureState records
+        before it notifies), so it is the window's tail entry."""
+        if self._dead:
+            return
+        from . import flightrec
+
+        wall, mono = flightrec.anchors()
+        try:
+            # events stamp monotonic ns (merge-safe under NTP steps);
+            # the ring's wall anchor ships WITH the window so store
+            # consumers can map the stamps onto the wall clock
+            self._put(f"flightrec:{self.namespace}:{self.rank}",
+                      {"anchor_wall": wall, "anchor_mono_ns": mono,
+                       "events": flightrec.window()})
+        except errors.MpiError as e:
+            mca_output.verbose(
+                2, _stream, "metrics publisher %s: flightrec publish "
+                "failed (%s)", self.name, e,
+            )
+
+    # -- lifecycle --------------------------------------------------------
+
+    def run(self) -> None:
+        try:
+            if not self.publish():  # the start-of-life snapshot
+                return
+            while not self._halt.wait(self.interval):
+                if not self.publish():
+                    return
+            self.publish(final=True)  # the guaranteed final flush
+        finally:
+            self._client.close()
+
+    def start(self) -> None:
+        # _launched flips only AFTER start() returns: a start() that
+        # raises (thread exhaustion, interpreter shutdown) must leave
+        # stop() on the never-started path — joining an unstarted
+        # thread raises and would mask the ctor's original error
+        super().start()
+        self._launched = True
+
+    def stop(self, timeout: float = 5.0) -> None:
+        """Signal the final flush and join (bounded) — the owning
+        proc's close() path.  A publisher that was never started (a
+        constructor that failed later) still owns its client socket
+        and its flight-recorder arm refcount."""
+        self._halt.set()
+        if self._armed:
+            from . import flightrec
+
+            flightrec.disarm()
+            if self._trace:
+                from . import ztrace
+
+                ztrace.disarm(match_events=True)
+            self._armed = False
+        if not self._launched:
+            self._client.close()
+            return
+        self.join(timeout)
+
+    def abort(self, timeout: float = 5.0) -> None:
+        """The crash path (``sever()``): stop WITHOUT the final flush —
+        a clean final snapshot from a simulated corpse would lie to
+        the fleet — but the thread still dies with the proc."""
+        self._dead = True
+        self.stop(timeout)
+
