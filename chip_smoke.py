@@ -274,11 +274,44 @@ Phases, each of which exits non-zero on failure:
    re-broadcast), the requeued tickets' extra latency, the elastic run's
    controller-vote-to-adopted-resize ms, the peak device bytes per rank
    and the phase's seconds.
-21. Print one ``{"kernels": [...]}`` line (``launches``: per training
+21. One-sided, PGAS, MPI-IO and dynamic processes (``drive_osc_io``): 4
+   children of this script (``--osc-io-child``) through
+   ``zmpi.host_init()`` with the sm var at its default (this process hosts
+   the rendezvous; ``df /dev/shm`` is printed first), each holding the
+   flagship on the card.  Rank 0 makes the f32 parameters from
+   ``OSC_SEED`` on the card (234,917,888 bytes) and stages them to the
+   host through a pinned buffer; ``osc/direct.allocate_window`` places
+   them in an sm RMA region (sized from /dev/shm's free bytes: the
+   parameters go in as many ``window_bcast`` calls as the region needs)
+   and ``window_bcast`` hands them to ranks 1-3 as direct mapped loads;
+   each rank copies them to the card.  Gates: every rank's parameter
+   digest is rank 0's; ``osc_direct_bytes`` rises by the payload on each
+   pulling rank (twice on rank 0: its store and its own load);
+   ``osc_am_fallbacks`` stays 0; the wire and ring bytes during the pull
+   stay within ``OSC_CONTROL_BYTES`` (the control bcast).  Then the AM
+   contrast: a 16 MiB ``window_bcast`` with ``osc_direct=0`` (exact, no
+   direct bytes, the replies carry the payload).  Each rank runs
+   ``transformer.forward`` on its 4 rows of a batch of 16 at seq 512
+   (exactly 9 layernorm-forward and 4 flash-forward launches by its
+   thread's tally), writes its rows' per-token CE (f32, 4 x 512) through a
+   ``WireFile`` view at its displacement with ``write_all`` and one record
+   through the shared file pointer (``write_shared``); this process reads
+   the file back against its own forward of all 16 rows (mean CE and every
+   row's mean CE within ``OSC_CE_TOL``; exactly 4 records).  ``shmem_pe``
+   picks ``mmap`` for the 4 same-host processes and each rank
+   ``atomic_add``s its scored tokens into rank 0's counter (exact at
+   16 x 512).  Last, the group ``dpm_wire.spawn``s 2 children
+   (``method="spawn"``), which receive the CE file's path by ``bcast``,
+   read it with their own ``WireFile.read_all`` and return the sum by
+   ``allreduce``: it must equal rank 0's (relative 1e-9).  Printed: a
+   ``{"osc_io": ...}`` line with the pull and H2D ms per rank, the AM
+   contrast's ms and counters, the CE errors, the PGAS counter, the
+   spawn-to-connected ms and the phase's seconds.
+22. Print one ``{"kernels": [...]}`` line (``launches``: per training
    step; ``launches_by_path``: per forward, training, remat, sp, runtime,
-   long-context, Adam, ft rank, hybrid, ZeRO and serve step), the smoke's
-   total seconds, the card's line, and last ``{"ok": true, "device":
-   {...}}``.
+   long-context, Adam, ft rank, hybrid, ZeRO, serve step and phase 21's
+   forward), the smoke's total seconds, the card's line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
@@ -321,6 +354,11 @@ is its child.
     python3 chip_smoke.py --hybrid
 
 runs only phase 19 (after the kernel build); ``--hybrid-child`` is its
+child.
+
+    python3 chip_smoke.py --osc-io
+
+runs only phase 21 (after the kernel build); ``--osc-io-child`` is its
 child.
 
     python3 chip_smoke.py --bench-after
@@ -546,6 +584,27 @@ SERVE_JOB_S = 600.0
 SERVE_REJOIN_S = 240.0
 SERVE_MCA = [("ft_detector_period", "2.0"), ("ft_detector_timeout", "60.0"),
              ("spc_publish_interval_ms", "300")]
+
+# Phase 21 (drive_osc_io): OSC_RANKS host_init children, the flagship on
+# the card in each; its parameters from OSC_SEED reach ranks 1-3 by the
+# direct RMA window (osc/direct.window_bcast), an OSC_AM_BYTES broadcast with
+# osc_direct=0 is the AM contrast, and each rank's OSC_ROWS rows of a batch
+# of OSC_BATCH go through the forward, a WireFile, a PGAS counter and
+# OSC_SPAWN spawned readers.  OSC_CE_TOL bounds the file's mean CE and each
+# row's mean CE against this process's forward of all rows (the serve
+# phase's bound: the rows' forward runs at batch 4 in a child, at 16 here);
+# OSC_CONTROL_BYTES bounds what a rank sends on the wire and the rings while
+# the direct pull runs (the control bcast and barrier).
+OSC_DEVICE = "cuda"
+OSC_RANKS = 4
+OSC_BATCH = 16
+OSC_ROWS = OSC_BATCH // OSC_RANKS
+OSC_SEED = 2313
+OSC_AM_BYTES = 16 << 20
+OSC_CE_TOL = LOSS_TOL
+OSC_SPAWN = 2
+OSC_CONTROL_BYTES = 1 << 20
+OSC_TIMEOUT_S = 600.0
 
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
 # sequence, so the ring's mbarrier phases wrap many times (64 key or query
@@ -3475,6 +3534,391 @@ def drive_serve(torch, np, tfm, card_line) -> dict:
     return report
 
 
+# -- phase 21: one-sided, PGAS, MPI-IO and dynamic processes -----------------
+
+
+def _osc_tokens(np, cfg):
+    """Phase 21's batch: (tokens, targets) of OSC_BATCH rows, one seed."""
+    rng = np.random.default_rng(OSC_SEED + 1)
+    return tuple(rng.integers(0, cfg.vocab, (OSC_BATCH, cfg.seq), dtype=np.int64)
+                 for _ in range(2))
+
+
+def _osc_ce(torch, F, tfm, params, tok, tgt, cfg):
+    """Per-token cross-entropy (f32, rows x seq) of one forward."""
+    logits = tfm.forward(params, tok, cfg)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                           tgt.reshape(-1), reduction="none").view(tok.shape)
+
+
+def _shm_bytes() -> tuple[int, str]:
+    """(available bytes, ``df`` line) of the segment directory (/dev/shm)."""
+    from zhpe_ompi_tpu_torch.pt2pt import sm
+
+    d = sm.segment_dir()
+    st = os.statvfs(d)
+    out = subprocess.run(["df", "-B1", d], capture_output=True, text=True,
+                         timeout=60)
+    return st.f_bavail * st.f_frsize, out.stdout.strip().splitlines()[-1]
+
+
+def osc_io_spawned(proc, parent) -> None:
+    """Phase 21's spawned child (``dpm_wire.spawn`` pickles it by name):
+    it receives the CE file's path and element count by the parents'
+    bcast, reads its half with its own ``WireFile.read_all`` and returns
+    the float64 sum through the intercomm's allreduce."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from zhpe_ompi_tpu_torch import ops
+    from zhpe_ompi_tpu_torch.datatype import FLOAT
+    from zhpe_ompi_tpu_torch.io import file as iofile
+    from zhpe_ompi_tpu_torch.io.wirefile import WireFile
+
+    path, count = parent.bcast(None, root=0)
+    half = count // proc.size
+    with WireFile(proc, path, iofile.MODE_RDONLY) as f:
+        f.set_view(0, FLOAT)
+        f.seek(proc.rank * half)
+        mine = f.read_all(half)
+    parent.allreduce(float(np.asarray(mine, np.float64).sum()), ops.SUM)
+    parent.barrier()
+
+
+def osc_io_child() -> int:
+    """Phase 21's child: one rank of the job through ``zmpi.host_init``
+    (see the module doc); prints one JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch import _build, ops
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+    from zhpe_ompi_tpu_torch.coll import inter
+    from zhpe_ompi_tpu_torch.comm import dpm_wire
+    from zhpe_ompi_tpu_torch.datatype import FLOAT
+    from zhpe_ompi_tpu_torch.io import file as iofile
+    from zhpe_ompi_tpu_torch.io.wirefile import WireFile
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.models import transformer as tfm
+    from zhpe_ompi_tpu_torch.osc import direct
+    from zhpe_ompi_tpu_torch.runtime import spc
+    from zhpe_ompi_tpu_torch.shmem import spml
+
+    on_card = OSC_DEVICE == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    ep = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    r, n = ep.rank, ep.size
+    out = {"rank": r, "sm": ep._sm_seg is not None}
+    names = sorted(_serve_param_shapes(cfg))
+    # the CUDA context first: its start-up is no part of a copy's time
+    torch.zeros(1, device=OSC_DEVICE)
+    sync()
+    counters = ("osc_direct_bytes", "osc_direct_gets", "osc_am_fallbacks",
+                "osc_am_applied", "osc_gets", "tcp_bytes_sent", "sm_bytes_sent")
+
+    def snap():
+        return {k: spc.read(k) for k in counters}
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in counters}
+
+    # 1. the weights by RMA: rank 0 stages them through a pinned buffer,
+    # every rank pulls them from its window region and copies them to the card
+    if r == 0:
+        params0 = tfm.params_from_numpy(numpy_params(cfg, OSC_SEED), cfg,
+                                        device=OSC_DEVICE)
+        total = sum(params0[k].numel() for k in names)
+        t = time.perf_counter()
+        staged = torch.empty(total, dtype=torch.float32, pin_memory=on_card)
+        off = 0
+        for k in names:
+            m = params0[k].numel()
+            staged[off:off + m].copy_(params0[k].reshape(-1), non_blocking=True)
+            off += m
+        sync()
+        out["stage_d2h_ms"] = (time.perf_counter() - t) * 1e3
+        out["digest0"] = _params_digest(torch, params0)
+        del params0
+        shm_free, _ = _shm_bytes()
+        chunk = min(total, max(1 << 18, (shm_free - (32 << 20)) // 8))
+        ep.bcast((total, chunk), root=0)
+    else:
+        staged = None
+        total, chunk = ep.bcast(None, root=0)
+    out["payload_bytes"], out["region_bytes"] = total * 4, chunk * 4
+    win = direct.allocate_window(ep, chunk * 4 if r == 0 else 0, np.float32)
+    out["direct_capable"] = win._direct_capable
+    # the pull lands in a pinned host buffer (window_bcast's out=), whence
+    # one copy takes it to the card
+    host = torch.empty(total, dtype=torch.float32, pin_memory=on_card)
+    c0 = snap()
+    t = time.perf_counter()
+    for lo in range(0, total, chunk):
+        direct.window_bcast(win, staged[lo:lo + chunk] if r == 0 else None,
+                            root=0, out=host[lo:lo + chunk])
+        if chunk < total:
+            ep.barrier()  # every pull done before rank 0 stores the next part
+    out["pull_ms"] = (time.perf_counter() - t) * 1e3
+    ep.barrier()
+    out["rma"] = delta(c0, snap())
+    if chunk == total:
+        # the mapped load alone: the pull above also waits for rank 0's
+        # store into fresh tmpfs pages
+        t = time.perf_counter()
+        win.get(0, 0, total, out=host)
+        out["load_ms"] = (time.perf_counter() - t) * 1e3
+    ep.barrier()
+    win.free()
+    t = time.perf_counter()
+    flat = host.to(OSC_DEVICE, non_blocking=True)
+    sync()
+    out["h2d_ms"] = (time.perf_counter() - t) * 1e3
+    params, off = {}, 0
+    for k, shape in ((k, _serve_param_shapes(cfg)[k]) for k in names):
+        m = math.prod(shape)
+        params[k] = flat[off:off + m].view(shape)
+        off += m
+    out["digest"] = _params_digest(torch, params)
+    del host, staged
+
+    # 2. the AM contrast: the same window_bcast with the direct plane off
+    mca_var.set_var("osc_direct", 0)
+    try:
+        am_elems = OSC_AM_BYTES // 4
+        awin = direct.allocate_window(ep, OSC_AM_BYTES if r == 0 else 0, np.float32)
+        c0 = snap()
+        t = time.perf_counter()
+        got = direct.window_bcast(
+            awin, flat[:am_elems].cpu() if r == 0 else None, root=0)
+        out["am_ms"] = (time.perf_counter() - t) * 1e3
+        ep.barrier()  # rank 0's service has answered every pull
+        out["am"] = delta(c0, snap())
+        out["am_payload_bytes"] = int(got.nbytes)
+        out["am_exact"] = bool(np.array_equal(got, flat[:am_elems].cpu().numpy()))
+        out["am_direct_capable"] = awin._direct_capable
+        awin.free()
+    finally:
+        mca_var.unset("osc_direct")
+
+    # 3. the forward on this rank's rows, its kernel launches by this
+    # thread's tally
+    tok, tgt = (torch.from_numpy(a[r * OSC_ROWS:(r + 1) * OSC_ROWS]).to(OSC_DEVICE)
+                for a in _osc_tokens(np, cfg))
+    with torch.no_grad():
+        _osc_ce(torch, F, tfm, params, tok, tgt, cfg)  # the libraries' set-up
+        sync()
+        before = _build.thread_launches()
+        t = time.perf_counter()
+        ce = _osc_ce(torch, F, tfm, params, tok, tgt, cfg)
+        sync()
+        out["forward_ms"] = (time.perf_counter() - t) * 1e3
+        after = _build.thread_launches()
+    out["launches"] = {k: v - before.get(k, 0) for k, v in after.items()
+                       if v != before.get(k, 0)}
+    ce_host = ce.cpu().numpy().astype(np.float32)
+
+    # 4. MPI-IO: the CE rows at this rank's displacement, then one shared-
+    # pointer record each
+    path = os.environ["ZMPI_OSC_FILE"]
+    t = time.perf_counter()
+    with WireFile(ep, path, iofile.MODE_CREATE | iofile.MODE_RDWR) as f:
+        f.set_view(r * ce_host.nbytes, FLOAT)
+        f.write_all(ce_host)
+        f.set_view(0, FLOAT)
+        f.seek_shared(OSC_BATCH * cfg.seq)
+        f.write_shared(np.array([r, ce_host.size, ce_host.astype(np.float64).sum(), 0],
+                                np.float32))
+        ep.barrier()
+        out["shared_end"] = f.tell_shared()
+    out["io_ms"] = (time.perf_counter() - t) * 1e3
+
+    # 5. PGAS: every rank adds its scored tokens to rank 0's counter
+    pe = spml.shmem_pe(ep, heap_bytes=1 << 16)
+    out["spml"] = spml.select_spml(ep).name
+    out["pe_backend"] = type(pe._backend).__name__
+    cnt = pe.shmalloc(1, np.int64)
+    pe.local(cnt)[...] = 0
+    pe.barrier_all()
+    pe.atomic_add(cnt, int(ce_host.size), 0)
+    pe.barrier_all()
+    out["pgas_counter"] = int(pe.atomic_fetch(cnt, 0))
+    pe.finalize()
+
+    # 6. dynamic processes: 2 spawned children read the CE file and return
+    # its sum over the intercomm
+    t = time.perf_counter()
+    ic, handle = dpm_wire.spawn(ep, osc_io_spawned, n_children=OSC_SPAWN,
+                                timeout=HOST_TIMEOUT_S)
+    out["spawn_to_connected_ms"] = (time.perf_counter() - t) * 1e3
+    root = inter.ROOT if r == 0 else inter.PROC_NULL
+    ic.bcast((path, OSC_BATCH * cfg.seq) if r == 0 else None, root=root)
+    out["children_sum"] = float(ic.allreduce(0.0, ops.SUM))
+    ic.barrier()
+    if r == 0:
+        handle.join(HOST_TIMEOUT_S)
+        with open(path, "rb") as fh:
+            raw = np.frombuffer(fh.read(), np.float32)
+        out["own_sum"] = float(raw[:OSC_BATCH * cfg.seq].astype(np.float64).sum())
+    ep.barrier()
+    zmpi.host_finalize()
+    print(json.dumps(out))
+    return 0
+
+
+def drive_osc_io(torch, np, tfm, card_line) -> dict:
+    """Phase 21: OSC_RANKS children of this script (``--osc-io-child``)
+    through ``zmpi.host_init`` with the sm var at its default (this process
+    hosts the rendezvous), each with the flagship on the card (see the
+    module doc).  Fails unless every gate holds."""
+    import socket
+
+    import torch.nn.functional as F
+
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+
+    t_phase = time.perf_counter()
+    shm_free, df_line = _shm_bytes()
+    print(f"osc_io: df /dev/shm: {df_line}")
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(OSC_RANKS)
+    srv.settimeout(HOST_TIMEOUT_S)
+    host, port = srv.getsockname()
+    tmp = tempfile.mkdtemp(prefix="osc_io_")
+    path = os.path.join(tmp, "ce.bin")
+    env = dict(os.environ, ZMPI_SIZE=str(OSC_RANKS), ZMPI_COORD_HOST=host,
+               ZMPI_COORD_PORT=str(port), ZMPI_COORD_EXTERNAL="1",
+               ZMPI_OSC_FILE=path)
+    for k in ("ZMPI_PMIX", "ZMPI_FT", "ZMPI_MCA_sm", "ZMPI_MCA_osc_direct"):
+        env.pop(k, None)
+    children = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--osc-io-child"],
+        env=dict(env, ZMPI_RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(OSC_RANKS)]
+    try:
+        _host_rendezvous(srv, OSC_RANKS)
+        outs = [c.communicate(timeout=OSC_TIMEOUT_S) for c in children]
+    finally:
+        srv.close()
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    res = []
+    for r, (c, (out, err)) in enumerate(zip(children, outs)):
+        lines = out.strip().splitlines()
+        if c.returncode != 0 or not lines:
+            raise SystemExit(f"osc_io: rank {r} exited {c.returncode}\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
+        res.append(json.loads(lines[-1]))
+    with open(path, "rb") as fh:
+        raw = np.frombuffer(fh.read(), np.float32).copy()
+    for name in os.listdir(tmp):
+        os.unlink(os.path.join(tmp, name))
+    os.rmdir(tmp)
+
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    n_tok = OSC_BATCH * cfg.seq
+    payload = res[0]["payload_bytes"]
+    # 1. weights by RMA
+    for x in res:
+        if x["digest"] != res[0]["digest0"] or not x["sm"] or not x["direct_capable"]:
+            raise SystemExit(f"osc_io: rank {x['rank']} parameters {x['digest']} vs "
+                             f"{res[0]['digest0']} (sm {x['sm']}, direct "
+                             f"{x['direct_capable']})")
+        want = payload * (2 if x["rank"] == 0 else 1)
+        rma = x["rma"]
+        if rma["osc_direct_bytes"] != want or rma["osc_am_fallbacks"] != 0:
+            raise SystemExit(f"osc_io: rank {x['rank']} direct bytes {rma} "
+                             f"(expected {want}, no AM fallback)")
+        if rma["tcp_bytes_sent"] + rma["sm_bytes_sent"] > OSC_CONTROL_BYTES:
+            raise SystemExit(f"osc_io: rank {x['rank']} moved {rma} on the wire and "
+                             f"rings during the direct pull (control only: at most "
+                             f"{OSC_CONTROL_BYTES})")
+    # 2. the AM contrast
+    for x in res:
+        am = x["am"]
+        if not x["am_exact"] or x["am_direct_capable"] or am["osc_direct_bytes"]:
+            raise SystemExit(f"osc_io: rank {x['rank']} AM contrast {am}")
+    if res[0]["am"]["tcp_bytes_sent"] + res[0]["am"]["sm_bytes_sent"] < \
+            (OSC_RANKS - 1) * res[0]["am_payload_bytes"]:
+        raise SystemExit(f"osc_io: the AM replies did not carry the payload: "
+                         f"{res[0]['am']}")
+    # 3. the forward's launches
+    want_l = {"ln_fwd": 2 * cfg.n_layers + 1, "flash_fwd": cfg.n_layers} \
+        if OSC_DEVICE == "cuda" else {}
+    for x in res:
+        if x["launches"] != want_l:
+            raise SystemExit(f"osc_io: rank {x['rank']} forward launched "
+                             f"{x['launches']} (expected {want_l})")
+    # 4. the CE file against this process's forward of all rows
+    tok, tgt = (torch.from_numpy(a).to(OSC_DEVICE) for a in _osc_tokens(np, cfg))
+    params = tfm.params_from_numpy(numpy_params(cfg, OSC_SEED), cfg, device=OSC_DEVICE)
+    with torch.no_grad():
+        ref = _osc_ce(torch, F, tfm, params, tok, tgt, cfg).cpu().numpy()
+    del params
+    ce = raw[:n_tok].reshape(OSC_BATCH, cfg.seq)
+    if not np.isfinite(ce).all():
+        raise SystemExit("osc_io: the CE file holds non-finite values")
+    mean_err = abs(float(ce.mean()) - float(ref.mean()))
+    row_err = float(np.abs(ce.mean(1) - ref.mean(1)).max())
+    tok_err = float(np.abs(ce - ref).max())
+    if mean_err > OSC_CE_TOL or row_err > OSC_CE_TOL:
+        raise SystemExit(f"osc_io: the CE file's mean differs by {mean_err}, a row's "
+                         f"by {row_err} (tolerance {OSC_CE_TOL})")
+    recs = raw[n_tok:].reshape(-1, 4)
+    if len(recs) != OSC_RANKS or sorted(recs[:, 0].tolist()) != list(range(OSC_RANKS)) \
+            or any(x["shared_end"] != n_tok + 4 * OSC_RANKS for x in res):
+        raise SystemExit(f"osc_io: shared-pointer records {recs.tolist()}")
+    # 5. PGAS
+    for x in res:
+        if x["spml"] != "mmap" or x["pe_backend"] != "MmapBackend" \
+                or x["pgas_counter"] != n_tok:
+            raise SystemExit(f"osc_io: rank {x['rank']} PGAS {x['spml']} "
+                             f"{x['pe_backend']} counter {x['pgas_counter']} "
+                             f"(expected {n_tok})")
+    # 6. the spawned children's sum
+    own = res[0]["own_sum"]
+    if any(abs(x["children_sum"] - own) > 1e-9 * abs(own) for x in res):
+        raise SystemExit(f"osc_io: the children's sum {[x['children_sum'] for x in res]}"
+                         f" vs rank 0's {own}")
+    report = {
+        "ranks": OSC_RANKS, "shm_free_bytes": shm_free,
+        "payload_bytes": payload, "region_bytes": res[0]["region_bytes"],
+        "stage_d2h_ms": res[0]["stage_d2h_ms"],
+        "pull_ms": [x["pull_ms"] for x in res],
+        "load_ms": [x.get("load_ms") for x in res],
+        "h2d_ms": [x["h2d_ms"] for x in res],
+        "rma_counters": [x["rma"] for x in res],
+        "am_bytes": res[0]["am_payload_bytes"],
+        "am_ms": [x["am_ms"] for x in res],
+        "am_counters": [x["am"] for x in res],
+        "forward_ms": [x["forward_ms"] for x in res],
+        "launches_per_forward": res[0]["launches"],
+        "ce_mean_abs_err": mean_err, "ce_row_max_abs_err": row_err,
+        "ce_token_max_abs_err": tok_err, "ce_tol": OSC_CE_TOL,
+        "shared_records": len(recs), "io_ms": [x["io_ms"] for x in res],
+        "pgas_counter": res[0]["pgas_counter"],
+        "spawn_to_connected_ms": [x["spawn_to_connected_ms"] for x in res],
+        "children_sum": res[0]["children_sum"], "own_sum": own,
+        "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"osc_io": report, "card": card_line}))
+    print(f"osc_io ({OSC_RANKS} host_init ranks, flagship width): weights "
+          f"{payload} B by direct RMA pull {report['pull_ms']} ms (the mapped load "
+          f"alone {report['load_ms']} ms) and H2D "
+          f"{report['h2d_ms']} ms per rank (region {report['region_bytes']} B); AM "
+          f"contrast {report['am_bytes']} B in {report['am_ms']} ms; forward launches "
+          f"{report['launches_per_forward']}; CE file vs one-process forward: mean "
+          f"{mean_err}, row {row_err}, token {tok_err} (tolerance {OSC_CE_TOL}); "
+          f"{len(recs)} shared records; PGAS counter {report['pgas_counter']}; "
+          f"spawn-to-connected {report['spawn_to_connected_ms'][0]} ms; phase "
+          f"{report['phase_s']} s on {card_line}")
+    return report
+
+
 def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
     """Phase 5: the MPI entry point, the monitored train step, the ULFM
     methods on CUDA tensors, the device probe, the bench, finalize."""
@@ -3889,6 +4333,26 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _take_widths()
         return hybrid_child()
+    if args == ["--osc-io-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        return osc_io_child()
+    if args == ["--osc-io"]:
+        # phase 21 alone, after the kernel build
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        import numpy as np
+
+        from zhpe_ompi_tpu_torch import _build
+        from zhpe_ompi_tpu_torch.models import transformer as tfm
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card_line = _card_line()
+        print(f"card: {card_line}")
+        print(f"kernel build: per source {_build.build()}")
+        drive_osc_io(torch, np, tfm, card_line)
+        print(card_line)
+        return 0
     if args == ["--ft-dvm-child"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return ft_dvm_child()
@@ -3960,7 +4424,8 @@ def main() -> int:
         print("usage: chip_smoke.py [--bench-after | --wrapper-host-us PORT_ROOT "
               "| --compare-host-us OTHER_ROOT [PAIRS] | --host-plane "
               "| --host-moe-child | --ft | --ft-child | --ft-dvm-child | --hybrid "
-              "| --hybrid-child | --serve | --serve-child kill|elastic]",
+              "| --hybrid-child | --serve | --serve-child kill|elastic "
+              "| --osc-io | --osc-io-child]",
               file=sys.stderr)
         return 2
     if args:
@@ -4071,6 +4536,10 @@ def main() -> int:
     ft_dvm = drive_ft_dvm(torch, card_line)
     hybrid = drive_hybrid(torch, card_line)
     serve = drive_serve(torch, np, tfm, card_line)
+    osc_io = drive_osc_io(torch, np, tfm, card_line)
+    osc_launches = {"layernorm_fwd": osc_io["launches_per_forward"].get("ln_fwd", 0),
+                    "flash_attention_fwd":
+                        osc_io["launches_per_forward"].get("flash_fwd", 0)}
     serve_launches = {"layernorm_fwd": serve["launches_per_step_and_rank"]["ln_fwd"],
                       "flash_attention_fwd":
                           serve["launches_per_step_and_rank"]["flash_fwd"]}
@@ -4086,7 +4555,8 @@ def main() -> int:
             "adam": adam_launches[k["name"]], "ft": ft_launches[k["name"]],
             "hybrid": hybrid["launches_per_step"]["hybrid"][k["name"]],
             "zero": hybrid["launches_per_step"]["zero"][k["name"]],
-            "serve": serve_launches.get(k["name"], 0)}
+            "serve": serve_launches.get(k["name"], 0),
+            "osc_io": osc_launches.get(k["name"], 0)}
     steps = {"train": steady, "remat": remat_steady,
              **{label: sp[label][1] for label in sp}, "adam": adam_steady}
     print(json.dumps({"steps": steps, "card": card_line}))
@@ -4100,7 +4570,7 @@ def main() -> int:
                       "moe_pipeline": moe_pipe, "device_plane": device_plane,
                       "host_plane": host_plane, "host_moe": host_moe,
                       "ft": ft, "ft_processes": ft_processes, "ft_dvm": ft_dvm,
-                      "hybrid": hybrid, "serve": serve,
+                      "hybrid": hybrid, "serve": serve, "osc_io": osc_io,
                       "smoke_s": time.perf_counter() - t_start}))
     print(f"smoke total: {time.perf_counter() - t_start} s")
     print(card_line)

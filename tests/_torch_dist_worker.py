@@ -788,10 +788,10 @@ def _osc_shmem(comm, rank, world, out):
         out["spml_excluded"] = np.array("InternalError")
     finally:
         mca_var.unset("spml")
-    try:
-        spml.DirectSpml().make(comm, 1 << 12)
-    except errors.UnsupportedError as e:
-        out["spml_direct"] = np.array(str(e))
+    # the host rungs are for host endpoints, never a device communicator
+    out["spml_direct"] = np.array(str([
+        c().supports(comm) for c in (spml.DirectSpml, spml.MmapSpml,
+                                     spml.AmSpml)]))
 
     # deterministic offsets and arenas
     heap = DeviceHeap(comm, heap_bytes=1 << 14)
@@ -1071,3 +1071,26 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+
+
+def dpm_child(proc, parent):
+    """``comm/dpm_wire.spawn`` target (module level, so the default
+    ``method="spawn"`` can pickle it; this module imports torch only):
+    the children sum their ranks, receive a file path by the parent
+    group's bcast, read the float32 file with their own ``WireFile``
+    (``read_all`` of half each) and send back their sums."""
+    from zhpe_ompi_tpu_torch import ops
+    from zhpe_ompi_tpu_torch.datatype import FLOAT
+    from zhpe_ompi_tpu_torch.io import file as tfile
+    from zhpe_ompi_tpu_torch.io import wirefile
+
+    total = proc.allreduce(proc.rank + 1, ops.SUM)
+    path, count = parent.bcast(None, root=0)
+    with wirefile.WireFile(proc, path, tfile.MODE_RDONLY) as f:
+        f.set_view(0, FLOAT)
+        f.seek(proc.rank * (count // proc.size))
+        mine = f.read_all(count // proc.size)
+    part = float(np.asarray(mine, np.float64).sum())
+    parent.send((proc.rank, total, part), dest=0, tag=11)
+    parent.allreduce(part, ops.SUM)
+    parent.barrier()

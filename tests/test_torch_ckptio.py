@@ -370,6 +370,33 @@ def test_transient_write_error_is_retried(tmp_path):
     assert attempts == [0, 1] and counters["ckpt_write_retries"] == 1
 
 
+def test_abandoned_universes_are_retired_before_a_save(tmp_path):
+    """A thread-plane program that leaves a receive posted (as a faulted
+    run does) keeps its universe in the live set ``quiesce_check`` reads;
+    the JAX package's universe has no ``close()`` and stayed there until
+    the cyclic collector ran, so the single-writer saves above failed
+    ``checkpoint at non-quiescent point`` on a worker that had run
+    ``tests/test_torch_ulfm.py`` first.  ``release_universes`` (every ft
+    test's teardown) retires both packages' universes, and the next
+    save is quiescent."""
+    def run(P):
+        uni = P.uni.universe(2)
+
+        def prog(ctx):
+            if ctx.rank == 1:
+                ctx.irecv(source=0, tag=99)  # posted, never matched
+
+        uni.run(prog)
+        posted = P.uni.uni_mod._queue_depth("posted")
+        test_torch_ulfm.release_universes()
+        after = P.uni.uni_mod._queue_depth("posted")
+        ck = P.ckptio.CollectiveCheckpointer(str(tmp_path / P.name))
+        ck.save(1, _state(P), blocking=True)
+        return posted >= 1, after, ck.all_steps()
+
+    assert same(run) == (True, 0, [1])
+
+
 # -- TestCollectiveTwoPhase: 4 ft TcpProc ranks in threads, 2 emulated hosts
 
 

@@ -73,12 +73,14 @@ from zhpe_ompi_tpu_torch.runtime import flightrec as tflightrec
 from zhpe_ompi_tpu_torch.runtime import spc as tspc
 from zhpe_ompi_tpu_torch.utils import deadline as tdeadline
 
-from test_torch_ulfm import JAX, PORT, both_vars, run_tcp_ft, set_vars  # noqa: F401
+from test_torch_ulfm import (  # noqa: F401
+    JAX, PORT, both_vars, release_universes, run_tcp_ft, set_vars)
 
 @pytest.fixture(autouse=True)
 def _port_ft_hygiene():
     fps = tulfm.false_positive_count()
     yield
+    release_universes()
     tulfm.clear_expected_failures()
     # device-fault events must not outlive the test in either package's
     # flight recorder: a later test's mttr_legs would anchor on them

@@ -19,8 +19,8 @@ CPU devices:
   every PE and each epoch's fetched values are compared.
 - What ``tests/test_shmem_device.py`` holds of selection and allocation:
   the spml picks ``device`` for a device communicator, ``--mca spml
-  ^device`` leaves nothing (``InternalError``), the host rungs name
-  ``shmem/api.py``, offsets are deterministic first-fit, one arena per
+  ^device`` leaves nothing (``InternalError``), the host rungs
+  (``direct``, ``mmap``, ``am``) do not take a device communicator, offsets are deterministic first-fit, one arena per
   dtype, and bad PEs, colliding puts, size mismatches and bad AMO indices
   raise.
 
@@ -144,7 +144,7 @@ def test_spml_selection_and_exclusion(ranks):
         assert str(o["spml_selected"]) == "device"
         assert list(o["shmem_pe"]) == ["DeviceHeap", "device"]
         assert str(o["spml_excluded"]) == "InternalError"
-        assert "shmem/api.py" in str(o["spml_direct"])
+        assert str(o["spml_direct"]) == "[False, False, False]"
 
 
 def test_symmetric_offsets_deterministic_and_arenas(ranks):

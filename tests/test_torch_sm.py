@@ -449,12 +449,22 @@ def test_failed_construction_leaks_nothing(port_vars):
 
 
 def test_alloc_rma_region_waits_for_osc_direct():
+    """The region ``osc/direct.py`` waited for: allocated in the
+    segment's namespace (``<segment>.w<idx>``), in the namesake's header
+    layout (a JAX-package mapping reads its geometry), and unlinked by
+    the segment's close when no window released it."""
     seg = tsm.SmSegment(0, 2, on_frame=lambda *a: None)
     try:
-        with pytest.raises(errors.UnsupportedError, match="osc/direct.py"):
-            seg.alloc_rma_region(4096)
+        region = seg.alloc_rma_region(4096)
+        assert region.name == seg.name + ".w0"
+        assert os.path.exists(region.path)
+        peer = jsm.RmaMapping(region.path, 1)
+        assert (peer.owner_rank, peer.nprocs, peer.data_len,
+                peer.data_off) == (0, 2, 4096, 4096)
+        peer.close()
     finally:
         seg.close()
+    assert not os.path.exists(region.path)
 
 
 

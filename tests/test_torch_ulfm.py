@@ -72,6 +72,7 @@ N = 4
 ANY_SOURCE = -1
 
 _PORT_UNIVERSES: list = []
+_JAX_UNIVERSES: list = []
 
 
 def _port_universe(n, ft=False):
@@ -80,11 +81,36 @@ def _port_universe(n, ft=False):
     return uni
 
 
+def _jax_universe(n, ft=False):
+    uni = juniverse.LocalUniverse(n, ft=ft)
+    _JAX_UNIVERSES.append(uni)
+    return uni
+
+
+def release_universes():
+    """Close the port's universes and retire the JAX package's from its
+    live set.  A faulted program abandons posted receives and unexpected
+    messages in its universe; the JAX package's ``LocalUniverse`` has no
+    ``close()``, so it stays in the live set its ``quiesce_check`` reads
+    until the cyclic collector frees it — and until then every
+    checkpoint ``save`` on this worker (``tests/test_torch_ckptio.py``'s
+    single-writer saves among them) raises ``checkpoint at non-quiescent
+    point``."""
+    for uni in _PORT_UNIVERSES:
+        uni.stop_failure_detector()
+        uni.close()
+    _PORT_UNIVERSES.clear()
+    for uni in _JAX_UNIVERSES:
+        uni.stop_failure_detector()
+        juniverse._live_universes.discard(uni)
+    _JAX_UNIVERSES.clear()
+
+
 JAX = types.SimpleNamespace(
     name="jax", ops=jops, errh=jerrh, errors=jerrors, ulfm=julfm,
     recovery=jrecovery, FaultPlan=JFaultPlan, replay_rejoin=jreplay_rejoin,
     UniverseLogger=JUniverseLogger, var=jvar, tcp=jtcp, TcpProc=jtcp.TcpProc,
-    universe=juniverse.LocalUniverse, uni_mod=juniverse,
+    universe=_jax_universe, uni_mod=juniverse,
     Checkpointer=jcheckpoint.Checkpointer, checkpoint=jcheckpoint,
     coll_host=jcoll_host, groups=jgroups, han=jhan, spc=jspc,
     requests=jrequests,
@@ -120,10 +146,7 @@ def _port_ft_hygiene():
     tests/conftest.py watches the JAX package only)."""
     fps = tulfm.false_positive_count()
     yield
-    for uni in _PORT_UNIVERSES:
-        uni.stop_failure_detector()
-        uni.close()
-    _PORT_UNIVERSES.clear()
+    release_universes()
     tulfm.clear_expected_failures()
     assert tulfm.false_positive_count() == fps
     assert tulfm.live_detectors() == []

@@ -30,11 +30,14 @@ collectives::
 
 The host plane runs without ``torch.distributed``: a launcher starts the
 processes with the ``ZMPI_*`` coordinator contract, and each calls
-``zmpi.host_init()`` for its ``pt2pt/tcp.TcpProc`` endpoint (send/recv and
-the host collectives; ``ZMPI_MCA_sm=0`` until ``pt2pt/sm.py`` is ported).
+``zmpi.host_init()`` for its ``pt2pt/tcp.TcpProc`` endpoint (send/recv,
+the host collectives, the ``sm`` rings between same-host ranks), over
+which the one-sided windows (``osc``), the PGAS PEs (``shmem``), MPI-IO
+(``io.wirefile``) and dynamic processes (``comm.dpm_wire``) run.
 """
 
 from . import ops
+from .comm import dpm
 from .comm.communicator import Communicator
 from .comm.group import Group
 from .core import errors
@@ -75,7 +78,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "init", "finalize", "initialized", "is_finalized", "world", "comm_self",
-    "world_mesh", "host_init", "host_world", "host_finalize", "mesh", "spc", "Communicator", "Group", "ops", "errors", "mca_var", "mca_component",
+    "world_mesh", "host_init", "host_world", "host_finalize", "mesh", "spc",
+    "dpm", "Communicator", "Group", "ops", "errors", "mca_var", "mca_component",
     "mca_output", "SUM", "MAX", "MIN", "PROD", "LAND", "LOR", "LXOR", "BAND",
     "BOR", "BXOR", "MAXLOC", "MINLOC", "create_op",
 ]

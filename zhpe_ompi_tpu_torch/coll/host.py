@@ -210,15 +210,21 @@ def _next_tag(ctx, base: int) -> int:
 def _operand(x: Any) -> Any:
     """``x`` as a tensor operand of a torch ``Op``: a tensor as is, a
     numpy array through ``torch.from_numpy`` (no copy), a numpy scalar or
-    a Python number as a 0-d tensor."""
+    a Python number as a 0-d tensor.  A Python float or complex keeps its
+    double precision (float64/complex128, as numpy reduces it in the
+    namesake), not torch's float32 default."""
     if isinstance(x, torch.Tensor):
         return x
     if isinstance(x, np.generic):
         x = np.asarray(x)
     if isinstance(x, np.ndarray):
         return torch.from_numpy(x if x.flags.writeable else x.copy())
-    if isinstance(x, (bool, int, float, complex)):
+    if isinstance(x, (bool, int)):
         return torch.tensor(x)
+    if isinstance(x, float):
+        return torch.tensor(x, dtype=torch.float64)
+    if isinstance(x, complex):
+        return torch.tensor(x, dtype=torch.complex128)
     return x
 
 

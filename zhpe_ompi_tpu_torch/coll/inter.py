@@ -14,9 +14,8 @@ mixin is that composition over any intercomm exposing
   :class:`~zhpe_ompi_tpu_torch.coll.host.HostCollectives` surface
 
 so it works identically for thread-bridge and wire intercomms (the
-namesake's ``comm/dpm.Intercomm`` and ``comm/dpm_wire.TcpIntercomm``,
-which the port builds with ``comm/dpm.py``, ROADMAP queue A item 5; any
-object with that surface works now).
+port's ``comm/dpm.Intercomm`` and ``comm/dpm_wire.TcpIntercomm``; any
+object with that surface works).
 
 Rooted operations follow MPI's intercomm addressing: ranks in the root's
 group pass ``root=ROOT`` (the root itself) or ``root=PROC_NULL`` (its

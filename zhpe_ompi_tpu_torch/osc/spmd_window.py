@@ -11,7 +11,7 @@ operations RETURN the updated window and leave the old shard as it was;
 
 Passive target (lock/unlock/flush) needs a progress agent the device plane
 does not have: those methods raise ``WinError`` pointing at the AM
-component.
+component (``osc/am.py``'s ``AmWindow``).
 """
 
 from __future__ import annotations
@@ -105,8 +105,9 @@ class DeviceWindow:
         "DeviceWindow runs whole RMA epochs (active target: "
         "put/get/accumulate/fence); passive-target {0} is a host-plane "
         "concept — create the window through the AM component "
-        "(osc/am.py's AmWindow, which the port has not ported yet) for "
-        "lock/unlock/flush semantics."
+        "(zhpe_ompi_tpu_torch.osc.am.AmWindow, or osc.direct's "
+        "DirectWindow for same-host ranks) for lock/unlock/flush "
+        "semantics."
     )
 
     def lock(self, *a, **k):

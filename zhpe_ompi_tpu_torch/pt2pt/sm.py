@@ -51,10 +51,23 @@ rings per peer direction, each materialized ring its own file):
 Selection and fallback live in ``pt2pt/tcp.py`` (self → sm → tcp,
 ``sm_priority`` against ``tcp_priority``, per peer).
 
-**What waits.**  The namesake's RMA regions (the one-sided plane's
-``<segment>.w<idx>`` files with their lock words) have one consumer,
-``osc/direct.py``, not ported yet: :meth:`SmSegment.alloc_rma_region`
-raises ``UnsupportedError`` naming it.
+- **RMA regions** (the one-sided data plane): window/symmetric-heap
+  backing buffers allocate as further per-purpose files
+  (``<segment>.w<idx>``) via :meth:`SmSegment.alloc_rma_region`, in the
+  namesake's layout byte for byte (``_RMA_MAGIC``, the ``_RH_*`` words,
+  the holder table, ``_rma_hdr_len``), so a JAX-package origin maps a
+  port-owned region and the reverse.  A region is a page of header — a
+  **lock word** serializing fetch-atomics cross-process (the port's
+  ``native/shm_amo.cpp`` ``__atomic`` CAS, the same domain as the
+  namesake's native library; ``flock`` critical sections only when
+  ``native_kernels``/``ZOMPI_NATIVE=0`` say so), shared/exclusive
+  passive-target lock counts with a per-rank holder table, the futex
+  generation word blocked lock waiters park on, and the PSCW post/
+  complete doorbells — followed by the window's data bytes.  Header
+  words are loaded and stored whole through a u32 view.  Same-host
+  origins ``mmap`` the file and execute put/get as direct load/store;
+  ``osc/direct.py`` is the consumer.  A died lock-holder's words are
+  recovered at classification via :meth:`RmaMapping.recover_dead`.
 
 Lifecycle: segments exist only while their proc lives, are unlinked at
 close, and a stale segment left by a crashed job is unlinked at create
@@ -65,7 +78,9 @@ hygiene registries tests assert empty.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import itertools
 import mmap
@@ -78,6 +93,8 @@ import tempfile
 import threading
 import time
 import weakref
+
+import numpy as np
 
 from ..core import errors
 from ..mca import output as mca_output
@@ -697,6 +714,8 @@ class SmSegment:
         self._stop = threading.Event()
         self._closed = False
         self._severed = False
+        self._regions: list["RmaRegion"] = []
+        self._region_counter = itertools.count()
         self._close_lock = lockdep.lock("sm.SmSegment._close_lock")
         self._poll = threading.Thread(
             target=self._poll_loop, daemon=True,
@@ -789,12 +808,23 @@ class SmSegment:
 
     # -- RMA regions (the one-sided plane's backing store) ---------------
 
-    def alloc_rma_region(self, nbytes: int):
-        """The namesake allocates a window's backing file here; its one
-        consumer, ``osc/direct.py``, is not ported yet."""
-        raise errors.UnsupportedError(
-            "sm RMA regions serve osc/direct.py, which the PyTorch port has "
-            "not ported yet")
+    def alloc_rma_region(self, nbytes: int) -> "RmaRegion":
+        """Allocate a window/symmetric-heap backing region in this
+        segment's namespace: its own file (``<segment>.w<idx>``) with
+        the lock-word header, registered for the zero-orphan gate and
+        unlinked at close unless a window freed it first."""
+        region = RmaRegion(self, next(self._region_counter), nbytes)
+        with _registry_lock:
+            self._regions.append(region)
+        return region
+
+    def release_rma_region(self, region: "RmaRegion") -> None:
+        """Window-free-time release: unmap and unlink the region file
+        (the collective ``win.free`` already quiesced every origin)."""
+        with _registry_lock:
+            if region in self._regions:
+                self._regions.remove(region)
+        region.close(unlink=True)
 
     # -- consumer --------------------------------------------------------
 
@@ -997,6 +1027,13 @@ class SmSegment:
         self._poll.join(timeout=5.0)
         if not getattr(self, "_severed", False):
             self._audit()
+        # RMA regions a window never freed (abnormal teardown) are
+        # unlinked here — the harness close owns the final sweep
+        with _registry_lock:
+            regions = list(self._regions)
+            self._regions = []
+        for region in regions:
+            region.close(unlink=True)
         for st in self._rings:
             st.close()
             try:
@@ -1376,3 +1413,542 @@ class SmSender:
                 except BufferError:  # pragma: no cover - view leaked
                     pass
 
+
+# ------------------------------------------------- RMA regions --------
+# The one-sided data plane's backing store: a window (or symmetric
+# heap) allocated inside the owner's sm namespace as its own file,
+# mmap-ed by same-host origins for direct load/store put/get.  The
+# page-sized region header carries the lock word serializing
+# fetch-atomics cross-process, the shared/exclusive passive-target
+# lock state with a per-rank holder table, and the futex generation
+# word blocked lock waiters park on (the sm doorbell idiom applied to
+# locks).  ``osc/direct.py`` is the consumer.
+
+_RMA_MAGIC = 0x31414D5259505A00  # "\0ZPYRMA1" little-endian
+_RH_OWNER = 8       # u32: owner rank
+_RH_NPROCS = 12     # u32: universe size (bounds the holder table)
+_RH_DATA_LEN = 16   # u64: window data bytes
+_RH_DATA_OFF = 24   # u64: data offset (== header length)
+_RH_GEN = 32        # u32: lock-handoff generation (waiters' futex word)
+_RH_MUTEX = 36      # u32: region lock word (0 free, holder rank+1)
+_RH_READERS = 40    # u32: shared passive-lock holder count
+_RH_WRITER = 44     # u32: exclusive passive-lock holder rank+1 (0 none)
+_RH_AMQ = 48        # u32: AM-origin lock waiters queued at the owner
+_RH_POSTS = 52      # u32: PSCW exposure-epoch doorbell (post count;
+                    #      parked origins' futex word)
+_RH_COMPLETES = 56  # u32: PSCW completion doorbell (complete count;
+                    #      the parked target's futex word)
+_RH_TABLE = 64      # u32[nprocs]: per-rank passive-lock state
+
+# per-rank holder-table states: the waiting-writer state makes writer
+# priority crash-recoverable (a dead waiter's slot is cleared at
+# classification like a dead holder's) and lets shared acquirers defer
+# without a separate — unrecoverable — waiting-writers counter
+_LK_NONE, _LK_SHARED, _LK_EXCL, _LK_WAITW = 0, 1, 2, 3
+
+_MUTEX_WAIT = 1 << 31  # waiters-present bit of the region lock word
+
+# zompi_shm_amo operand codes (native/shm_amo.cpp enums)
+_AMO_ADD, _AMO_SWAP, _AMO_CAS, _AMO_SET, _AMO_FETCH = range(5)
+_U32_CODE = 5  # TYPE_CODES["uint32"]
+
+
+def _rma_hdr_len(nprocs: int) -> int:
+    return (_RH_TABLE + 4 * nprocs + 4095) & ~4095
+
+
+def _native_amo():
+    """The port's ``__atomic`` AMO library (``native/shm_amo.cpp``, the
+    namesake's entry points and codes), or None when ``native_kernels``/
+    ``ZOMPI_NATIVE=0`` select the flock domain: the region lock word then
+    degrades to flock-serialized critical sections on the region fd
+    (kernel-blocking, crash-released, never a poll).  A failed build
+    raises."""
+    from .. import native
+
+    return native.load()
+
+
+class RegionOwnerGone(errors.InternalError):
+    """The region's backing mapping is gone (owner closed/died while a
+    lock or atomic was in flight): a distinct type so the window plane
+    can classify it against the FailureState instead of surfacing a
+    bare transport error."""
+
+
+class RmaMapping:
+    """One process's mapping of an RMA region file: the shared
+    lock-word/passive-lock protocol plus a writable view of the data
+    bytes.  The OWNER's side is :class:`RmaRegion` (creates, unlinks);
+    origins construct this directly over the advertised file name.
+
+    Atomicity domains: ``atomic()`` is the region lock word — an
+    uncontended native CAS (or an flock critical section without the
+    kernel library) + futex-parked contention — and EVERY mutator of
+    the passive-lock words runs under it, so direct origins, the
+    owner's local ops, and the owner's AM service all serialize on the
+    same word.  Blocked passive-target lock waiters park on the
+    GENERATION futex word and are woken by every unlock (shared count
+    / writer word handoff — the doorbell idiom)."""
+
+    def __init__(self, path: str, my_rank: int, _create=None):
+        self.path = path
+        self._my = my_rank
+        self._closed = False
+        if _create is not None:
+            nprocs, nbytes, owner = _create
+            hdr = _rma_hdr_len(nprocs)
+            self._mm = _create_shared_file(path, hdr + nbytes)
+            geo = memoryview(self._mm)[:_RH_TABLE].cast("Q")
+            try:
+                w32 = geo.cast("B").cast("I")
+                w32[_RH_OWNER >> 2] = owner
+                w32[_RH_NPROCS >> 2] = nprocs
+                w32.release()
+                geo[_RH_DATA_LEN >> 3] = nbytes
+                geo[_RH_DATA_OFF >> 3] = hdr
+                _fence()  # header fields visible before the magic stamp
+                geo[0] = _RMA_MAGIC
+            finally:
+                geo.release()
+            self._fd = os.open(path, os.O_RDWR)
+        else:
+            self._fd = os.open(path, os.O_RDWR)
+            try:
+                size = os.fstat(self._fd).st_size
+                if size < 4096:
+                    raise errors.InternalError(
+                        f"rma region {path}: truncated ({size} bytes)"
+                    )
+                self._mm = mmap.mmap(self._fd, size)
+                with memoryview(self._mm)[:8].cast("Q") as magic:
+                    stamped = magic[0] == _RMA_MAGIC
+                if not stamped:
+                    self._mm.close()
+                    raise errors.InternalError(
+                        f"rma region {path}: bad magic (creator still "
+                        "stamping or foreign file)"
+                    )
+            except BaseException:
+                os.close(self._fd)
+                raise
+        mm = self._mm
+        with memoryview(mm)[:_RH_TABLE].cast("Q") as geo:
+            self.data_len = geo[_RH_DATA_LEN >> 3]
+            self.data_off = geo[_RH_DATA_OFF >> 3]
+            with geo.cast("B").cast("I") as w32:
+                self.owner_rank = w32[_RH_OWNER >> 2]
+                self.nprocs = w32[_RH_NPROCS >> 2]
+        if self.data_off + self.data_len > len(mm) or \
+                _rma_hdr_len(self.nprocs) != self.data_off:
+            try:
+                self._mm.close()
+            finally:
+                os.close(self._fd)
+            raise errors.InternalError(
+                f"rma region {path}: corrupt geometry "
+                f"({self.data_off}+{self.data_len} in {len(mm)}B)"
+            )
+        #: the header as native u32 words: every header word is loaded
+        #: and stored whole (struct's pack_into/unpack_from go byte by
+        #: byte, so a peer racing them can read a torn lock, generation
+        #: or doorbell word)
+        self._w32 = memoryview(mm)[:self.data_off].cast("I")
+        self._arr = np.frombuffer(mm, dtype=np.uint8)
+        #: writable uint8 view of the window data bytes (direct
+        #: load/store lands here); .ctypes.data of `_arr` is the base
+        #: address the native AMOs operate on
+        self.data = self._arr[self.data_off:self.data_off
+                              + self.data_len]
+        self._lock = lockdep.lock("sm.RmaMapping._lock")
+        self._use_native = _native_amo() is not None
+
+    def _ld(self, off: int) -> int:
+        return self._w32[off >> 2]
+
+    def _st(self, off: int, value: int) -> None:
+        self._w32[off >> 2] = value & 0xFFFFFFFF
+
+    # -- the region lock word (fetch-atomics serialization) -----------
+
+    def _word(self, off: int) -> int:
+        return self._ld(off)
+
+    def _amo32(self, off: int, kind: int, value: int = 0,
+               compare: int = 0) -> int:
+        lib = _native_amo()
+        addr = self._arr.ctypes.data + off
+        oi = ctypes.c_int64(0)
+        of = ctypes.c_double(0.0)
+        rc = lib.zompi_shm_amo(ctypes.c_void_p(addr), _U32_CODE, kind,
+                               int(value), int(compare), 0.0, 0.0,
+                               ctypes.byref(oi), ctypes.byref(of))
+        if rc != 0:  # pragma: no cover - table covers uint32
+            raise errors.InternalError("native AMO refused uint32")
+        return oi.value & 0xFFFFFFFF
+
+    def _mutex_acquire(self, deadline: float, abort) -> None:
+        me = self._my + 1
+        while True:
+            old = self._amo32(_RH_MUTEX, _AMO_CAS, value=me, compare=0)
+            if old == 0:
+                return
+            if not (old & _MUTEX_WAIT):
+                # announce a waiter so the release knows to wake; a
+                # lost race just re-reads on the next pass
+                self._amo32(_RH_MUTEX, _AMO_CAS,
+                            value=old | _MUTEX_WAIT, compare=old)
+            if abort is not None:
+                abort()
+            if time.monotonic() > deadline:
+                raise errors.InternalError(
+                    f"rma region {self.path}: lock word held past the "
+                    "stall timeout (holder wedged?)"
+                )
+            try:
+                _futex_wait(self._mm, _RH_MUTEX, old | _MUTEX_WAIT,
+                            0.05)
+            except ValueError:  # mapping closed under us (peer death
+                raise RegionOwnerGone(  # listener): classify, not crash
+                    f"rma region {self.path} unmapped mid-wait"
+                )
+
+    def _mutex_release(self) -> None:
+        old = self._amo32(_RH_MUTEX, _AMO_SWAP, value=0)
+        if old & _MUTEX_WAIT:
+            _futex_wake(self._mm, _RH_MUTEX, 64)
+
+    def _flock_acquire(self, deadline: float, abort) -> None:
+        """Non-blocking-retry flock so the fallback honors the SAME
+        abort/stall contract as the native lock word (a plain LOCK_EX
+        blocks uninterruptibly — a wedged holder would hang the caller
+        past any classification).  5 ms retry steps: the hold times are
+        sub-microsecond RMWs, so contention resolves in one step."""
+        while True:
+            try:
+                fcntl.flock(self._fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                return
+            except OSError:
+                if abort is not None:
+                    abort()
+                if time.monotonic() > deadline:
+                    raise errors.InternalError(
+                        f"rma region {self.path}: flock held past the "
+                        "stall timeout (holder wedged?)"
+                    )
+                time.sleep(0.005)
+
+    @contextlib.contextmanager
+    def atomic(self, abort=None, timeout: float = 30.0):
+        """The region's atomicity domain: per-instance thread lock +
+        the cross-process lock word (native CAS + futex park; flock
+        retry steps when the kernel library is unavailable — both
+        honoring the abort/stall-timeout contract)."""
+        with self._lock:
+            if self._closed:
+                raise RegionOwnerGone(
+                    f"rma region {self.path} is unmapped"
+                )
+            if self._use_native:
+                self._mutex_acquire(time.monotonic() + timeout, abort)
+                try:
+                    yield
+                finally:
+                    self._mutex_release()
+            else:
+                self._flock_acquire(time.monotonic() + timeout, abort)
+                try:
+                    yield
+                finally:
+                    fcntl.flock(self._fd, fcntl.LOCK_UN)
+
+    # -- passive-target (MPI_Win_lock) protocol -----------------------
+
+    def _slot(self, rank: int) -> int:
+        if not 0 <= rank < self.nprocs:
+            raise errors.RankError(
+                f"rank {rank} outside the {self.nprocs}-rank region"
+            )
+        return _RH_TABLE + 4 * rank
+
+    def _writer_waiting(self) -> bool:
+        for r in range(self.nprocs):
+            if self._ld(_RH_TABLE + 4 * r) == _LK_WAITW:
+                return True
+        return False
+
+    def try_lock(self, rank: int, exclusive: bool) -> bool:
+        """One grant attempt; caller MUST hold :meth:`atomic`.  Shared
+        requests defer to a waiting writer (no reader starvation of
+        writers — the window plane's FIFO-fairness contract)."""
+        slot = self._slot(rank)
+        readers = self._ld(_RH_READERS)
+        writer = self._ld(_RH_WRITER)
+        if exclusive:
+            if readers == 0 and writer == 0:
+                self._st(_RH_WRITER, rank + 1)
+                self._st(slot, _LK_EXCL)
+                return True
+            return False
+        if writer == 0 and not self._writer_waiting():
+            self._st(_RH_READERS, readers + 1)
+            self._st(slot, _LK_SHARED)
+            return True
+        return False
+
+    def mark_waiting(self, rank: int) -> None:
+        """Record `rank` as a waiting writer (shared acquirers defer to
+        it — writer priority); caller holds :meth:`atomic`."""
+        slot = self._slot(rank)
+        if self._ld(slot) == _LK_NONE:
+            self._st(slot, _LK_WAITW)
+
+    def _bump_gen_locked(self) -> None:
+        gen = self._ld(_RH_GEN)
+        self._st(_RH_GEN, (gen + 1) & 0xFFFFFFFF)
+
+    def lock(self, rank: int, exclusive: bool, abort=None,
+             timeout: float = 60.0) -> None:
+        """Acquire the passive-target lock for `rank`, parking on the
+        generation futex word between attempts (event-driven: every
+        unlock bumps the generation and wakes).  ``abort()`` is
+        consulted each wake so peer/owner death classifies instead of
+        riding out the stall timeout."""
+        deadline = time.monotonic() + timeout
+        waiting = False
+        try:
+            while True:
+                with self.atomic(abort=abort):
+                    gen = self._word(_RH_GEN)
+                    if self.try_lock(rank, exclusive):
+                        waiting = False
+                        return
+                    if exclusive:
+                        self._st(self._slot(rank), _LK_WAITW)
+                        waiting = True
+                if abort is not None:
+                    abort()
+                if time.monotonic() > deadline:
+                    raise errors.InternalError(
+                        f"rma region {self.path}: passive-target lock "
+                        "wait timed out"
+                    )
+                try:
+                    _futex_wait(self._mm, _RH_GEN, gen, 0.1)
+                except ValueError:
+                    raise RegionOwnerGone(
+                        f"rma region {self.path} unmapped mid-wait"
+                    )
+        finally:
+            if waiting:
+                # gave up (timeout/abort): clear the waiting-writer
+                # slot or shared acquirers defer to a ghost forever
+                # (a region unmapped mid-cleanup has nothing to clear
+                # and must not mask the original exception)
+                try:
+                    with self.atomic():
+                        slot = self._slot(rank)
+                        if self._ld(slot) == _LK_WAITW:
+                            self._st(slot, _LK_NONE)
+                            self._bump_gen_locked()
+                    _futex_wake(self._mm, _RH_GEN, 64)
+                except (RegionOwnerGone, ValueError):
+                    pass
+
+    def unlock(self, rank: int) -> int:
+        """Release `rank`'s passive-target lock; returns the count of
+        AM-origin lock waiters queued at the owner's service (caller
+        pokes the owner when nonzero — a direct unlock sends no
+        message the service could otherwise observe)."""
+        with self.atomic():
+            slot = self._slot(rank)
+            state = self._ld(slot)
+            if state == _LK_SHARED:
+                readers = self._ld(_RH_READERS)
+                self._st(_RH_READERS, max(0, readers - 1))
+            elif state == _LK_EXCL:
+                self._st(_RH_WRITER, 0)
+            else:
+                raise errors.WinError(
+                    f"unlock: rank {rank} holds no lock on this region"
+                )
+            self._st(slot, _LK_NONE)
+            self._bump_gen_locked()
+            amq = self._ld(_RH_AMQ)
+        _futex_wake(self._mm, _RH_GEN, 64)
+        return amq
+
+    def amq_adjust(self, delta: int) -> None:
+        """Adjust the AM-waiter count; caller holds :meth:`atomic` (the
+        owner's service queues/grants AM-origin lock requests)."""
+        v = self._ld(_RH_AMQ)
+        self._st(_RH_AMQ, max(0, v + delta))
+
+    def holder_state(self, rank: int) -> int:
+        return self._ld(self._slot(rank))
+
+    def recover_dead(self, rank: int) -> bool:
+        """Classification-time recovery of a died rank's lock state:
+        force-release the region lock word if the corpse holds it,
+        clear its passive-lock contribution (shared count / writer
+        word / waiting-writer slot), and wake blocked waiters.
+        Idempotent — every survivor may call it.  Returns True when
+        anything was recovered."""
+        recovered = False
+        if self._closed:
+            return False
+        try:
+            if self._use_native:
+                while True:
+                    old = self._word(_RH_MUTEX)
+                    if (old & ~_MUTEX_WAIT) != rank + 1:
+                        break
+                    if self._amo32(_RH_MUTEX, _AMO_CAS, value=0,
+                                   compare=old) == old:
+                        recovered = True
+                        _futex_wake(self._mm, _RH_MUTEX, 64)
+                        break
+        except (ValueError, AttributeError):
+            return recovered  # closed under us: nothing left to repair
+        # (flock fallback: the kernel released the corpse's flock with
+        # its last fd — only the passive-lock words need repair)
+        try:
+            with self.atomic():
+                slot = self._slot(rank)
+                state = self._ld(slot)
+                if state == _LK_SHARED:
+                    readers = self._ld(_RH_READERS)
+                    self._st(_RH_READERS, max(0, readers - 1))
+                elif state == _LK_EXCL:
+                    if self._ld(_RH_WRITER) == rank + 1:
+                        self._st(_RH_WRITER, 0)
+                if state != _LK_NONE:
+                    self._st(slot, _LK_NONE)
+                    self._bump_gen_locked()
+                    recovered = True
+        except (RegionOwnerGone, ValueError):
+            return recovered
+        if recovered:
+            try:
+                _futex_wake(self._mm, _RH_GEN, 64)
+            except ValueError:
+                pass
+        return recovered
+
+    # -- the PSCW region doorbell --------------------------------------
+    # Post/complete as the epoch signal, carried by two header words
+    # instead of AM messages: the exposing side bumps its region's
+    # post word (waking origins parked on its futex), origins direct-
+    # store the epoch payload and bump the complete word (waking the
+    # parked target).  The sm doorbell idiom applied to active-target
+    # synchronization — no message, no matching engine, no target-side
+    # dispatch.  Counts wrap at 2^32; waits compare modulo.
+
+    def _ring(self, off: int) -> int:
+        with self.atomic():
+            gen = (self._word(off) + 1) & 0xFFFFFFFF
+            self._st(off, gen)
+        _futex_wake(self._mm, off, 64)
+        return gen
+
+    def _await_ring(self, off: int, seen: int, timeout: float,
+                    abort, what: str) -> int:
+        deadline = time.monotonic() + timeout
+        while True:
+            cur = self._word(off)
+            if (cur - seen) & 0xFFFFFFFF:
+                return cur
+            if abort is not None:
+                abort()
+            if time.monotonic() > deadline:
+                raise errors.InternalError(
+                    f"rma region {self.path}: {what} doorbell never "
+                    f"rang within {timeout}s"
+                )
+            try:
+                _futex_wait(self._mm, off, cur, 0.1)
+            except ValueError:
+                raise RegionOwnerGone(
+                    f"rma region {self.path} unmapped mid-{what}-wait"
+                )
+
+    def post_epoch(self) -> int:
+        """Ring the exposure doorbell (MPI_Win_post's signal leg);
+        returns the new post generation."""
+        return self._ring(_RH_POSTS)
+
+    def await_post(self, seen: int, timeout: float = 10.0,
+                   abort=None) -> int:
+        """Park until the post doorbell advances past ``seen``
+        (MPI_Win_start's wait leg); returns the observed generation —
+        the caller's next ``seen``."""
+        return self._await_ring(_RH_POSTS, seen, timeout, abort, "post")
+
+    def complete_epoch(self) -> int:
+        """Ring the completion doorbell (MPI_Win_complete's signal
+        leg — direct stores are visible at issue, so the bump IS the
+        whole completion)."""
+        return self._ring(_RH_COMPLETES)
+
+    def await_complete(self, seen: int, timeout: float = 10.0,
+                       abort=None) -> int:
+        """Park until the completion doorbell advances past ``seen``
+        (MPI_Win_wait's wait leg)."""
+        return self._await_ring(_RH_COMPLETES, seen, timeout, abort,
+                                "complete")
+
+    def doorbell_gens(self) -> tuple[int, int]:
+        """Current (post, complete) generations — the persistent
+        schedule snapshots these at construction so its first epoch
+        never consumes a stale ring."""
+        return self._word(_RH_POSTS), self._word(_RH_COMPLETES)
+
+    # -- data access ---------------------------------------------------
+
+    def view(self, dtype) -> np.ndarray:
+        """Writable flat view of the data bytes as `dtype` (the
+        window's element type — matches the AM plane's target-side
+        ``st.buffer`` semantics)."""
+        return self.data.view(dtype)
+
+    def data_addr(self) -> int:
+        """Base address of the data bytes (native lock-free AMOs)."""
+        return self._arr.ctypes.data + self.data_off
+
+    def close(self, unlink: bool = False) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self._arr = None
+        self.data = None
+        self._w32.release()
+        try:
+            self._mm.close()
+        except BufferError:  # user still holds a window view: the OS
+            pass             # reclaims the mapping at process exit
+        try:
+            os.close(self._fd)
+        except OSError:  # pragma: no cover
+            pass
+        if unlink:
+            try:
+                os.unlink(self.path)
+            except OSError:
+                pass
+            with _registry_lock:
+                _created_paths.discard(self.path)
+
+
+class RmaRegion(RmaMapping):
+    """The owner's side of an RMA region: creates the backing file in
+    the segment's namespace (``<segment>.w<idx>``), registered with
+    the hygiene registry, unlinked at close (sever leaves it — the
+    crash contract; the final harness close owns the sweep)."""
+
+    def __init__(self, seg: "SmSegment", idx: int, nbytes: int):
+        self.name = f"{seg.name}.w{idx}"
+        super().__init__(
+            os.path.join(segment_dir(), self.name), seg.rank,
+            _create=(seg.size, int(nbytes), seg.rank),
+        )

@@ -61,14 +61,13 @@ nonblocking collectives).
   (an explicit ``True`` without a store raises ``ArgError``; the
   ``ZMPI_METRICS``/``ZMPI_TRACE`` environment requests degrade loudly).
 
-What is not ported yet, against the namesake:
+- **the intercomm and one-sided seams**: ``bridge_endpoint``/
+  ``bridge_send`` carry ``comm/dpm_wire.py``'s cross-group frames;
+  ``sm_rma_region``/``sm_release_region``/``sm_direct_to`` give
+  ``osc/direct.py`` its region files and its per-peer direct decision.
 
-- ``_register_wire_pvars`` and its queue-depth reader wait for
-  ``tools/mpit.py``; ``bridge_endpoint``/``bridge_send``, the intercomm
-  seam, wait for ``comm/dpm.py`` — a bridge peer's hello is still
-  understood on the wire; the one-sided seam (the namesake's
-  ``sm_rma_region``, ``sm_direct_to``) is not here: it waits for
-  ``osc/direct.py``.
+What is not ported yet, against the namesake: ``_register_wire_pvars``
+and its queue-depth reader wait for ``tools/mpit.py``.
 """
 
 
@@ -1575,6 +1574,33 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
             "physical_bytes": seg.physical_bytes(),
         }
 
+    # -- one-sided plane seam (osc/direct.py) ----------------------------
+
+    def sm_rma_region(self, nbytes: int):
+        """Allocate an RMA region (window/symmetric-heap backing) in
+        this proc's sm segment namespace; None when the sm plane is
+        off — the window then rides the AM path everywhere."""
+        if self._sm_seg is None:
+            return None
+        return self._sm_seg.alloc_rma_region(nbytes)
+
+    def sm_release_region(self, region) -> None:
+        if self._sm_seg is not None:
+            self._sm_seg.release_rma_region(region)
+        else:  # segment already torn down: best-effort unlink
+            region.close(unlink=True)
+
+    def sm_direct_to(self, dest: int) -> bool:
+        """The one-sided plane's per-peer seam decision: True when the
+        transport ladder selected the sm ring for `dest` (same boot, sm
+        priority, not declined/failed) — the decision the two-sided send
+        seam memoized, so a direction is direct for RMA iff its data
+        channel rides the rings.  Rank-to-self is direct whenever the
+        sm plane is on (the owner maps its own region trivially)."""
+        if dest == self.rank:
+            return self._sm_seg is not None
+        return self._sm_tx(dest) is not None
+
     def resource_stats(self) -> dict:
         """Per-rank live transport resources: ``sockets`` counts cached
         peer connections (canonical + crossed dups), ``channels`` the
@@ -1899,6 +1925,54 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
         self._chan_engine.add_channel(
             sock, f"peer:{dest}", self._on_wire_frame)
         return sock
+
+    def bridge_endpoint(self, cid: int, dest: int,
+                        addr: tuple[str, int]) -> socket.socket:
+        """Lazy connection to rank `dest` of a REMOTE group across an
+        intercomm bridge (``comm/dpm_wire.py``) — cached under the bridge
+        cid so remote rank numbering stays disjoint from the in-group
+        book."""
+        key = ("b", cid, dest)
+        with self._conn_lock:
+            sock = self._conns.get(key)
+        if sock is not None:
+            return sock
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.settimeout(self._timeout)
+        sock.connect(tuple(addr))
+        _send_frame(sock, dss.pack(["b", cid, self.rank]))
+        spc.record("tcp_lazy_connects")
+        with self._conn_lock:
+            existing = self._conns.get(key)
+            if existing is not None:
+                # crossed-connection rule: never close a socket whose
+                # hello the peer may have registered (see _endpoint)
+                self._dup_conns.append(sock)
+                self._chan_engine.add_channel(
+                    sock, f"bridge:{cid}:{dest}-x", self._on_wire_frame)
+                return existing
+            self._conns[key] = sock
+        self._chan_engine.add_channel(
+            sock, f"bridge:{cid}:{dest}", self._on_wire_frame)
+        return sock
+
+    def bridge_send(self, obj: Any, cid: int, dest: int,
+                    addr: tuple[str, int], tag: int = 0) -> None:
+        """Send to a remote-group rank across a bridge; frames carry the
+        bridge cid so matching stays isolated from in-group traffic.  A
+        CUDA tensor is refused as by :meth:`send` (dss packs host
+        buffers only)."""
+        seq = next(self._seq)
+        header, oob = dss.pack_frames(
+            self.rank, tag, cid, seq, obj,
+            oob_min=int(mca_var.get("tcp_zero_copy_min", 0)),
+        )
+        sock = self.bridge_endpoint(cid, dest, addr)
+        self._framed_send(sock, [header, *oob])
+        if oob:
+            spc.record("tcp_zero_copy_sends", 1)
+            spc.record("tcp_copy_bytes_avoided",
+                       sum(v.nbytes for v in oob))
 
     # -- MPI surface (RankContext-compatible) ----------------------------
 

@@ -144,6 +144,31 @@ Fault-tolerance counters (``comm/communicator.py``, ``ft/ulfm.py``):
 - ``tcp_deferred_dials`` — live peers a control flood skipped because
   they are not overlay neighbors (per flood evaluation).
 
+One-sided and PGAS counters (``osc/window.py``, ``osc/am.py``,
+``osc/direct.py``, ``shmem/api.py``; the namesake's names and meanings):
+
+- ``osc_puts`` / ``osc_gets`` / ``osc_bytes_put`` — one-sided window
+  operations (every window plane records the same names: the counter
+  tracks the OP, not the transport).
+- ``osc_am_applied`` — active-message puts applied at the TARGET by the
+  AM service dispatch.
+- ``osc_direct_puts`` / ``osc_direct_gets`` — window/symmetric-heap puts
+  and gets executed as direct load/store against a mapped sm RMA region.
+- ``osc_direct_atomics`` — fetch-atomics (accumulate/get_accumulate/
+  compare_and_swap/fetch_and_op and the shmem AMO family) applied under
+  the region header's cross-process lock word.
+- ``osc_direct_bytes`` — payload bytes moved by the direct path (puts +
+  gets + atomics).
+- ``osc_am_fallbacks`` — operations a direct-capable window routed to the
+  active-message path (cross-host target, revoked channel, known-failed
+  peer, unmappable region); windows with no region anywhere are plain AM
+  windows and are not counted.
+- ``osc_doorbell_posts`` / ``osc_doorbell_completes`` — stage-handoff
+  epochs opened and completed by ringing the region header's POST and
+  COMPLETE doorbell words instead of AM messages.
+- ``shmem_puts`` / ``shmem_gets`` / ``shmem_puts_nbi`` / ``shmem_gets_nbi``
+  — OpenSHMEM put/get traffic, blocking and nonblocking-implicit.
+
 Runtime-plane counters (the PRRTE/PMIx analog — ``runtime/pmix.py``
 records the ``pmix_*`` family in the process hosting the STORE, i.e.
 the daemon; ``runtime/dvm.py`` records the daemon-side ``dvm_*`` events

@@ -8,17 +8,24 @@ highest-priority admitted component that supports the endpoint:
 - **device** (prio 100): device communicators, the symmetric heap in GPU
   memory with put/get/AMO epochs on DeviceWindow schedules
   (``shmem/device.py``).
-- **direct** (80, thread-universe ranks), **mmap** (60, same-host socket
-  ranks) and **am** (40, any wire endpoint): the host-plane transports.
-  They are registered by name, so admission and the ``zmpi-info`` listing
-  see them, but building one raises ``UnsupportedError``: they need the
-  host-plane PE (``shmem/api.py``), which waits for the port's host plane.
+- **direct** (80): thread-universe ranks share an address space —
+  numpy-view put/get.
+- **mmap** (60): socket ranks that are all processes on ONE host —
+  mapped tmpfs segments with the port's native atomics
+  (``shmem/segment.py``, ``native/shm_amo.cpp``).
+- **am** (40): any wire endpoint — the symmetric heap attaches to a
+  dynamic window of the direct-map osc plane (``shmem/api.py``'s
+  ``_AmBackend`` over ``osc/direct.py``): same-host peers get mapped
+  load/store and lock-word AMOs, everything else rides active messages.
 
-``shmem_pe(ep)`` is shmem_init: select and build.  The device transport
+``shmem_pe(ep)`` is shmem_init: select, build the backend and wrap it in
+a :class:`~zhpe_ompi_tpu_torch.shmem.api.ShmemPE`; the device transport
 returns the epoch-API :class:`~zhpe_ompi_tpu_torch.shmem.device.DeviceHeap`.
 """
 
 from __future__ import annotations
+
+import threading
 
 from ..core import errors
 from ..mca import component as mca_component
@@ -58,6 +65,7 @@ class DeviceSpml(SpmlComponent):
 
     name = "device"
     default_priority = 100
+    wraps_pe = False  # returns the epoch-API DeviceHeap, not a ShmemPE
 
     def supports(self, ep) -> bool:
         # unpartitioned communicators over process groups only: a split
@@ -70,35 +78,69 @@ class DeviceSpml(SpmlComponent):
         return DeviceHeap(ep, heap_bytes)
 
 
-class _HostSpml(SpmlComponent):
-    def make(self, ep, heap_bytes: int):
-        raise errors.UnsupportedError(
-            f"spml '{self.name}' builds a host-plane PE, which needs "
-            "shmem/api.py (not ported yet); only the 'device' spml is ported")
-
-
-class DirectSpml(_HostSpml):
+class DirectSpml(SpmlComponent):
     name = "direct"
     default_priority = 80
 
     def supports(self, ep) -> bool:
         return _is_thread_ctx(ep)
 
+    def make(self, ep, heap_bytes: int):
+        from .api import _DirectBackend, _ShmemUniverseState
 
-class MmapSpml(_HostSpml):
+        uni = ep.universe
+        # universe-shared state, created once by whichever PE gets here
+        # first (construction is collective; the lock makes it exactly
+        # one).  The heap size is fixed per universe, like the
+        # reference's SHMEM_SYMMETRIC_SIZE: replacing the state would
+        # orphan every live PE's symmetric addresses.
+        with _universe_lock(uni):
+            state = getattr(uni, "_shmem_state", None)
+            if state is None:
+                state = _ShmemUniverseState(ep.size, heap_bytes)
+                uni._shmem_state = state
+            elif state.arenas[0].nbytes < heap_bytes:
+                raise errors.ArgError(
+                    f"symmetric heap is fixed per universe "
+                    f"({state.arenas[0].nbytes}B); cannot grow to "
+                    f"{heap_bytes}B after first shmem_init"
+                )
+        return _DirectBackend(ep, state)
+
+
+_universe_locks: dict[int, threading.Lock] = {}
+_universe_guard = threading.Lock()
+
+
+def _universe_lock(uni) -> threading.Lock:
+    with _universe_guard:
+        return _universe_locks.setdefault(id(uni), threading.Lock())
+
+
+class MmapSpml(SpmlComponent):
     name = "mmap"
     default_priority = 60
 
     def supports(self, ep) -> bool:
         return _is_wire_ep(ep) and _all_same_host(ep)
 
+    def make(self, ep, heap_bytes: int):
+        from .segment import MmapBackend
 
-class AmSpml(_HostSpml):
+        return MmapBackend(ep, heap_bytes)
+
+
+class AmSpml(SpmlComponent):
     name = "am"
     default_priority = 40
 
     def supports(self, ep) -> bool:
         return _is_wire_ep(ep)
+
+    def make(self, ep, heap_bytes: int):
+        from .api import _AmBackend
+
+        return _AmBackend(ep, heap_bytes)
 
 
 def spml_framework() -> mca_component.Framework:
@@ -126,6 +168,13 @@ def select_spml(ep) -> SpmlComponent:
 
 
 def shmem_pe(ep, heap_bytes: int = _DEFAULT_HEAP):
-    """shmem_init: the spml-selected PE (collective over the endpoint's
-    group).  A device communicator gets a DeviceHeap."""
-    return select_spml(ep).make(ep, heap_bytes)
+    """shmem_init: spml-selected PE construction (collective over the
+    endpoint's group).  Host transports wrap in the imperative ShmemPE;
+    a device communicator gets the epoch-API DeviceHeap."""
+    from .api import ShmemPE
+
+    comp = select_spml(ep)
+    backend = comp.make(ep, heap_bytes)
+    if not getattr(comp, "wraps_pe", True):
+        return backend
+    return ShmemPE(ep, backend)
