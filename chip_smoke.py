@@ -307,11 +307,48 @@ Phases, each of which exits non-zero on failure:
    ``{"osc_io": ...}`` line with the pull and H2D ms per rank, the AM
    contrast's ms and counters, the CE errors, the PGAS counter, the
    spawn-to-connected ms and the phase's seconds.
-22. Print one ``{"kernels": [...]}`` line (``launches``: per training
+22. The tools (``drive_tools``): a port ``Dvm`` in this process;
+   ``tools/ztune.sweep`` on its thread harness (the flat topology,
+   allreduce and reduce at 4 KiB, 128 KiB and 4 MiB), ``distill``,
+   ``check_table`` (exit 0) and ``publish`` into the daemon's store.  Then
+   ``tools/mpirun.launch_dvm`` of 4 children of this script
+   (``--tools-child traced``, TCP alone, ``metrics=True, trace=True``),
+   each the whole flagship on the card with a one-rank tp communicator
+   (``coll_monitoring_enable`` on): a PMPI interceptor that counts and
+   times every collective by name, an MPI_T ``PvarSession``, one uncounted
+   forward, then 3 forwards of its 4 rows of a batch of 16 (exactly 9
+   layernorm-forward and 4 flash-forward launches each by its thread's
+   tally), the rows' CE ``iallreduce``d and ``iallgather``ed over the host
+   plane.  Gates per rank: the interceptor counted exactly the program's
+   24 ``allreduce`` calls, the session's ``spc_coll_allreduce_calls``
+   delta equals it, ``tcp_posted_recvs`` reads 0 after the last wait,
+   ``tuned_table_store_fetches`` >= 1 (the swept table was fetched).
+   Rank 0's gathered CE must match this process's forward of all 16 rows
+   (mean and every row within ``TOOLS_CE_TOL``).  Each rank runs
+   ``ztrace.publish_clock_sync``; rank 0 saves the parameters with
+   ``Checkpointer`` at steps 1 and 2.  While the job runs this process
+   reads rank 0's ``tcp_bytes_sent`` through ``PvarSession(remote=(dvm,
+   job, 0))`` until its delta rises; before releasing the ranks it
+   requires a non-empty ``pvars`` table in every metrics snapshot, merges
+   the 4 ranks' trace buffers (``ztrace.collect``): no happens-before
+   violation, a Chrome trace with one tid per rank, a straggler named for
+   each of the 6 collective instances.  Then two plain
+   ``mpirun.launch``es side by side: ``names`` (rank 0 publishes an open
+   port, rank 3 looks it up and connects; ``--mca tcp_eager_limit 8192``
+   reaches every rank) and ``abort`` (the sm var at its default; rank 3
+   exits 3: rc 3 within ``TOOLS_ABORT_S`` of its exit, no ring file of the
+   session left), beside ``python -m zhpe_ompi_tpu_torch.tools.checkpoint
+   list|inspect`` (the flagship's leaf shapes and dtypes) and ``tools.info
+   --json`` (lists ``coll/nccl``); then ``checkpoint prune --keep 1``, and
+   ``info.gather()``'s pvar count against ``mpit.pvar_get_num()``.  Last,
+   ``Communicator.allreduce``'s host µs on a one-rank NCCL communicator
+   with no interceptor and with a pass-through one attached (alternating
+   turns of 200 calls).  Printed: one ``{"tools": ...}`` line.
+23. Print one ``{"kernels": [...]}`` line (``launches``: per training
    step; ``launches_by_path``: per forward, training, remat, sp, runtime,
-   long-context, Adam, ft rank, hybrid, ZeRO, serve step and phase 21's
-   forward), the smoke's total seconds, the card's line, and last
-   ``{"ok": true, "device": {...}}``.
+   long-context, Adam, ft rank, hybrid, ZeRO, serve step, phase 21's and
+   phase 22's forward), the smoke's total seconds, the card's line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
@@ -360,6 +397,11 @@ child.
 
 runs only phase 21 (after the kernel build); ``--osc-io-child`` is its
 child.
+
+    python3 chip_smoke.py --tools
+
+runs only phase 22 (after the kernel build); ``--tools-child
+traced|names|abort`` is its child.
 
     python3 chip_smoke.py --bench-after
 
@@ -605,6 +647,38 @@ OSC_CE_TOL = LOSS_TOL
 OSC_SPAWN = 2
 OSC_CONTROL_BYTES = 1 << 20
 OSC_TIMEOUT_S = 600.0
+
+# Phase 22 (drive_tools): the port's tools around the flagship forward.
+# TOOLS_SWEEP_OPS and TOOLS_SWEEP_SIZES are the ztune sweep of this process
+# on its thread harness (the flat topology; the namesake's sweep has
+# candidates for allreduce, reduce, alltoall and alltoallv, none for bcast);
+# TOOLS_RANKS daemon-hosted children (--tools-child traced) each hold the
+# flagship on the card and run TOOLS_FORWARDS counted forwards of their
+# TOOLS_ROWS rows of a batch of TOOLS_BATCH through a one-rank tp
+# communicator (2 allreduces a layer, through the PMPI interceptor), the
+# rows' CE reduced and gathered over the host plane (nonblocking, so each
+# collective records a ztrace span); TOOLS_CE_TOL bounds rank 0's gathered
+# CE against this process's forward of all rows (phase 21's bound).
+# TOOLS_MCA: the traced job on TCP alone (its tcp_bytes_sent is what the
+# remote session reads) and the publisher at its 250 ms floor.  The plain
+# launches (--tools-child names|abort) forward TOOLS_NAMES_MCA; the abort's
+# rc must come within TOOLS_ABORT_S of the rank's exit (the launcher's
+# SIGTERM grace is 2 s).  TOOLS_PMPI_TURNS: alternating turns of the PMPI
+# host cost, 200 calls each (host_us_per_call).
+TOOLS_DEVICE, TOOLS_BACKEND = "cuda", "nccl"
+TOOLS_RANKS = 4
+TOOLS_BATCH = 16
+TOOLS_ROWS = TOOLS_BATCH // TOOLS_RANKS
+TOOLS_FORWARDS = 3
+TOOLS_SEED = 2414
+TOOLS_CE_TOL = LOSS_TOL
+TOOLS_SWEEP_OPS = ("allreduce", "reduce")
+TOOLS_SWEEP_SIZES = (4 << 10, 128 << 10, 4 << 20)
+TOOLS_MCA = [("sm", "0"), ("spc_publish_interval_ms", "250")]
+TOOLS_NAMES_MCA = [("tcp_eager_limit", "8192")]
+TOOLS_ABORT_S = 3.0
+TOOLS_PMPI_TURNS = 4
+TOOLS_WAIT_S = 300.0
 
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
 # sequence, so the ring's mbarrier phases wrap many times (64 key or query
@@ -3919,6 +3993,540 @@ def drive_osc_io(torch, np, tfm, card_line) -> dict:
     return report
 
 
+def _tools_tokens(np, cfg):
+    """Phase 22's batch: (tokens, targets) of TOOLS_BATCH rows, one seed."""
+    rng = np.random.default_rng(TOOLS_SEED + 1)
+    return tuple(rng.integers(0, cfg.vocab, (TOOLS_BATCH, cfg.seq), dtype=np.int64)
+                 for _ in range(2))
+
+
+def _tools_row_ce(torch, F, tfm, params, tok, tgt, cfg, tp_comm=None):
+    """Each row's mean next-token cross-entropy (f32) of one forward."""
+    logits = tfm.forward(params, tok, cfg, tp_comm=tp_comm)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                         tgt.reshape(-1), reduction="none")
+    return ce.view(tok.shape).mean(1)
+
+
+def _tools_wait(path, job=None, what="file"):
+    """Wait for ``path`` to appear; fails at TOOLS_WAIT_S, or at once when
+    ``job`` (a launch thread and its output) ended first."""
+    deadline = time.monotonic() + TOOLS_WAIT_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline or (job is not None and not job[0].is_alive()):
+            tail = "" if job is None else \
+                f"\n{job[1].getvalue()[-3000:]}\n{_rank_tails(job[2].getvalue(), 40)}"
+            raise SystemExit(f"tools: {what} {path} never appeared{tail}")
+        time.sleep(0.01)
+
+
+def _tools_touch(path, text=""):
+    with open(path + ".tmp", "w") as fh:
+        fh.write(text)
+    os.replace(path + ".tmp", path)
+
+
+def _tools_names_child() -> int:
+    """Phase 22's plain-launcher child: the name server, ``--mca``
+    forwarding and a host-plane allreduce under ``tools/mpirun.launch``."""
+    import socket
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.comm import dpm_wire
+
+    ep = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    out = {"rank": ep.rank, "size": ep.size,
+           "eager": zmpi.mca_var.get("tcp_eager_limit", None)}
+    service = "chip-smoke-tools"
+    if ep.rank == 0:
+        port = dpm_wire.open_port()
+        dpm_wire.publish_name(service, port.name)
+        ep.barrier()
+        port._srv.settimeout(HOST_TIMEOUT_S)
+        conn, _ = port._srv.accept()
+        with conn:
+            out["hello"] = b"".join(iter(lambda: conn.recv(64), b"")).decode()
+        port.close()
+        ep.barrier()
+        dpm_wire.unpublish_name(service)
+    else:
+        ep.barrier()
+        if ep.rank == ep.size - 1:
+            name = dpm_wire.lookup_name(service)
+            host, port_no = name.rsplit(":", 1)
+            with socket.create_connection((host, int(port_no)), HOST_TIMEOUT_S) as c:
+                c.sendall(f"hello from rank {ep.rank}".encode())
+            out["looked_up"] = name
+        ep.barrier()
+    out["sum"] = ep.allreduce(ep.rank + 1, zmpi.SUM)
+    zmpi.host_finalize()
+    print("NAMES " + json.dumps(out), flush=True)
+    return 0
+
+
+def _tools_abort_child() -> int:
+    """Phase 22's abort child: every rank up with the sm var at its default
+    (ring files in the launcher's session), then the last rank exits 3 while
+    the others wait in a receive the launcher must tear down."""
+    import glob
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.pt2pt import sm
+
+    ep = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    ep.barrier()
+    if ep.rank == ep.size - 1:
+        session = os.environ["ZMPI_SESSION"]
+        rings = glob.glob(os.path.join(sm.segment_dir(), f"zompi_pyring_{session}_*"))
+        print("ABORT " + json.dumps({"rank": ep.rank, "session": session,
+                                     "sm": ep._sm_seg is not None,
+                                     "ring_files": len(rings),
+                                     "t_exit": time.time()}), flush=True)
+        os._exit(3)
+    ep.recv(source=ep.size - 1, tag=0x7A)
+    return 1
+
+
+def _tools_traced_child(work) -> int:
+    """Phase 22's daemon-hosted child (see the module doc): the flagship on
+    the card, counted forwards through a PMPI interceptor and MPI_T
+    sessions, the CE over the host plane, the clock sync, rank 0's
+    checkpoints; prints one ``TOOLS {json}`` line, then holds until this
+    process has read the job's store."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch import _build
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.models import transformer as tfm
+    from zhpe_ompi_tpu_torch.runtime.checkpoint import Checkpointer
+    from zhpe_ompi_tpu_torch.tools import mpit, pmpi, ztrace
+
+    sync = torch.cuda.synchronize if TOOLS_DEVICE == "cuda" else (lambda: None)
+    ep = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    r = ep.rank
+    job = os.environ["ZMPI_PMIX"].rsplit("/", 1)[1]
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    params = tfm.params_from_numpy(numpy_params(cfg, TOOLS_SEED), cfg,
+                                   device=TOOLS_DEVICE)
+    tok, tgt = (torch.from_numpy(a[r * TOOLS_ROWS:(r + 1) * TOOLS_ROWS]).to(TOOLS_DEVICE)
+                for a in _tools_tokens(np, cfg))
+    store = tempfile.mkdtemp(prefix="zmpi-tools-tp-")
+    dist.init_process_group(TOOLS_BACKEND,
+                            store=dist.FileStore(os.path.join(store, "s"), 1),
+                            rank=0, world_size=1)
+    # the monitoring component counts coll_<op>_calls: set before the
+    # communicator composes its table
+    mca_var.set_var("coll_monitoring_enable", True)
+    out: dict = {"rank": r, "size": ep.size, "job": job}
+    calls: dict = {}
+    secs: dict = {}
+
+    def interceptor(opname, comm, args, kwargs, call_next):
+        t0 = time.perf_counter()
+        try:
+            return call_next()
+        finally:
+            calls[opname] = calls.get(opname, 0) + 1
+            secs[opname] = secs.get(opname, 0.0) + time.perf_counter() - t0
+
+    try:
+        tp = zmpi.Communicator(name="tp")
+        with torch.no_grad():
+            _tools_row_ce(torch, F, tfm, params, tok, tgt, cfg, tp)  # set-up
+        sync()
+        session = mpit.PvarSession()
+        h_calls = session.handle_alloc("spc_coll_allreduce_calls")
+        h_posted = session.handle_alloc("tcp_posted_recvs")
+        # never started: its baseline is 0, so it reads the count itself
+        h_fetch = session.handle_alloc("spc_tuned_table_store_fetches")
+        pmpi.attach(interceptor)
+        h_calls.start()
+        fwd_ms, launches, totals, rows = [], [], [], None
+        try:
+            for i in range(TOOLS_FORWARDS):
+                if i == 1:
+                    # the first forward's host-plane traffic is out: this
+                    # process's reader starts its remote session on rank 0
+                    if r == 0:
+                        _tools_touch(os.path.join(work, "ready"), job)
+                    _tools_wait(os.path.join(work, "go"))
+                before = _build.thread_launches()
+                sync()
+                t = time.perf_counter()
+                with torch.no_grad():
+                    row_ce = _tools_row_ce(torch, F, tfm, params, tok, tgt, cfg, tp)
+                sync()
+                fwd_ms.append((time.perf_counter() - t) * 1e3)
+                after = _build.thread_launches()
+                launches.append({k: v - before.get(k, 0) for k, v in after.items()
+                                 if v != before.get(k, 0)})
+                mine = row_ce.double().cpu().numpy()
+                totals.append(float(ep.iallreduce(float(mine.sum()), zmpi.SUM).wait()))
+                rows = ep.iallgather(mine.tolist()).wait()
+        finally:
+            pmpi.detach(interceptor)
+        out["calls_by_op"] = calls
+        out["interceptor_us"] = {op: secs[op] / calls[op] * 1e6 for op in calls}
+        out["want_calls"] = {"allreduce": 2 * cfg.n_layers * TOOLS_FORWARDS}
+        out["pvar_allreduce_calls"] = h_calls.read()
+        out["tcp_posted_recvs"] = h_posted.read()
+        out["tuned_table_store_fetches"] = h_fetch.read()
+        session.free()
+        out["forward_ms"], out["launches"] = fwd_ms, launches
+        out["row_ce"] = [x for part in rows for x in part]
+        out["total_ce"] = totals
+        out["clock_offsets"] = ztrace.publish_clock_sync(ep)
+        if r == 0:
+            ck = Checkpointer(os.path.join(work, "ckpt"), keep=5)
+            t = time.perf_counter()
+            for step in (1, 2):
+                ck.save(step, {"params": params}, blocking=True)
+            out["checkpoint_ms"] = (time.perf_counter() - t) * 1e3
+    finally:
+        mca_var.unset("coll_monitoring_enable")
+        dist.destroy_process_group()
+    print("TOOLS " + json.dumps(out), flush=True)
+    _tools_touch(os.path.join(work, f"finished_{r}"))
+    _tools_wait(os.path.join(work, "release"))
+    zmpi.host_finalize()
+    return 0
+
+
+def tools_child(mode: str, work: str | None = None) -> int:
+    """Phase 22's children: ``traced`` (daemon-hosted, ``work`` its
+    handshake directory), ``names`` and ``abort`` (under
+    ``tools/mpirun.launch``)."""
+    print(f"TOOLS-START rank {os.environ.get('ZMPI_RANK')}", flush=True)
+    if mode == "names":
+        return _tools_names_child()
+    if mode == "abort":
+        return _tools_abort_child()
+    return _tools_traced_child(work)
+
+
+class _FirstLine:
+    """An IOF sink that keeps what the launcher forwards and the monotonic
+    time of its first line."""
+
+    def __init__(self):
+        import io
+
+        self.buf, self.first = io.StringIO(), None
+
+    def write(self, text):
+        if self.first is None:
+            self.first = time.monotonic()
+        self.buf.write(text)
+
+    def flush(self):
+        pass
+
+    def getvalue(self):
+        return self.buf.getvalue()
+
+
+def _tools_plain(mpirun, kind, mca=None) -> dict:
+    """One plain ``mpirun.launch`` of TOOLS_RANKS ``--tools-child kind``
+    ranks: rc, output, spawn-to-first-line ms, the wall time it returned."""
+    out, err = _FirstLine(), _FirstLine()
+    t0 = time.monotonic()
+    rc = mpirun.launch(TOOLS_RANKS, [os.path.abspath(__file__), "--tools-child", kind],
+                       mca=mca, stdout=out, stderr=err, timeout=TOOLS_WAIT_S)
+    t_return = time.time()
+    return {"rc": rc, "out": out.getvalue(), "err": err.getvalue(),
+            "first_line_ms": None if out.first is None else (out.first - t0) * 1e3,
+            "t_return": t_return}
+
+
+def _tools_pmpi_host_us(torch, dist, zmpi, pmpi) -> dict:
+    """Host µs per ``Communicator.allreduce`` (1024 floats, one-rank
+    communicator) with no interceptor and with a pass-through one attached,
+    in alternating turns."""
+    def passthrough(opname, comm, args, kwargs, call_next):
+        return call_next()
+
+    got: dict = {"none": [], "attached": []}
+    with tempfile.TemporaryDirectory() as store_dir:
+        dist.init_process_group(
+            TOOLS_BACKEND, store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            comm = zmpi.Communicator(name="pmpi_us")
+            small = [torch.ones(1024, device=TOOLS_DEVICE) for _ in range(4)]
+            for turn in range(TOOLS_PMPI_TURNS):
+                for attached in ((False, True) if turn % 2 == 0 else (True, False)):
+                    if attached:
+                        pmpi.attach(passthrough)
+                    try:
+                        got["attached" if attached else "none"].append(host_us_per_call(
+                            torch, lambda i: comm.allreduce(small[i]), 4))
+                    finally:
+                        if attached:
+                            pmpi.detach(passthrough)
+        finally:
+            dist.destroy_process_group()
+    return {k: {"turns": v, "median": sorted(v)[len(v) // 2]} for k, v in got.items()}
+
+
+def drive_tools(torch, np, tfm, card_line) -> dict:
+    """Phase 22: the port's tools around the flagship forward (see the
+    module doc).  Fails unless every gate holds."""
+    import glob
+    import io
+    import shutil
+    import threading
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+    from zhpe_ompi_tpu_torch.pt2pt import sm
+    from zhpe_ompi_tpu_torch.runtime import dvm as dvm_mod
+    from zhpe_ompi_tpu_torch.tools import info, mpirun, mpit, pmpi, ztrace, ztune
+
+    t_phase = time.perf_counter()
+    smoke = os.path.abspath(__file__)
+    work = tempfile.mkdtemp(prefix="zmpi-tools-")
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    report: dict = {"ranks": TOOLS_RANKS}
+    d = dvm_mod.Dvm()
+    pmix_addr = ("127.0.0.1", d.pmix.address[1])
+    try:
+        # 1. ztune: sweep, distill, check, publish into the daemon's store
+        t = time.perf_counter()
+        cells = [c for size in TOOLS_SWEEP_SIZES for c in ztune.sweep(
+            topos=("flat",), ops=TOOLS_SWEEP_OPS, min_bytes=size, max_bytes=size,
+            iters=1, trials=1)]
+        report["sweep_s"] = time.perf_counter() - t
+        report["sweep_cells"] = len(cells)
+        distilled = ztune.distill(cells)
+        table = ztune.format_table(
+            distilled, {k: ztune.geometry_for(cells, k) for k in distilled},
+            note="chip_smoke phase 22")
+        table_path = os.path.join(work, "tuned.table")
+        with open(table_path, "w") as fh:
+            fh.write(table)
+        if len(cells) != len(TOOLS_SWEEP_SIZES) * len(TOOLS_SWEEP_OPS) \
+                or ztune.check_table(table_path) != 0:
+            raise SystemExit(f"tools: ztune swept {len(cells)} cells; table:\n{table}")
+        report["table_rules"] = [list(rule) for v in distilled.values()
+                                 for rule in v["rules"]]
+        ztune.publish(f"{pmix_addr[0]}:{pmix_addr[1]}", table)
+
+        # 2. the traced job
+        out, err, res = io.StringIO(), io.StringIO(), {}
+
+        def run():
+            try:
+                res["rc"] = mpirun.launch_dvm(
+                    d.address, TOOLS_RANKS, [smoke, "--tools-child", "traced", work],
+                    mca=TOOLS_MCA, metrics=True, trace=True, stdout=out, stderr=err,
+                    timeout=TOOLS_WAIT_S)
+            except Exception as e:  # noqa: BLE001 - reported below
+                res["error"] = f"{type(e).__name__}: {e}"
+
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        launch = (th, out, err)
+        try:
+            _tools_wait(os.path.join(work, "ready"), launch, "rank 0's handshake")
+            with open(os.path.join(work, "ready")) as fh:
+                job = fh.read()
+            remote = mpit.PvarSession(remote=(d.address, job, 0))
+            handle = remote.handle_alloc("spc_tcp_bytes_sent")
+            t = time.perf_counter()
+            handle.start()
+            read_ms = [(time.perf_counter() - t) * 1e3]
+            _tools_touch(os.path.join(work, "go"))
+            rise, deadline = 0, time.monotonic() + 60.0
+            while rise <= 0:
+                if time.monotonic() > deadline:
+                    raise SystemExit("tools: rank 0's remote tcp_bytes_sent never rose")
+                time.sleep(0.1)
+                t = time.perf_counter()
+                rise = handle.read()
+                read_ms.append((time.perf_counter() - t) * 1e3)
+            remote.free()
+            report["remote_tcp_bytes_rise"] = rise
+            report["remote_read_ms"] = read_ms
+            for r in range(TOOLS_RANKS):
+                _tools_wait(os.path.join(work, f"finished_{r}"), launch, f"rank {r}")
+            # one periodic publish after the ranks' last spans
+            time.sleep(0.6)
+            snaps = d.store.lookup(job, "metrics:")
+            pvars = {k: len(v["pvars"]) for k, v in snaps.items()}
+            if len(snaps) != TOOLS_RANKS or not all(pvars.values()):
+                raise SystemExit(f"tools: metrics snapshots' pvars {pvars}")
+            report["snapshot_pvars"] = pvars
+            t = time.perf_counter()
+            payloads, offsets = ztrace.collect(pmix_addr, job)
+            spans = ztrace.corrected_spans(payloads, offsets)
+            report["merge_ms"] = (time.perf_counter() - t) * 1e3
+            report["trace_spans"] = len(spans)
+            report["clock_offsets"] = offsets
+            violations = ztrace.happens_before_violations(spans)
+            doc = ztrace.chrome_trace(payloads, offsets)
+            trace_path = os.path.join(work, "tools_trace.json")
+            with open(trace_path, "w") as fh:
+                json.dump(doc, fh)
+            report["chrome_trace_bytes"] = os.path.getsize(trace_path)
+            tids = sorted({e["tid"] for e in doc["traceEvents"] if e["ph"] == "M"})
+            text = ztrace.critical_path_report(payloads, offsets)
+            insts = ztrace._coll_instances(spans)
+            report["collective_instances"] = len(insts)
+            report["stragglers"] = [[i["op"], i["straggler"]] for i in insts]
+            if len(payloads) != TOOLS_RANKS or violations or offsets is None \
+                    or tids != list(range(TOOLS_RANKS)) \
+                    or len(insts) != 2 * TOOLS_FORWARDS \
+                    or any(len(i["ranks"]) != TOOLS_RANKS for i in insts) \
+                    or text.count("straggler rank") != len(insts):
+                raise SystemExit(f"tools: trace of {len(payloads)} ranks, offsets "
+                                 f"{offsets}, tids {tids}, {len(insts)} collective "
+                                 f"instances, violations {violations[:5]}\n{text}")
+        finally:
+            _tools_touch(os.path.join(work, "release"))
+            th.join(TOOLS_WAIT_S)
+        if th.is_alive() or res.get("rc") != 0:
+            raise SystemExit(f"tools: traced job {res}\n{out.getvalue()[-3000:]}\n"
+                             f"{_rank_tails(err.getvalue(), 40)}")
+    finally:
+        d.stop()
+    ranks = sorted(_child_json(out.getvalue(), "TOOLS"), key=lambda x: x["rank"])
+    want_l = {"ln_fwd": 2 * cfg.n_layers + 1, "flash_fwd": cfg.n_layers} \
+        if TOOLS_DEVICE == "cuda" else {}
+    for x in ranks:
+        if x["calls_by_op"] != x["want_calls"] \
+                or x["pvar_allreduce_calls"] != x["calls_by_op"].get("allreduce") \
+                or x["tcp_posted_recvs"] != 0 or x["tuned_table_store_fetches"] < 1 \
+                or any(lc != want_l for lc in x["launches"]):
+            raise SystemExit(f"tools: rank {x['rank']}: interceptor {x['calls_by_op']} "
+                             f"(want {x['want_calls']}), mpit allreduce calls "
+                             f"{x['pvar_allreduce_calls']}, posted "
+                             f"{x['tcp_posted_recvs']}, store fetches "
+                             f"{x['tuned_table_store_fetches']}, launches "
+                             f"{x['launches']} (want {want_l} each)")
+    if len(ranks) != TOOLS_RANKS:
+        raise SystemExit(f"tools: {len(ranks)} TOOLS lines")
+    # rank 0's gathered CE against this process's forward of all rows
+    tok, tgt = (torch.from_numpy(a).to(TOOLS_DEVICE) for a in _tools_tokens(np, cfg))
+    params = tfm.params_from_numpy(numpy_params(cfg, TOOLS_SEED), cfg, device=TOOLS_DEVICE)
+    with torch.no_grad():
+        ref = _tools_row_ce(torch, F, tfm, params, tok, tgt, cfg).double().cpu().numpy()
+    del params
+    got = np.asarray(ranks[0]["row_ce"])
+    mean_err = abs(float(got.mean()) - float(ref.mean()))
+    row_err = float(np.abs(got - ref).max())
+    total_err = max(abs(t - float(got.sum())) for t in ranks[0]["total_ce"])
+    if not np.isfinite(got).all() or mean_err > TOOLS_CE_TOL or row_err > TOOLS_CE_TOL \
+            or total_err > 1e-9 * abs(float(got.sum())):
+        raise SystemExit(f"tools: the gathered CE differs by {mean_err} (mean), "
+                         f"{row_err} (row), the allreduced total by {total_err}")
+
+    # 3. the plain launcher, the checkpoint and info CLIs beside it
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(smoke)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    ckdir = os.path.join(work, "ckpt")
+    clis = {name: subprocess.Popen(
+        [sys.executable, "-m", f"zhpe_ompi_tpu_torch.tools.{mod}", *argv], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (mod, argv) in {"list": ("checkpoint", ["list", ckdir]),
+                                  "inspect": ("checkpoint", ["inspect", ckdir]),
+                                  "info": ("info", ["--json"])}.items()}
+    plain: dict = {}
+    threads = [threading.Thread(target=lambda k=k, m=m: plain.update(
+        {k: _tools_plain(mpirun, k, m)}), daemon=True)
+        for k, m in (("names", TOOLS_NAMES_MCA), ("abort", None))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(TOOLS_WAIT_S)
+    cli_out = {k: p.communicate(timeout=TOOLS_WAIT_S) + (p.returncode,)
+               for k, p in clis.items()}
+    names = sorted(_child_json(plain["names"]["out"], "NAMES"), key=lambda x: x["rank"])
+    if plain["names"]["rc"] != 0 or len(names) != TOOLS_RANKS \
+            or any(x["eager"] != 8192 or x["sum"] != 10 for x in names) \
+            or names[0].get("hello") != f"hello from rank {TOOLS_RANKS - 1}" \
+            or not names[-1].get("looked_up"):
+        raise SystemExit(f"tools: names launch {plain['names']['rc']} {names}\n"
+                         f"{plain['names']['err'][-3000:]}")
+    aborted = _child_json(plain["abort"]["out"], "ABORT")
+    left = [] if not aborted else glob.glob(os.path.join(
+        sm.segment_dir(), f"zompi_pyring_{aborted[0]['session']}_*"))
+    abort_ms = None if not aborted else \
+        (plain["abort"]["t_return"] - aborted[0]["t_exit"]) * 1e3
+    if plain["abort"]["rc"] != 3 or len(aborted) != 1 or not aborted[0]["sm"] \
+            or aborted[0]["ring_files"] < 1 or left or abort_ms > TOOLS_ABORT_S * 1e3:
+        raise SystemExit(f"tools: abort launch rc {plain['abort']['rc']}, {aborted}, "
+                         f"{abort_ms} ms, ring files left {left}\n"
+                         f"{plain['abort']['err'][-3000:]}")
+
+    # 4. checkpoint and info
+    for k, (o, e, rc) in cli_out.items():
+        if rc != 0:
+            raise SystemExit(f"tools: {k} CLI exited {rc}\n{o[-2000:]}\n{e[-2000:]}")
+    leaves = sorted(line.split(": ", 1)[1] for line in cli_out["inspect"][0].splitlines()
+                    if "leaf[" in line)
+    want_leaves = sorted(f"shape={tuple(s)} dtype=float32"
+                         for s in _serve_param_shapes(cfg).values())
+    if leaves != want_leaves or "latest: 2" not in cli_out["list"][0]:
+        raise SystemExit(f"tools: checkpoint list/inspect\n{cli_out['list'][0]}\n"
+                         f"{cli_out['inspect'][0]}")
+    pruned = subprocess.run([sys.executable, "-m", "zhpe_ompi_tpu_torch.tools.checkpoint",
+                             "prune", ckdir, "--keep", "1"], env=env, capture_output=True,
+                            text=True, timeout=TOOLS_WAIT_S)
+    if pruned.returncode != 0 or "pruned step 1" not in pruned.stdout \
+            or sorted(n for n in os.listdir(ckdir) if n.startswith("step_")) != ["step_2"]:
+        raise SystemExit(f"tools: prune\n{pruned.stdout}\n{pruned.stderr}")
+    info_json = json.loads(cli_out["info"][0])
+    comps = {f["framework"]: [c["name"] for c in f["components"]]
+             for f in info_json["frameworks"]}
+    in_process = info.gather()
+    if "nccl" not in comps.get("coll", []) \
+            or len(in_process["pvars"]) != mpit.pvar_get_num():
+        raise SystemExit(f"tools: info lists coll {comps.get('coll')}; "
+                         f"{len(in_process['pvars'])} pvars against "
+                         f"{mpit.pvar_get_num()}")
+
+    # 5. the PMPI seam's host cost
+    pmpi_us = _tools_pmpi_host_us(torch, dist, zmpi, pmpi)
+    shutil.rmtree(work)
+    report.update({
+        "forward_ms": [x["forward_ms"] for x in ranks],
+        "launches": [x["launches"] for x in ranks],
+        "launches_per_forward": ranks[0]["launches"][0],
+        "interceptor_calls": ranks[0]["calls_by_op"],
+        "interceptor_us": [x["interceptor_us"] for x in ranks],
+        "pvar_allreduce_calls": [x["pvar_allreduce_calls"] for x in ranks],
+        "tuned_table_store_fetches": [x["tuned_table_store_fetches"] for x in ranks],
+        "checkpoint_ms": ranks[0]["checkpoint_ms"],
+        "ce_mean_abs_err": mean_err, "ce_row_max_abs_err": row_err,
+        "ce_tol": TOOLS_CE_TOL,
+        "spawn_to_first_line_ms": {k: v["first_line_ms"] for k, v in plain.items()},
+        "abort_to_rc_ms": abort_ms, "abort_ring_files": aborted[0]["ring_files"],
+        "info_pvars": len(info_json["pvars"]), "info_coll": comps["coll"],
+        "pmpi_host_us": pmpi_us,
+        "pmpi_overhead_us": pmpi_us["attached"]["median"] - pmpi_us["none"]["median"],
+        "phase_s": time.perf_counter() - t_phase})
+    print(json.dumps({"tools": report, "card": card_line}))
+    print(f"tools ({TOOLS_RANKS} daemon-hosted ranks, flagship width): sweep "
+          f"{report['sweep_cells']} cells in {report['sweep_s']} s; forward ms "
+          f"{report['forward_ms']}; launches {report['launches_per_forward']}; "
+          f"interceptor {report['interceptor_calls']}; remote pvar reads "
+          f"{report['remote_read_ms']} ms; {report['trace_spans']} spans merged in "
+          f"{report['merge_ms']} ms; spawn-to-first-line "
+          f"{report['spawn_to_first_line_ms']} ms; abort-to-rc {abort_ms} ms; "
+          f"PMPI host µs none {pmpi_us['none']['median']} attached "
+          f"{pmpi_us['attached']['median']}; phase {report['phase_s']} s on {card_line}")
+    return report
+
+
 def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
     """Phase 5: the MPI entry point, the monitored train step, the ULFM
     methods on CUDA tensors, the device probe, the bench, finalize."""
@@ -4337,6 +4945,27 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _take_widths()
         return osc_io_child()
+    if args and args[0] == "--tools-child" and len(args) in (2, 3) \
+            and args[1] in ("traced", "names", "abort"):
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        return tools_child(args[1], args[2] if len(args) == 3 else None)
+    if args == ["--tools"]:
+        # phase 22 alone, after the kernel build
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        import numpy as np
+
+        from zhpe_ompi_tpu_torch import _build
+        from zhpe_ompi_tpu_torch.models import transformer as tfm
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card_line = _card_line()
+        print(f"card: {card_line}")
+        print(f"kernel build: per source {_build.build()}")
+        drive_tools(torch, np, tfm, card_line)
+        print(card_line)
+        return 0
     if args == ["--osc-io"]:
         # phase 21 alone, after the kernel build
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4425,7 +5054,8 @@ def main() -> int:
               "| --compare-host-us OTHER_ROOT [PAIRS] | --host-plane "
               "| --host-moe-child | --ft | --ft-child | --ft-dvm-child | --hybrid "
               "| --hybrid-child | --serve | --serve-child kill|elastic "
-              "| --osc-io | --osc-io-child]",
+              "| --osc-io | --osc-io-child | --tools "
+              "| --tools-child traced|names|abort [DIR]]",
               file=sys.stderr)
         return 2
     if args:
@@ -4537,6 +5167,10 @@ def main() -> int:
     hybrid = drive_hybrid(torch, card_line)
     serve = drive_serve(torch, np, tfm, card_line)
     osc_io = drive_osc_io(torch, np, tfm, card_line)
+    tools = drive_tools(torch, np, tfm, card_line)
+    tools_launches = {"layernorm_fwd": tools["launches_per_forward"].get("ln_fwd", 0),
+                      "flash_attention_fwd":
+                          tools["launches_per_forward"].get("flash_fwd", 0)}
     osc_launches = {"layernorm_fwd": osc_io["launches_per_forward"].get("ln_fwd", 0),
                     "flash_attention_fwd":
                         osc_io["launches_per_forward"].get("flash_fwd", 0)}
@@ -4556,7 +5190,8 @@ def main() -> int:
             "hybrid": hybrid["launches_per_step"]["hybrid"][k["name"]],
             "zero": hybrid["launches_per_step"]["zero"][k["name"]],
             "serve": serve_launches.get(k["name"], 0),
-            "osc_io": osc_launches.get(k["name"], 0)}
+            "osc_io": osc_launches.get(k["name"], 0),
+            "tools": tools_launches.get(k["name"], 0)}
     steps = {"train": steady, "remat": remat_steady,
              **{label: sp[label][1] for label in sp}, "adam": adam_steady}
     print(json.dumps({"steps": steps, "card": card_line}))
@@ -4571,6 +5206,7 @@ def main() -> int:
                       "host_plane": host_plane, "host_moe": host_moe,
                       "ft": ft, "ft_processes": ft_processes, "ft_dvm": ft_dvm,
                       "hybrid": hybrid, "serve": serve, "osc_io": osc_io,
+                      "tools": tools,
                       "smoke_s": time.perf_counter() - t_start}))
     print(f"smoke total: {time.perf_counter() - t_start} s")
     print(card_line)

@@ -65,6 +65,20 @@ CKPT_COUNTERS = ("ckpt_bytes_written", "ckpt_shards_written",
                  "ckpt_write_deadline_failures")
 
 
+@pytest.fixture(autouse=True)
+def _no_stale_jax_universes():
+    """Retire the thread universes earlier files of this xdist worker left
+    in the JAX package's live set (its ``LocalUniverse`` has no
+    ``close()``): the JAX side's quiescence check reads every live one, so
+    a posted receive another file abandoned would fail this file's saves
+    (ROADMAP C7)."""
+    from zhpe_ompi_tpu.pt2pt import universe as juniverse
+
+    for uni in list(juniverse._live_universes):
+        juniverse._live_universes.discard(uni)
+    yield
+
+
 def same(run):
     """``run(P)`` on the JAX package, then on the port; equal outcomes."""
     ref = run(JAX)

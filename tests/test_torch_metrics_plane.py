@@ -18,9 +18,8 @@ rank-side ``spc.MetricsPublisher`` (``runtime/spc.py``), ``TcpProc``'s
   the survivors' flight-recorder windows and scrape (``slow``, as the
   namesake's is).
 
-The snapshots' ``pvars`` table is empty in the port: its live state
-pvars come from ``tools/mpit.py``, which is not ported (ROADMAP C5).
-The autouse hygiene fixture is ``test_torch_dvm_tree``'s.
+The snapshots' ``pvars`` table carries the registered state pvars
+(``tools/mpit.py``), as the namesake's does.  The autouse hygiene fixture is ``test_torch_dvm_tree``'s.
 """
 
 import re
@@ -105,7 +104,8 @@ def test_publish_final_flush_and_hygiene():
             assert not tspc.documented_counters() - set(payload["counters"])
             assert payload["counters"]["tcp_bytes_sent"] > 0
             assert payload["counters"]["spc_publishes"] >= 1
-            assert payload["pvars"] == {}
+            # state pvars ride the snapshot
+            assert "tcp_posted_recvs" in payload["pvars"]
             assert payload["watermark"] == sorted(
                 n for n in payload["counters"] if n in tspc.WATERMARK)
         assert tspc.read("spc_publishes") - pubs0 >= 2

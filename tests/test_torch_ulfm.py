@@ -1959,6 +1959,15 @@ def mixed_ft_program(victim, how):
                 except P.errors.MpiError:
                     pass
         p.barrier()
+        # every survivor is past the barrier before the victim can die: a
+        # victim severed while a peer has not yet read its last barrier
+        # message is classified inside that peer's barrier
+        if r == victim:
+            for peer in range(4):
+                if peer != victim:
+                    p.recv(source=peer, tag=3, timeout=10.0)
+        else:
+            p.send(r, dest=victim, tag=3)
         plan = P.FaultPlan(seed=5)
         if how == "kill":
             plan.kill_rank(victim, after_ops=1)

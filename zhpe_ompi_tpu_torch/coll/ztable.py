@@ -101,31 +101,35 @@ def _specificity(key):
     return (-pinned, tuple(0 if f is not None else 1 for f in key))
 
 
-def _geometry_problem(parts):
-    """The reason a ``geometry`` line is malformed, or None."""
+def _parse_geometry(parts):
+    """``(reason, bytes)`` of a ``geometry`` line: the reason it is
+    malformed, or None and its byte count."""
     if len(parts) != 3:
-        return "expected geometry <var> <bytes>"
+        return "expected geometry <var> <bytes>", None
     if parts[1] not in GEOMETRY_VARS:
         return (f"unknown geometry var {parts[1]!r} (one of "
-                + ", ".join(GEOMETRY_VARS) + ")")
+                + ", ".join(GEOMETRY_VARS) + ")"), None
     try:
         nbytes = int(parts[2])
     except ValueError:
-        return "non-integer geometry bytes"
-    return "geometry bytes must be positive" if nbytes < 1 else None
+        return "non-integer geometry bytes", None
+    if nbytes < 1:
+        return "geometry bytes must be positive", None
+    return None, nbytes
 
 
-def _rule_problem(parts):
-    """The reason a rule line is malformed, or None."""
+def _parse_rule(parts):
+    """``(reason, rule)`` of a rule line: the reason it is malformed, or
+    None and its ``(op, comm_min, bytes_min, alg)``."""
     if len(parts) != 4:
-        return "expected <op> <comm_min> <bytes_min> <alg>"
+        return "expected <op> <comm_min> <bytes_min> <alg>", None
     try:
-        int(parts[1]), int(parts[2])
+        comm_min, bytes_min = int(parts[1]), int(parts[2])
     except ValueError:
-        return "non-integer comm/byte threshold"
+        return "non-integer comm/byte threshold", None
     if _alg_validator is not None and not _alg_validator(parts[0], parts[3]):
-        return f"unknown op/algorithm {parts[0]}/{parts[3]}"
-    return None
+        return f"unknown op/algorithm {parts[0]}/{parts[3]}", None
+    return None, (parts[0], comm_min, bytes_min, parts[3])
 
 
 def parse_table(text, origin="<table>", problems=None):
@@ -163,7 +167,8 @@ def parse_table(text, origin="<table>", problems=None):
             continue
         parts = stripped.split()
         geometry = parts[0] == "geometry"
-        reason = _geometry_problem(parts) if geometry else _rule_problem(parts)
+        reason, value = (_parse_geometry(parts) if geometry
+                         else _parse_rule(parts))
         if reason is not None:
             _complain(origin, lineno, line, reason, problems)
             continue
@@ -171,10 +176,9 @@ def parse_table(text, origin="<table>", problems=None):
             by_key[current] = ([], {})
             order.append(current)
         if geometry:
-            by_key[current][1][parts[1]] = int(parts[2])
+            by_key[current][1][parts[1]] = value
         else:
-            by_key[current][0].append(
-                (parts[0], int(parts[1]), int(parts[2]), parts[3]))
+            by_key[current][0].append(value)
     sections = [(key, by_key[key][0], by_key[key][1]) for key in order]
     sections.sort(key=lambda s: _specificity(s[0]))
     return sections

@@ -52,8 +52,9 @@ single GPU runs the framework path.
 The collective function table (``comm.coll``) is composed per communicator,
 per operation from the coll framework's components by priority, mirroring
 ``mca_coll_base_comm_select.c:108-152``; every MPI collective method goes
-through it.  ``shift``, ``permute`` and ``ppermute`` are the SPMD plane's
-point-to-point (``pt2pt/spmd.py``).
+through it, past the PMPI interposition point (``tools/pmpi.py``).
+``shift``, ``permute`` and ``ppermute`` are the SPMD plane's point-to-point
+(``pt2pt/spmd.py``).
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ from ..ft import ulfm
 from ..mca import output as mca_output
 from ..pt2pt import spmd as _spmd
 from ..runtime import spc, ztrace
+from ..tools import pmpi
 from .group import Group
 
 _stream = mca_output.open_stream("comm")
@@ -450,6 +452,10 @@ class Communicator(errh.HasErrhandler, attributes.AttrHost):
                 f"no coll component provides {opname} for {self.name}"
             )
         fn, _ = entry
+        # PMPI interposition point (the weak-symbol MPI_X = PMPI_X analog,
+        # ompi/mpi/c/send.c:37-39): tools see the call before the MCA path
+        if pmpi.active():
+            return pmpi.dispatch(opname, self, fn, args, kwargs)
         return fn(self, *args, **kwargs)
 
     @property

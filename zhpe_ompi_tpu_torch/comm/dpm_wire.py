@@ -80,9 +80,9 @@ def open_port(host: str = "127.0.0.1") -> Port:
 #
 # The reference routes these through a PMIx server that outlasts any one
 # rank (the separate ``ompi-server`` daemon).  A launcher hosts that
-# registry and exports its address as ZMPI_NAMESERVER (the namesake's
-# zmpirun does; ``tools/mpirun.py`` is not ported yet, ROADMAP queue A);
-# without one there is no server and these raise.
+# registry and exports its address as ZMPI_NAMESERVER (``tools/mpirun.py``
+# does, as the namesake's zmpirun does); without one there is no server
+# and these raise.
 
 def _name_server_request(req: list) -> Any:
     import os

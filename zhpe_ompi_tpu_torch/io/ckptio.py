@@ -551,8 +551,7 @@ class CollectiveCheckpointer:
         if self.check_quiescent:
             ckpt_mod.quiesce_check()
         with self._op_lock:
-            # save/wait/restore serialize under ONE RLock; the writer
-            # thread never takes it
+            # zlint: disable=ZL002 -- save/wait/restore serialize under ONE RLock; the writer thread never takes it
             self.wait()  # one outstanding checkpoint at a time
             step = int(step)
             leaves, treedef = tree_flatten(state)
@@ -944,8 +943,7 @@ class CollectiveCheckpointer:
     def _join_worker(self) -> None:
         with self._op_lock:
             if self._worker is not None:
-                # the writer thread never takes _op_lock; holding it here
-                # keeps concurrent restores from double-joining
+                # zlint: disable=ZL002 -- the writer thread never takes _op_lock; holding it here keeps concurrent restores from double-joining
                 self._worker.join(self.drain_timeout)
                 alive = self._worker.is_alive()
                 self._worker = None

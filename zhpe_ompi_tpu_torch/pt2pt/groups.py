@@ -127,6 +127,7 @@ def numa_token_of(ep, rank: int):
         return None
     try:
         return fn(rank)
+    # zlint: disable=ZL004 -- classified degradation: the MALFORMED sentinel is counted (han_malformed_numa_cards) and demoted to a singleton domain by the topology layer
     except Exception:  # noqa: BLE001 - foreign-card robustness
         return sm_mod.NUMA_MALFORMED
 

@@ -899,6 +899,7 @@ class SmSegment:
                     # The window is bounded by sm_poll_hot_us (0 on
                     # 1-CPU affinity masks), then the loop dozes on the
                     # futex
+                    # zlint: disable=ZL003 -- bounded hot-yield window, futex doze beyond it
                     time.sleep(0)
                     continue
                 # doze: announce sleep, re-check (lost-wakeup guard:

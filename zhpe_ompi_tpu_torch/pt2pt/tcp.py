@@ -66,8 +66,8 @@ nonblocking collectives).
   ``sm_rma_region``/``sm_release_region``/``sm_direct_to`` give
   ``osc/direct.py`` its region files and its per-peer direct decision.
 
-What is not ported yet, against the namesake: ``_register_wire_pvars``
-and its queue-depth reader wait for ``tools/mpit.py``.
+The first proc up registers the MPI_T state pvars ``tcp_posted_recvs``/
+``tcp_unexpected_msgs`` (``tools/mpit.py``) over :func:`_wire_queue_depth`.
 """
 
 
@@ -389,8 +389,7 @@ class _PushPool:
                 return  # close() sentinel
             try:
                 fn()
-            # _push_rndv catches every escape itself and completes its
-            # request errored; this is the worker's don't-die backstop
+            # zlint: disable=ZL004 -- _push_rndv catches every escape itself and completes the request errored; this is the worker's don't-die backstop
             except Exception:  # noqa: BLE001 - push_data logs its own
                 pass
 
@@ -494,6 +493,43 @@ def orphaned_rndv_descriptors() -> list[str]:
             ids = sorted(proc._pending_rndv)
         out += [f"rank{proc.rank}: parked rndv id={i}" for i in ids]
     return out
+
+
+def _wire_queue_depth(key: str) -> int:
+    """Matching-queue depth across every OPEN wire proc in this
+    process — the state-pvar twin of universe.py's thread-plane
+    readers, so the metrics publisher's snapshot carries live queue
+    depths for socket ranks too."""
+    total = 0
+    for proc in list(_live_procs):
+        if proc._closed.is_set():
+            continue
+        total += proc.engine.stats()[key]
+    return total
+
+
+_wire_pvars_registered = False
+
+
+def _register_wire_pvars() -> None:
+    global _wire_pvars_registered
+    if _wire_pvars_registered:
+        return
+    from ..tools import mpit
+
+    mpit.register_pvar(
+        "tcp_posted_recvs", lambda: _wire_queue_depth("posted"),
+        klass=mpit.PVAR_STATE,
+        description="posted receives across this process's open wire "
+                    "procs",
+    )
+    mpit.register_pvar(
+        "tcp_unexpected_msgs", lambda: _wire_queue_depth("unexpected"),
+        klass=mpit.PVAR_STATE,
+        description="unexpected-queue depth across this process's open "
+                    "wire procs",
+    )
+    _wire_pvars_registered = True
 
 
 class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
@@ -782,6 +818,7 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                 5, _stream, "rank %d up at %s; book=%s", rank, self.address,
                 self.address_book,
             )
+            _register_wire_pvars()
             if self._metrics_on:
                 # rank-side metrics publisher: periodic generation-
                 # tagged snapshots into the job's namespace, final

@@ -125,6 +125,7 @@ class Checkpointer:
         if self.check_quiescent:
             quiesce_check()
         with self._op_lock:
+            # zlint: disable=ZL002 -- save/wait/restore serialize under ONE RLock; the joined writer never takes it (no cycle) and callers accept checkpoint-grade latency
             self.wait()  # one outstanding checkpoint at a time
             flightrec.record(flightrec.CKPT_BEGIN, step=int(step),
                              plane="serial")
@@ -205,6 +206,7 @@ class Checkpointer:
         error stays pending for the next save()/wait()."""
         with self._op_lock:
             if self._worker is not None:
+                # zlint: disable=ZL002 -- the writer thread never takes _op_lock, so this join cannot cycle; holding it is why concurrent restores cannot double-join
                 self._worker.join()
                 self._worker = None
 

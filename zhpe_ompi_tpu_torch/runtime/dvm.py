@@ -1896,9 +1896,7 @@ class Dvm(pmix_mod.FramedRpcServer):
                     except (OSError, ProcessLookupError):
                         pass
                     try:
-                        # the respawn batch is atomic under job.lock by
-                        # design (generation window + exit accounting); the
-                        # reap of a SIGKILLed corpse is bounded to 5 s
+                        # zlint: disable=ZL002 -- the respawn batch is atomic under job.lock by design (generation window + exit accounting); the reap of a SIGKILLed corpse is bounded to 5 s
                         old.wait(timeout=5.0)
                     except subprocess.TimeoutExpired:
                         raise errors.InternalError(

@@ -223,7 +223,7 @@ def host_init(timeout: float = 30.0):
     Reads the ``ZMPI_RANK``/``ZMPI_SIZE``/``ZMPI_COORD_HOST``/
     ``ZMPI_COORD_PORT`` environment contract (``ZMPI_COORD_EXTERNAL=1``:
     the launcher hosts the rendezvous, so rank 0 joins it as a client) —
-    the one the namesake's ``zmpirun`` exports — and performs the TcpProc
+    the one ``tools/mpirun.py`` exports — and performs the TcpProc
     modex, mirroring the reference's ``ompi_rte_init`` → PMIx_Init
     connect step (``ompi_mpi_init.c:508``).  A daemon-hosted rank reads
     ``ZMPI_PMIX=host:port/namespace`` instead (the resident daemon,

@@ -9,8 +9,9 @@ counted once per call (the JAX package counts once per trace under
 over its ranks.
 
 The table below documents every counter the port records; the
-:func:`documented_counters` parser reads it (the port keeps its own copy
-of the JAX package's ``tools/zlint/rules.parse_counter_doc``).
+:func:`documented_counters` parser reads it with zlint's
+``tools/zlint/rules.parse_counter_doc``, the parser the ZL006 doc-parity
+rule uses.
 
 API-surface counters:
 
@@ -303,12 +304,20 @@ Tracing-plane counters (``runtime/ztrace.py``):
 - ``trace_spans_dropped`` — span-ring overwrites: spans displaced from the
   fixed-size buffer (``ztrace_capacity`` slots).
 
-Self-tuning-plane counters (``runtime/pmix.py`` serves the table that
-``coll/ztable.py`` reads):
+Self-tuning-plane counters (``tools/ztune.py`` records the sweep side,
+``runtime/pmix.py`` serves the table that ``coll/ztable.py`` reads):
 
 - ``tuned_table_store_fetches`` — published tables actually fetched
   from a DVM's PMIx store (once per process; the negative result is
   cached too).
+- ``tuned_regression_rejects`` — distilled cells the ztune regression
+  gate REFUSED to emit because the candidate's counter-gated wire
+  bytes exceeded the default's for that (op, comm_size, nbytes) cell;
+  a planted worse-than-default winner must move this, never the
+  table.
+- ``ztune_cells_swept`` — (op, size, candidate, topology) benchmark
+  cells the sweep harness measured; the sweep's own progress/coverage
+  denominator.
 
 Templated counter families (dynamic names routed through literal templates
 at the call site):
@@ -321,7 +330,6 @@ at the call site):
 
 from __future__ import annotations
 
-import re
 import threading
 import time
 import weakref
@@ -330,6 +338,7 @@ from collections import defaultdict
 from ..core import errors
 from ..mca import output as mca_output
 from ..mca import var as mca_var
+from ..tools.zlint.rules import parse_counter_doc
 
 _stream = mca_output.open_stream("spc")
 
@@ -390,31 +399,6 @@ def reset_epoch() -> int:
     """Monotonic count of :func:`reset` calls (the handle rebase signal)."""
     with _lock:
         return _reset_epoch
-
-
-# The counter-table parser (the JAX package's
-# ``tools/zlint/rules.parse_counter_doc``): a bullet whose head is one or
-# more double-backticked names separated by "/", where a name may carry
-# ``<placeholder>`` segments (a templated family).
-_DOC_ENTRY_RE = re.compile(
-    r"^- (``[a-zA-Z0-9_<>]+``(?: */ *``[a-zA-Z0-9_<>]+``)*)")
-_DOC_TICKED_RE = re.compile(r"``([a-zA-Z0-9_<>]+)``")
-
-
-def parse_counter_doc(doc: str) -> tuple[set[str], set[str]]:
-    """Split a counter doc table into (exact names, templated families).
-    A templated family carries ``<...>`` placeholders (``coll_<op>_calls``)
-    — the documented shape of a dynamic name routed through a literal
-    template at its call site."""
-    names: set[str] = set()
-    templates: set[str] = set()
-    for line in doc.splitlines():
-        m = _DOC_ENTRY_RE.match(line.strip())
-        if not m:
-            continue
-        for ticked in _DOC_TICKED_RE.findall(m.group(1)):
-            (templates if "<" in ticked else names).add(ticked)
-    return names, templates
 
 
 _documented: frozenset[str] | None = None
@@ -512,10 +496,25 @@ class MetricsPublisher(threading.Thread):
     def _snapshot_payload(self, final: bool) -> dict:
         counters = {name: 0 for name in documented_counters()}
         counters.update(snapshot())
-        # the live state pvars come from tools/mpit.py, which the port
-        # has not ported: the snapshot carries the counters and an
-        # empty pvar table (the namesake's counters-only degradation)
+        from ..tools import mpit
+
         pvars: dict[str, float] = {}
+        # only the registered live-subsystem pvars: rebuilding the whole
+        # counter universe per tick would be pure allocation on a
+        # 250 ms-floor periodic path
+        for name, d in mpit.registered_pvars().items():
+            if d.klass != mpit.PVAR_STATE:
+                continue
+            try:
+                v = d.reader()
+            except Exception as e:
+                mca_output.verbose(
+                    3, _stream, "metrics publisher: pvar %s reader "
+                    "raised (%s); row skipped", name, e,
+                )
+                continue  # a reader over torn-down state
+            if isinstance(v, (int, float)):
+                pvars[name] = v
         with self._seq_lock:
             seq = self._seq
             self._seq += 1
@@ -542,7 +541,9 @@ class MetricsPublisher(threading.Thread):
         # counted BEFORE the snapshot is built, so every shipped
         # snapshot carries its own publish (the very first one already
         # reads spc_publishes == 1 — the acceptance gate's "rises")
-        record("spc_publishes")
+        from . import spc  # this module, for the ZL006 parity sweep
+
+        spc.record("spc_publishes")
         payload = self._snapshot_payload(final)
         try:
             self._put(f"metrics:{self.namespace}:{self.rank}", payload)
