@@ -344,11 +344,37 @@ Phases, each of which exits non-zero on failure:
    ``Communicator.allreduce``'s host µs on a one-rank NCCL communicator
    with no interceptor and with a pass-through one attached (alternating
    turns of 200 calls).  Printed: one ``{"tools": ...}`` line.
-23. Print one ``{"kernels": [...]}`` line (``launches``: per training
+23. The native host kernels, the C ABI and ``zmpicc`` (``drive_native``):
+   the kernel library ``native/zompi_native.cpp`` and the C ABI shim
+   ``native/zompi_mpi.cpp`` are built by ``g++`` into
+   ``zhpe_ompi_tpu_torch/csrc/_build/`` beside the CUDA kernels (started
+   with them, in a thread; each build's seconds printed); ``tools/zmpicc``
+   compiles ``native/feed_c.c``.  One MPMD job under
+   ``tools/mpirun.launch_mpmd``: 1 C rank (``feed_c``) beside 4 children of
+   this script (``--native-child``, ``host_init`` with sm at its default),
+   the 4 sharing the card.  Port rank 1 makes the 16 x 512 token rows (and
+   their targets) from the seed with numpy and sends them to the C rank;
+   the C rank deals 4 rows to each port rank with ``MPI_Scatterv`` (0 to
+   itself); each port rank runs one uncounted and one counted forward of
+   the whole flagship on its rows (exactly 9 layernorm-forward and 4
+   flash-forward launches, by its thread's tally) and sends its rows' CE
+   (f32) through the C rank's ``MPI_Gatherv``; the C rank ``MPI_Bcast``s
+   the mean, which every port rank must read bit for bit.  The port ranks
+   take their side of the C rank's collectives through
+   ``native/cwire.CWorld``.  The mean and every row must match this
+   process's forward of all 16 rows within ``NATIVE_CE_TOL``.  Port rank 1
+   also times, on the host: the pingpong of two ``TcpProc`` ranks in
+   threads (TCP alone) with the native and with the Python matching
+   engine at 8 B, 4 KiB and 64 KiB (one-way µs, half a round trip); the
+   native pack against the index-map pack of a strided vector over 64 MiB
+   (GB/s of packed bytes, equal bytes); ``zompi_reduce`` against the torch
+   combine for SUM of 16 Mi float32 (ms, equal bits).  Printed: one
+   ``{"native": ...}`` line.
+24. Print one ``{"kernels": [...]}`` line (``launches``: per training
    step; ``launches_by_path``: per forward, training, remat, sp, runtime,
-   long-context, Adam, ft rank, hybrid, ZeRO, serve step, phase 21's and
-   phase 22's forward), the smoke's total seconds, the card's line, and
-   last ``{"ok": true, "device": {...}}``.
+   long-context, Adam, ft rank, hybrid, ZeRO, serve step, phase 21's,
+   phase 22's and phase 23's forward), the smoke's total seconds, the
+   card's line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
@@ -402,6 +428,11 @@ child.
 
 runs only phase 22 (after the kernel build); ``--tools-child
 traced|names|abort`` is its child.
+
+    python3 chip_smoke.py --native
+
+runs only phase 23 (after the kernel build); ``--native-child`` is its
+child.
 
     python3 chip_smoke.py --bench-after
 
@@ -679,6 +710,27 @@ TOOLS_NAMES_MCA = [("tcp_eager_limit", "8192")]
 TOOLS_ABORT_S = 3.0
 TOOLS_PMPI_TURNS = 4
 TOOLS_WAIT_S = 300.0
+
+# Phase 23 (drive_native): the native host kernels, the C ABI and zmpicc.
+# One MPMD job: 1 C rank (native/feed_c.c) and NATIVE_RANKS children of this
+# script on NATIVE_DEVICE, each the flagship forward on NATIVE_ROWS rows of
+# a batch of NATIVE_BATCH (tokens and targets from NATIVE_SEED);
+# NATIVE_CE_TOL bounds the C rank's mean and rows against this process's
+# forward of all rows (phase 21's bound).  Port rank 1's host timings:
+# NATIVE_PINGPONG sizes (bytes, round trips), NATIVE_PACK_BYTES of source
+# for the strided pack, NATIVE_REDUCE_ELEMS float32 for the SUM; each the
+# best of NATIVE_TURNS.
+NATIVE_DEVICE = "cuda"
+NATIVE_RANKS = 4
+NATIVE_BATCH = 16
+NATIVE_ROWS = NATIVE_BATCH // NATIVE_RANKS
+NATIVE_SEED = 2515
+NATIVE_CE_TOL = LOSS_TOL
+NATIVE_PINGPONG = ((8, 400), (4 << 10, 400), (64 << 10, 200))
+NATIVE_PACK_BYTES = 64 << 20
+NATIVE_REDUCE_ELEMS = 16 << 20
+NATIVE_TURNS = 3
+NATIVE_TIMEOUT_S = 600.0
 
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
 # sequence, so the ring's mbarrier phases wrap many times (64 key or query
@@ -4527,6 +4579,332 @@ def drive_tools(torch, np, tfm, card_line) -> dict:
     return report
 
 
+def _native_tokens(np, cfg):
+    """Phase 23's batch: (tokens, targets) of NATIVE_BATCH rows, one seed."""
+    rng = np.random.default_rng(NATIVE_SEED + 1)
+    return tuple(rng.integers(0, cfg.vocab, (NATIVE_BATCH, cfg.seq), dtype=np.int64)
+                 for _ in range(2))
+
+
+def _best_s(fn, turns=NATIVE_TURNS):
+    """The least wall seconds of ``turns`` calls of ``fn`` (after one
+    uncounted call), and the last call's result."""
+    out = fn()
+    best = math.inf
+    for _ in range(turns):
+        t = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t)
+    return best, out
+
+
+def _native_pingpong(torch, native_on):
+    """One-way µs (half a round trip) of two ``TcpProc`` ranks in threads
+    (TCP alone) at each NATIVE_PINGPONG size, with the native matching
+    engine or (``native_on`` False: the switch set while the ranks are
+    made) the Python one."""
+    import socket
+
+    from zhpe_ompi_tpu_torch import native
+    from zhpe_ompi_tpu_torch.pt2pt import matching
+    from zhpe_ompi_tpu_torch.pt2pt.tcp import TcpProc
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    held = os.environ.get("ZOMPI_NATIVE")
+    if not native_on:
+        os.environ["ZOMPI_NATIVE"] = "0"
+    native.reset()
+    procs = [None, None]
+    try:
+        def make(r):
+            procs[r] = TcpProc(r, 2, coordinator=("127.0.0.1", port), sm=False)
+
+        _in_threads(2, make, HOST_TIMEOUT_S)
+    finally:
+        if held is None:
+            os.environ.pop("ZOMPI_NATIVE", None)
+        else:
+            os.environ["ZOMPI_NATIVE"] = held
+        native.reset()
+    want = matching.NativeMatchingEngine if native_on else matching.MatchingEngine
+    engines = [type(p.engine).__name__ for p in procs]
+    if any(type(p.engine) is not want for p in procs):
+        raise SystemExit(f"native: pingpong engines {engines}, want {want.__name__}")
+    out = {}
+    try:
+        for nbytes, trips in NATIVE_PINGPONG:
+            msg = torch.zeros(nbytes, dtype=torch.uint8)
+            secs = [0.0]
+
+            def rank(r):
+                p = procs[r]
+                for i in range(trips + 20):
+                    if i == 20:
+                        t = time.perf_counter()
+                    if r == 0:
+                        p.send(msg, dest=1, tag=5)
+                        p.recv(source=1, tag=5)
+                    else:
+                        p.send(p.recv(source=0, tag=5), dest=0, tag=5)
+                if r == 0:
+                    secs[0] = time.perf_counter() - t
+
+            _in_threads(2, rank, HOST_TIMEOUT_S)
+            out[str(nbytes)] = secs[0] / trips / 2 * 1e6
+    finally:
+        for p in procs:
+            p.close()
+    return {"engine": engines[0], "one_way_us": out}
+
+
+def _native_pack(np):
+    """The strided pack of a vector datatype over NATIVE_PACK_BYTES of
+    float32 (64 blocks of 16 floats every 32 a datatype element, resized
+    to 8 KiB, so NATIVE_PACK_BYTES / 8 KiB elements): the native segment
+    walk against the index-map gather the switches select (its map made
+    once and cached, as the convertor does), GB/s of packed bytes; both
+    must give the same bytes."""
+    from zhpe_ompi_tpu_torch.datatype import convertor, derived, predefined
+
+    dt = derived.create_resized(derived.create_vector(64, 16, 32, predefined.FLOAT),
+                                0, 8192)
+    count = NATIVE_PACK_BYTES // 8192
+    src = np.random.default_rng(NATIVE_SEED).integers(
+        0, 256, convertor.span_bytes(dt, count), dtype=np.uint8)
+    t_native, packed = _best_s(lambda: convertor.pack(src, dt, count))
+    t_index, gathered = _best_s(lambda: src[convertor.byte_index_map(dt, count)])
+    if not np.array_equal(packed, gathered):
+        raise SystemExit("native: the native pack and the index map differ")
+    return {"packed_bytes": int(packed.nbytes), "source_bytes": int(src.nbytes),
+            "native_gb_s": packed.nbytes / t_native / 1e9,
+            "index_map_gb_s": packed.nbytes / t_index / 1e9,
+            "native_ms": t_native * 1e3, "index_map_ms": t_index * 1e3}
+
+
+def _native_reduce(torch):
+    """SUM of NATIVE_REDUCE_ELEMS host float32: ``zompi_reduce`` (the
+    ``Op``'s native path) against the torch combine; equal bits."""
+    from zhpe_ompi_tpu_torch import native, ops
+
+    g = torch.Generator().manual_seed(NATIVE_SEED)
+    a, b = (torch.randn(NATIVE_REDUCE_ELEMS, generator=g) for _ in range(2))
+    calls = []
+    lib = native.load()
+
+    class Counted:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def zompi_reduce(self, *args):
+            calls.append(args[:2])
+            return lib.zompi_reduce(*args)
+
+    native.lib = Counted()
+    try:
+        t_native, got = _best_s(lambda: ops.SUM(a, b))
+    finally:
+        native.lib = lib
+    t_torch, want = _best_s(lambda: ops.SUM._fn(a, b))
+    if len(calls) != NATIVE_TURNS + 1 or not torch.equal(got, want):
+        raise SystemExit(f"native: zompi_reduce calls {calls[:3]}, "
+                         f"equal {torch.equal(got, want)}")
+    moved = 3 * a.numel() * a.element_size()
+    return {"elems": a.numel(), "native_ms": t_native * 1e3,
+            "torch_ms": t_torch * 1e3, "native_gb_s": moved / t_native / 1e9,
+            "torch_gb_s": moved / t_torch / 1e9,
+            "torch_threads": torch.get_num_threads()}
+
+
+def native_child() -> int:
+    """Phase 23's port rank (see the module doc): rows from the C rank's
+    Scatterv, the flagship forward on the card, the rows' CE through its
+    Gatherv and the mean from its Bcast; rank 1 also sends the rows and
+    times the host paths.  Prints one ``NATIVE {json}`` line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch import _build
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+    from zhpe_ompi_tpu_torch.models import transformer as tfm
+    from zhpe_ompi_tpu_torch.native.cwire import CWorld
+
+    sync = torch.cuda.synchronize if NATIVE_DEVICE == "cuda" else (lambda: None)
+    ep = zmpi.host_init(timeout=HOST_TIMEOUT_S)
+    r = ep.rank
+    cw = CWorld(ep)
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    out: dict = {"rank": r, "size": ep.size, "sm": ep._sm_seg is not None,
+                 "engine": type(ep.engine).__name__}
+    if r == 1:
+        ep.send(np.concatenate(_native_tokens(np, cfg), axis=1), dest=0, tag=23)
+    rows = cw.scatterv(0, timeout=HOST_TIMEOUT_S)
+    out["rows_type"] = f"{type(rows).__name__} {rows.dtype} {rows.device}"
+    rows = rows.reshape(NATIVE_ROWS, 2 * cfg.seq)
+    tok, tgt = (x.contiguous().to(NATIVE_DEVICE) for x in rows.split(cfg.seq, 1))
+    params = tfm.params_from_numpy(numpy_params(cfg, NATIVE_SEED), cfg,
+                                   device=NATIVE_DEVICE)
+    with torch.no_grad():
+        _tools_row_ce(torch, F, tfm, params, tok, tgt, cfg)  # set-up
+    sync()
+    before = _build.thread_launches()
+    t = time.perf_counter()
+    with torch.no_grad():
+        row_ce = _tools_row_ce(torch, F, tfm, params, tok, tgt, cfg)
+    sync()
+    out["forward_ms"] = (time.perf_counter() - t) * 1e3
+    after = _build.thread_launches()
+    out["launches"] = {k: v - before.get(k, 0) for k, v in after.items()
+                       if v != before.get(k, 0)}
+    out["row_ce"] = row_ce.float().cpu().tolist()
+    cw.gatherv(row_ce.float().cpu(), 0)
+    mean = cw.bcast(None, 0, timeout=HOST_TIMEOUT_S)
+    out["mean_ce"] = float(mean.reshape(-1)[0])
+    ep.barrier()  # the C rank's MPI_Barrier
+    del params
+    if r == 1:
+        out["pingpong"] = {k: _native_pingpong(torch, k == "native")
+                           for k in ("native", "python")}
+        out["pack"] = _native_pack(np)
+        out["reduce"] = _native_reduce(torch)
+    zmpi.host_finalize()
+    print("NATIVE " + json.dumps(out), flush=True)
+    return 0
+
+
+def drive_native(torch, np, tfm, card_line, build_s) -> dict:
+    """Phase 23: the native host kernels, the C ABI and ``zmpicc`` (see the
+    module doc); ``build_s`` the libraries' build seconds.  Fails unless
+    every gate holds."""
+    import io
+    import shutil
+
+    import torch.nn.functional as F
+
+    from zhpe_ompi_tpu_torch.bench import numpy_params
+    from zhpe_ompi_tpu_torch.tools import mpirun
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    smoke = os.path.abspath(__file__)
+    work = tempfile.mkdtemp(prefix="zmpi-native-")
+    cfg = tfm.Config(**HEADLINE, dtype=torch.bfloat16, ce_chunk=CE_CHUNK)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    feed = os.path.join(work, "feed_c")
+    t = time.perf_counter()
+    cc = subprocess.run(
+        [sys.executable, "-m", "zhpe_ompi_tpu_torch.tools.zmpicc",
+         os.path.join(here, "zhpe_ompi_tpu_torch", "native", "feed_c.c"), "-o", feed],
+        env=env, capture_output=True, text=True, timeout=NATIVE_TIMEOUT_S)
+    zmpicc_s = time.perf_counter() - t
+    if cc.returncode != 0:
+        raise SystemExit(f"native: zmpicc feed_c.c rc {cc.returncode}:\n{cc.stderr}")
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    rc = mpirun.launch_mpmd(
+        [(1, [feed, str(NATIVE_BATCH), str(2 * cfg.seq)]),
+         (NATIVE_RANKS, [smoke, "--native-child"])],
+        timeout=NATIVE_TIMEOUT_S, stdout=out, stderr=err)
+    job_s = time.perf_counter() - t
+    if rc != 0:
+        raise SystemExit(f"native: MPMD job rc {rc}\n{out.getvalue()[-3000:]}\n"
+                         f"{_rank_tails(err.getvalue(), 40)}")
+    shutil.rmtree(work)
+    feeds = _child_json(out.getvalue(), "FEED")
+    ranks = sorted(_child_json(out.getvalue(), "NATIVE"), key=lambda x: x["rank"])
+    if len(feeds) != 1 or [x["rank"] for x in ranks] != list(range(1, NATIVE_RANKS + 1)):
+        raise SystemExit(f"native: {len(feeds)} FEED lines, NATIVE ranks "
+                         f"{[x['rank'] for x in ranks]}\n{out.getvalue()[-3000:]}")
+    fed = feeds[0]
+    want_l = {"ln_fwd": 2 * cfg.n_layers + 1, "flash_fwd": cfg.n_layers} \
+        if NATIVE_DEVICE == "cuda" else {}
+    for x in ranks:
+        mine = fed["row_ce"][(x["rank"] - 1) * NATIVE_ROWS:x["rank"] * NATIVE_ROWS]
+        if x["launches"] != want_l or x["mean_ce"] != fed["mean_ce"] \
+                or max(abs(a - b) for a, b in zip(mine, x["row_ce"])) > 1e-6 \
+                or x["engine"] != "NativeMatchingEngine" \
+                or not x["rows_type"].startswith("Tensor torch.int64 cpu"):
+            raise SystemExit(f"native: rank {x['rank']}: launches {x['launches']} "
+                             f"(want {want_l}), mean {x['mean_ce']} vs the C rank's "
+                             f"{fed['mean_ce']}, rows {x['row_ce']} vs {mine}, engine "
+                             f"{x['engine']}, rows {x['rows_type']}")
+    # the C rank's mean and rows against this process's forward of all rows
+    tok, tgt = (torch.from_numpy(a).to(NATIVE_DEVICE) for a in _native_tokens(np, cfg))
+    params = tfm.params_from_numpy(numpy_params(cfg, NATIVE_SEED), cfg,
+                                   device=NATIVE_DEVICE)
+    with torch.no_grad():
+        ref = _tools_row_ce(torch, F, tfm, params, tok, tgt, cfg).double().cpu().numpy()
+    del params
+    got = np.asarray(fed["row_ce"])
+    mean_err = abs(fed["mean_ce"] - float(ref.mean()))
+    row_err = float(np.abs(got - ref).max())
+    if fed["size"] != NATIVE_RANKS + 1 or len(got) != NATIVE_BATCH \
+            or not np.isfinite(got).all() or mean_err > NATIVE_CE_TOL \
+            or row_err > NATIVE_CE_TOL:
+        raise SystemExit(f"native: the C rank's mean CE {fed['mean_ce']} differs by "
+                         f"{mean_err} (row {row_err}) from this process's "
+                         f"{float(ref.mean())} (tolerance {NATIVE_CE_TOL})")
+    host = ranks[0]
+    report = {
+        "ranks": {"c": 1, "port": NATIVE_RANKS}, "build_s": build_s,
+        "zmpicc_s": zmpicc_s, "job_s": job_s, "mean_ce": fed["mean_ce"],
+        "ref_mean_ce": float(ref.mean()), "ce_mean_abs_err": mean_err,
+        "ce_row_max_abs_err": row_err, "ce_tol": NATIVE_CE_TOL,
+        "forward_ms": [x["forward_ms"] for x in ranks],
+        "launches": [x["launches"] for x in ranks],
+        "launches_per_forward": ranks[0]["launches"],
+        "sm": [x["sm"] for x in ranks],
+        "pingpong_one_way_us": {k: v["one_way_us"] for k, v in host["pingpong"].items()},
+        "pack": host["pack"], "reduce": host["reduce"],
+        "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"native": report, "card": card_line}))
+    pp = report["pingpong_one_way_us"]
+    print(f"native (1 C rank + {NATIVE_RANKS} port ranks, flagship width): mean CE "
+          f"{fed['mean_ce']} vs {report['ref_mean_ce']} (err {mean_err}); forward ms "
+          f"{report['forward_ms']}; launches {report['launches_per_forward']}; "
+          f"pingpong one-way µs native {pp['native']} python {pp['python']}; pack GB/s "
+          f"native {host['pack']['native_gb_s']} index map "
+          f"{host['pack']['index_map_gb_s']}; SUM 16 Mi f32 ms native "
+          f"{host['reduce']['native_ms']} torch {host['reduce']['torch_ms']}; build s "
+          f"{build_s}; phase {report['phase_s']} s on {card_line}")
+    return report
+
+
+def start_native_build():
+    """Build the native kernel library and the C ABI shim with ``g++`` in a
+    thread (beside the CUDA kernels' ``nvcc``); the returned function joins
+    it and gives each library's build seconds, or raises its failure."""
+    import threading
+
+    from zhpe_ompi_tpu_torch import native
+
+    box: dict = {}
+
+    def run():
+        try:
+            native.build()
+            native.build_mpi_shim()
+        except BaseException as e:  # noqa: BLE001 - raised by the join
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join() -> dict:
+        th.join()
+        if "error" in box:
+            raise SystemExit(f"native build failed: {box['error']}")
+        # g++'s seconds; 0.0 for a library found already built
+        return {k: native.build_seconds.get(k, 0.0) for k in ("zompi", "zompi_mpi")}
+
+    return join
+
+
 def drive_runtime(torch, np, dist, tfm, fused_norm, fa, card_line):
     """Phase 5: the MPI entry point, the monitored train step, the ULFM
     methods on CUDA tensors, the device probe, the bench, finalize."""
@@ -4950,6 +5328,29 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _take_widths()
         return tools_child(args[1], args[2] if len(args) == 3 else None)
+    if args == ["--native-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        return native_child()
+    if args == ["--native"]:
+        # phase 23 alone, after the kernel build
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        import numpy as np
+
+        from zhpe_ompi_tpu_torch import _build
+        from zhpe_ompi_tpu_torch.models import transformer as tfm
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card_line = _card_line()
+        print(f"card: {card_line}")
+        native_build = start_native_build()
+        print(f"kernel build: per source {_build.build()}")
+        build_s = native_build()
+        print(f"native build: g++ s {build_s}")
+        drive_native(torch, np, tfm, card_line, build_s)
+        print(card_line)
+        return 0
     if args == ["--tools"]:
         # phase 22 alone, after the kernel build
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5055,7 +5456,8 @@ def main() -> int:
               "| --host-moe-child | --ft | --ft-child | --ft-dvm-child | --hybrid "
               "| --hybrid-child | --serve | --serve-child kill|elastic "
               "| --osc-io | --osc-io-child | --tools "
-              "| --tools-child traced|names|abort [DIR]]",
+              "| --tools-child traced|names|abort [DIR] | --native "
+              "| --native-child]",
               file=sys.stderr)
         return 2
     if args:
@@ -5098,8 +5500,11 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    native_build = start_native_build()  # g++ beside nvcc
     seconds = _build.build()
     print(f"kernel build: {time.perf_counter() - t0} s wall, per source {seconds}")
+    native_build_s = native_build()
+    print(f"native build: {time.perf_counter() - t0} s wall, g++ s {native_build_s}")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error",
@@ -5168,6 +5573,10 @@ def main() -> int:
     serve = drive_serve(torch, np, tfm, card_line)
     osc_io = drive_osc_io(torch, np, tfm, card_line)
     tools = drive_tools(torch, np, tfm, card_line)
+    native = drive_native(torch, np, tfm, card_line, native_build_s)
+    native_launches = {"layernorm_fwd": native["launches_per_forward"].get("ln_fwd", 0),
+                       "flash_attention_fwd":
+                           native["launches_per_forward"].get("flash_fwd", 0)}
     tools_launches = {"layernorm_fwd": tools["launches_per_forward"].get("ln_fwd", 0),
                       "flash_attention_fwd":
                           tools["launches_per_forward"].get("flash_fwd", 0)}
@@ -5191,7 +5600,8 @@ def main() -> int:
             "zero": hybrid["launches_per_step"]["zero"][k["name"]],
             "serve": serve_launches.get(k["name"], 0),
             "osc_io": osc_launches.get(k["name"], 0),
-            "tools": tools_launches.get(k["name"], 0)}
+            "tools": tools_launches.get(k["name"], 0),
+            "native": native_launches.get(k["name"], 0)}
     steps = {"train": steady, "remat": remat_steady,
              **{label: sp[label][1] for label in sp}, "adam": adam_steady}
     print(json.dumps({"steps": steps, "card": card_line}))
@@ -5206,7 +5616,7 @@ def main() -> int:
                       "host_plane": host_plane, "host_moe": host_moe,
                       "ft": ft, "ft_processes": ft_processes, "ft_dvm": ft_dvm,
                       "hybrid": hybrid, "serve": serve, "osc_io": osc_io,
-                      "tools": tools,
+                      "tools": tools, "native": native,
                       "smoke_s": time.perf_counter() - t_start}))
     print(f"smoke total: {time.perf_counter() - t_start} s")
     print(card_line)

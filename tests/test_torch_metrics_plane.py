@@ -44,9 +44,14 @@ TCP = {"jax": jtcp, "port": ttcp}
 def run_metrics_job(dvm, n=2, ns="jobmet", trace=False):
     """n port ``TcpProc`` ranks in threads, modexed through the daemon's
     store with the publisher armed; returns once every rank closed (the
-    final flush published)."""
+    final flush published).  The ranks meet after their barrier and
+    before ``close()``: a rank's final flush reads the process-wide
+    state pvars (``tcp_posted_recvs`` sums every open wire proc of this
+    process), so no rank may close while a peer's barrier receive is
+    still posted."""
     pmix_addr = ("127.0.0.1", dvm.pmix.address[1])
     excs = [None] * n
+    met = threading.Barrier(n)
 
     def main(rank):
         try:
@@ -56,9 +61,11 @@ def run_metrics_job(dvm, n=2, ns="jobmet", trace=False):
                 proc.send(torch.arange(64.0), dest=(rank + 1) % n, tag=3)
                 proc.recv(source=(rank - 1) % n, tag=3)
                 proc.barrier()
+                met.wait(30)
             finally:
                 proc.close()
         except BaseException as e:  # noqa: BLE001 - re-raised below
+            met.abort()
             excs[rank] = e
 
     threads = [threading.Thread(target=main, args=(r,)) for r in range(n)]

@@ -2,7 +2,7 @@
 regions (``pt2pt/sm.py``: ``RmaMapping``, ``RmaRegion``,
 ``SmSegment.alloc_rma_region``), the ``TcpProc`` seams
 (``sm_rma_region``, ``sm_release_region``, ``sm_direct_to``) and the
-shared-mapping atomics (``native/shm_amo.cpp``), held against the JAX
+shared-mapping atomics (``native/zompi_native.cpp``), held against the JAX
 package's.
 
 - The region header is the namesake's byte for byte: a region created by

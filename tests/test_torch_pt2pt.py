@@ -2,8 +2,9 @@
 (``pt2pt/matching``, ``requests``, ``universe``) against the JAX package's.
 
 - Matching: one seeded script of arrivals and wildcard receives
-  (``ANY_SOURCE``/``ANY_TAG``) from 4 sources through both engines gives
-  the same match sequence; at 4 thread ranks, messages whose arrival order
+  (``ANY_SOURCE``/``ANY_TAG``) from 4 sources through the port's engine
+  (the native one, by default) and the namesake's Python engine gives the
+  same match sequence; at 4 thread ranks, messages whose arrival order
   is fixed by token passing match rank 0's wildcard receives in the same
   order in both universes.
 - Universe: eager and rendezvous sizes, buffer reuse (a tensor changed
@@ -84,8 +85,20 @@ def test_engine_match_order_matches_namesake(seed):
     assert _run_engine(tmatching, events) == _run_engine(jmatching, events)
 
 
-def test_make_matching_engine_is_the_python_engine():
-    assert type(tmatching.make_matching_engine()) is tmatching.MatchingEngine
+def test_make_matching_engine_is_the_python_engine(monkeypatch):
+    """With the native kernels switched off (``ZOMPI_NATIVE=0``), a new
+    endpoint gets the Python engine; by default it gets the native one
+    (``tests/test_torch_native.py``)."""
+    from zhpe_ompi_tpu_torch import native as tnative
+
+    monkeypatch.setenv("ZOMPI_NATIVE", "0")
+    tnative.reset()
+    try:
+        assert type(tmatching.make_matching_engine()) is \
+            tmatching.MatchingEngine
+    finally:
+        monkeypatch.undo()
+        tnative.reset()
 
 
 def _ordered_wildcards(mod, payload):

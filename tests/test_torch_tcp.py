@@ -354,10 +354,19 @@ def test_store_served_modex_rejoin_and_elastic_slots(server):
 
         # elastic slots, then a store-served rejoin into slot 2
         joined = threading.Event()
+        # both ranks read slot 2's pre-acknowledged departure before rank 0
+        # starts the rejoin: once a rank has adopted the rejoin, slot 2 has
+        # no departure cause any more
+        checked = threading.Barrier(2)
 
         def elastic(p):
             state = p.ft_state
-            assert state.cause_of(2) == "goodbye"  # pre-acknowledged
+            try:
+                assert state.cause_of(2) == "goodbye"  # pre-acknowledged
+                checked.wait(RANK_TIMEOUT)
+            except BaseException:
+                checked.abort()
+                raise
             if p.rank == 0:
                 srv.store.bump_generation("ejob")
                 gen = srv.store.generation("ejob")

@@ -165,6 +165,9 @@ def test_publish_clock_sync_and_collect_through_a_port_dvm():
     try:
         pmix_addr = ("127.0.0.1", d.pmix.address[1])
         outs, excs = [None, None], [None, None]
+        # the ranks meet before close(): a final flush reads the
+        # process-wide state pvars, which count a peer's posted receives
+        met = threading.Barrier(2)
 
         def main(rank):
             try:
@@ -175,9 +178,11 @@ def test_publish_clock_sync_and_collect_through_a_port_dvm():
                     proc.recv(source=1 - rank, tag=2)
                     outs[rank] = tztrace.publish_clock_sync(proc, rounds=4)
                     proc.barrier()
+                    met.wait(30)
                 finally:
                     proc.close()
             except BaseException as e:  # noqa: BLE001 - asserted below
+                met.abort()
                 excs[rank] = e
 
         ts = [threading.Thread(target=main, args=(r,)) for r in range(2)]

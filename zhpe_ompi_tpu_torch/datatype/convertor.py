@@ -4,13 +4,17 @@
 Re-design of ``opal/datatype/opal_convertor.c:218-276``: the reference's
 resumable iovec-producing state machine becomes
 
-- **host path** — a vectorized numpy byte gather/scatter built from the
-  optimized segment description: the whole byte index map is made once per
-  (datatype, count) and cached, in the role of the reference's prepared
-  convertor.  Buffers are numpy arrays, bytes, or CPU tensors (viewed, not
-  copied); packed streams are numpy ``uint8`` arrays, as in the namesake.
-  The namesake's C pack kernels (``native``) are not ported (ROADMAP
-  queue A item 8): the port always takes the index-map form.
+- **host path** — the native segment walk (``native/zompi_native.cpp``'s
+  ``zompi_pack``/``unpack``/``pack_partial``/``unpack_partial``: one
+  ``memcpy`` per contiguous run of the optimized segment description),
+  where the namesake takes it.  When a switch (``ZOMPI_NATIVE=0``, the MCA
+  var ``native_kernels``) turns the native kernels off, or the destination
+  is read-only, it is a vectorized numpy byte gather/scatter instead: the
+  whole byte index map is made once per (datatype, count) and cached, in
+  the role of the reference's prepared convertor.  Buffers are numpy
+  arrays, bytes, or CPU tensors (viewed as bytes, not copied or converted:
+  a bfloat16 tensor, which has no numpy dtype, packs its bytes); packed
+  streams are numpy ``uint8`` arrays, as in the namesake.
 - **device path** — for homogeneous datatypes, pack and unpack are
   ``index_select`` and ``index_copy_`` with an element index tensor on the
   tensor's own device, so the data never leaves it (the inverse of the
@@ -23,12 +27,39 @@ resumable iovec-producing state machine becomes
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import native
 from ..core import errors
 from .derived import DerivedDatatype, merge_typemap_segments
 from .predefined import Datatype
+
+_seg_cache: dict[tuple, np.ndarray] = {}
+
+
+def _segs_array(datatype: Datatype) -> np.ndarray:
+    """(nsegs, 2) int64 array of one element's optimized description, for
+    the native pack/unpack kernels."""
+    segs = _one_element_segments(datatype)
+    key = (tuple(segs),)
+    arr = _seg_cache.get(key)
+    if arr is None:
+        arr = np.asarray(segs, dtype=np.int64).reshape(-1, 2)
+        if len(_seg_cache) > 256:
+            _seg_cache.clear()
+        _seg_cache[key] = arr
+    return arr
+
+
+def _vp(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+def _i64p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
 def _one_element_segments(datatype: Datatype) -> list[tuple[int, int]]:
@@ -134,6 +165,13 @@ def pack(buffer, datatype: Datatype, count: int) -> np.ndarray:
         )
     if datatype.is_contiguous:
         return view[lb:need].copy()
+    lib = native.load()
+    if lib is not None:
+        segs = _segs_array(datatype)
+        out = np.empty(packed_size(datatype, count), dtype=np.uint8)
+        lib.zompi_pack(_vp(view), _vp(out), _i64p(segs), segs.shape[0],
+                       datatype.extent, count)
+        return out
     return view[byte_index_map(datatype, count)]
 
 
@@ -158,7 +196,13 @@ def unpack(packed, datatype: Datatype, count: int, out=None) -> np.ndarray:
     if datatype.is_contiguous:
         dest[lb : lb + need] = src[:need]
         return dest
-    dest[byte_index_map(datatype, count)] = src[:need]
+    lib = native.load()
+    if lib is not None and dest.flags["WRITEABLE"]:
+        segs = _segs_array(datatype)
+        lib.zompi_unpack(_vp(src), _vp(dest), _i64p(segs), segs.shape[0],
+                         datatype.extent, count)
+    else:
+        dest[byte_index_map(datatype, count)] = src[:need]
     return dest
 
 
@@ -180,6 +224,15 @@ def pack_partial(
             f"({need}B)"
         )
     end = min(position + max_bytes, total)
+    lib = native.load()
+    if lib is not None:
+        _check_lb(datatype)
+        segs = _segs_array(datatype)
+        out = np.empty(end - position, dtype=np.uint8)
+        newpos = lib.zompi_pack_partial(
+            _vp(view), _vp(out), _i64p(segs), segs.shape[0],
+            datatype.extent, count, position, end - position)
+        return out[: newpos - position], newpos
     idx = byte_index_map(datatype, count)
     return view[idx[position:end]], end
 
@@ -203,6 +256,13 @@ def unpack_partial(
             f"destination buffer of {dest.nbytes}B smaller than datatype "
             f"span ({span}B)"
         )
+    lib = native.load()
+    if lib is not None and dest.flags["WRITEABLE"]:
+        _check_lb(datatype)
+        segs = _segs_array(datatype)
+        return lib.zompi_unpack_partial(
+            _vp(src), src.nbytes, _vp(dest), _i64p(segs), segs.shape[0],
+            datatype.extent, count, position)
     idx = byte_index_map(datatype, count)
     dest[idx[position:end]] = src
     return end

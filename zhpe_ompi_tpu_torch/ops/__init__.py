@@ -14,6 +14,12 @@ Re-design of ``ompi/op`` + ``ompi/mca/op`` for PyTorch:
   linear algorithms;
 - MINLOC/MAXLOC combine ``(values, indices)`` tuples of tensors; ties go to
   the lower index, per the MPI standard;
+- large host operands take the C++ kernel table (``native/zompi_native.cpp``
+  ``zompi_reduce``, the ``ompi_op_base_functions`` analog), where the
+  namesake does: contiguous, same-dtype, same-shape CPU tensors of at
+  least 4096 elements whose dtype has a type code and whose op has an op
+  code.  Every other operand, and all operands when a switch
+  turns the native kernels off, keeps the torch combine;
 - ``check_datatype`` holds an op to the datatype kinds it is defined for
   (the bitwise and logical ops take integers and bools only; the pair ops
   take pair types only), ``identity_for`` gives the identity element for a
@@ -22,11 +28,13 @@ Re-design of ``ompi/op`` + ``ompi/mca/op`` for PyTorch:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
 
+from .. import native as _native_mod
 from ..core import errors
 from ..datatype.predefined import Datatype, PairDatatype
 
@@ -83,7 +91,32 @@ class Op:
         non-commutative user ops (cf. ompi_op_reduce(op, source, target))."""
         if self._fn is None:
             raise errors.OpError(f"{self.name} has no combine function")
-        return self._fn(a, b)
+        out = self._native_combine(a, b)
+        return out if out is not None else self._fn(a, b)
+
+    def _native_combine(self, a, b):
+        """The C++ kernel table for large contiguous same-dtype host
+        operands (a new result; the operands are left as they are); None
+        sends the call to the torch combine."""
+        if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.device.type == "cpu" and b.device.type == "cpu"
+                and a.is_contiguous() and b.is_contiguous()
+                and a.dtype == b.dtype and a.shape == b.shape
+                and a.numel() >= 4096):
+            return None
+        dtype = str(a.dtype).removeprefix("torch.")
+        if (self.name not in _native_mod.OP_CODES
+                or dtype not in _native_mod.TYPE_CODES):
+            return None
+        lib = _native_mod.load()
+        if lib is None:
+            return None
+        out = b.clone()
+        rc = lib.zompi_reduce(
+            _native_mod.OP_CODES[self.name], _native_mod.TYPE_CODES[dtype],
+            ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            a.numel())
+        return out if rc == 0 else None
 
     def identity_for(self, dtype: torch.dtype) -> Any:
         """Identity element for padding, as a Python number of ``dtype``'s

@@ -56,12 +56,12 @@ while ``osc_am_applied`` and wire ``tcp_bytes_sent`` stay flat.
 
 What the port adds, against the namesake: the region files, their header
 and their lock word are the namesake's (``pt2pt/sm.py``; the lock word's
-CAS is the port's ``native/shm_amo.cpp``), so a JAX-package origin maps a
-port-owned window and the reverse; origin buffers may be tensors (a CUDA
-one copied to the host explicitly), ``get`` and :func:`window_bcast`
-take an ``out=`` tensor (a CUDA one is filled host to card from the
-mapped load), and accumulate runs the port's torch ops on the mapped
-numpy view (:func:`rma_util.apply_op`).
+CAS is the port's ``native/zompi_native.cpp``), so a JAX-package origin
+maps a port-owned window and the reverse; origin buffers may be tensors
+(a CUDA one copied to the host explicitly), ``get`` and
+:func:`window_bcast` take an ``out=`` tensor (a CUDA one is filled host
+to card from the mapped load), and accumulate runs the port's torch ops
+on the mapped numpy view (:func:`rma_util.apply_op`).
 """
 
 from __future__ import annotations

@@ -22,9 +22,13 @@ posted receives merge by post order.  The scan work is visible:
 matching regression shows up as a counter delta, not a mystery
 slowdown.
 
-The namesake's ``NativeMatchingEngine`` (the queue walk in C++, behind
-``native.load()``) waits for the port's ``native/`` (ROADMAP queue A
-item 8): :func:`make_matching_engine` returns this Python engine.
+:class:`NativeMatchingEngine` is the same contract with the queue walk in
+C++ (``native/zompi_native.cpp``'s ``zompi_match_*``, one posted list and
+one unexpected queue, each walked in order): :func:`make_matching_engine`
+gives it to every new endpoint, and the Python engine when a switch
+(``ZOMPI_NATIVE=0``, the MCA var ``native_kernels``) selects it.  As in the
+namesake, the native engine keeps no ``match_comparisons`` tally and no
+:meth:`MatchingEngine.debug_rows` snapshot.
 
 Pure host logic with no transport dependency, unit-testable in isolation
 exactly like the reference's datatype engine tests (SURVEY.md §4) — the
@@ -318,11 +322,148 @@ class MatchingEngine:
         return posted, unexpected
 
 
+class NativeMatchingEngine:
+    """Same contract as :class:`MatchingEngine`, with the queue walk in C++
+    (the native analog of ob1's match loops).  Payloads and callbacks stay
+    in Python, referenced by opaque keys handed through the C ABI."""
+
+    def __init__(self) -> None:
+        import ctypes
+
+        from .. import native
+
+        lib = native.load()
+        if lib is None:
+            raise RuntimeError(
+                f"native kernels switched off ({native.disabled_by})")
+        self._ctypes = ctypes
+        self._lib = lib
+        self._h = lib.zompi_match_create()
+        self._lock = lockdep.lock("matching.NativeMatchingEngine._lock")
+        self._next_key = 1
+        self._payloads: dict[int, Any] = {}
+        self._callbacks: dict[int, Callable[[Envelope, Any], None]] = {}
+
+    def __del__(self):  # pragma: no cover - interpreter teardown timing
+        lib, h = getattr(self, "_lib", None), getattr(self, "_h", None)
+        if lib is not None and h:
+            lib.zompi_match_destroy(h)
+            self._h = None
+
+    def post_recv(self, src: int, tag: int, cid: int,
+                  on_match: Callable[[Envelope, Any], None]) -> None:
+        ct = self._ctypes
+        env = (ct.c_int64 * 4)()
+        pkey = ct.c_uint64()
+        if peruse.active:
+            peruse.fire(peruse.REQ_ACTIVATE, src=src, tag=tag, cid=cid)
+        with self._lock:
+            key = self._next_key
+            self._next_key += 1
+            self._callbacks[key] = on_match
+            hit = self._lib.zompi_match_post(
+                self._h, src, tag, cid, key, env, ct.byref(pkey))
+            if hit:
+                del self._callbacks[key]
+                payload = self._payloads.pop(pkey.value)
+        # events fire outside the lock (subscribers may re-enter the engine)
+        if hit:
+            matched = Envelope(env[0], env[1], env[2], env[3])
+            if peruse.active:
+                peruse.fire(peruse.MSG_REMOVE_FROM_UNEX_Q, src=matched.src,
+                            tag=matched.tag, cid=matched.cid, seq=matched.seq)
+                peruse.fire(peruse.REQ_MATCH_UNEX, src=matched.src,
+                            tag=matched.tag, cid=matched.cid, seq=matched.seq)
+            on_match(matched, payload)
+        elif peruse.active:
+            peruse.fire(peruse.REQ_INSERT_IN_POSTED_Q,
+                        src=src, tag=tag, cid=cid)
+
+    def incoming(self, env: Envelope, payload: Any) -> None:
+        ct = self._ctypes
+        rkey = ct.c_uint64()
+        if peruse.active:
+            peruse.fire(peruse.MSG_ARRIVED,
+                        src=env.src, tag=env.tag, cid=env.cid, seq=env.seq)
+        depth = 0
+        with self._lock:
+            key = self._next_key
+            self._next_key += 1
+            self._payloads[key] = payload
+            hit = self._lib.zompi_match_incoming(
+                self._h, env.src, env.tag, env.cid, env.seq, key,
+                ct.byref(rkey))
+            if hit:
+                del self._payloads[key]
+                cb = self._callbacks.pop(rkey.value)
+            else:
+                # _payloads holds exactly the unexpected payloads: its
+                # size is the backlog the Python engine watermarks
+                depth = len(self._payloads)
+        if not hit:
+            spc.record("match_unexpected_max_depth", depth)
+            if peruse.active:
+                peruse.fire(peruse.MSG_INSERT_IN_UNEX_Q, src=env.src,
+                            tag=env.tag, cid=env.cid, seq=env.seq)
+            return
+        if peruse.active:
+            peruse.fire(peruse.REQ_REMOVE_FROM_POSTED_Q, src=env.src,
+                        tag=env.tag, cid=env.cid, seq=env.seq)
+            peruse.fire(peruse.MSG_MATCH_POSTED_REQ, src=env.src,
+                        tag=env.tag, cid=env.cid, seq=env.seq)
+        cb(env, payload)
+
+    def probe(self, src: int, tag: int, cid: int) -> Envelope | None:
+        """MPI_Iprobe: peek the earliest matching unexpected envelope."""
+        env = (self._ctypes.c_int64 * 4)()
+        with self._lock:
+            hit = self._lib.zompi_match_probe(self._h, src, tag, cid, env)
+        return Envelope(env[0], env[1], env[2], env[3]) if hit else None
+
+    def extract(self, src: int, tag: int, cid: int
+                ) -> tuple[Envelope, Any] | None:
+        """MPI_Improbe's dequeue (see :meth:`MatchingEngine.extract`)."""
+        ct = self._ctypes
+        env = (ct.c_int64 * 4)()
+        pkey = ct.c_uint64()
+        with self._lock:
+            hit = self._lib.zompi_match_extract(
+                self._h, src, tag, cid, env, ct.byref(pkey))
+            payload = self._payloads.pop(pkey.value) if hit else None
+        if hit:
+            return Envelope(env[0], env[1], env[2], env[3]), payload
+        return None
+
+    def stats(self) -> dict[str, int]:
+        ct = self._ctypes
+        p, u = ct.c_int64(), ct.c_int64()
+        with self._lock:
+            self._lib.zompi_match_stats(self._h, ct.byref(p), ct.byref(u))
+        return {"posted": p.value, "unexpected": u.value}
+
+    def stats_excluding(self, srcs, cids=()) -> dict[str, int]:
+        """Native twin of :meth:`MatchingEngine.stats_excluding`: the
+        queue walk happens in C against the same engine handle."""
+        ct = self._ctypes
+        excl = sorted(int(s) for s in srcs)
+        excl_cids = sorted(int(c) for c in cids)
+        arr = (ct.c_int64 * max(1, len(excl)))(*(excl or [0]))
+        carr = (ct.c_int64 * max(1, len(excl_cids)))(*(excl_cids or [0]))
+        p, u = ct.c_int64(), ct.c_int64()
+        with self._lock:
+            self._lib.zompi_match_stats_excluding(
+                self._h, arr, len(excl), carr, len(excl_cids),
+                ct.byref(p), ct.byref(u))
+        return {"posted": p.value, "unexpected": u.value}
+
+
 def make_matching_engine():
-    """The matching engine of a new endpoint: always the Python
-    :class:`MatchingEngine`.  The namesake returns its C++
-    ``NativeMatchingEngine`` when ``native.load()`` finds the library;
-    the port has no ``native/`` yet (ROADMAP queue A item 8), so there is
-    nothing to probe and the Python engine is the only one (same
-    contract, same match order)."""
+    """The matching engine of a new endpoint: the native C++ engine when
+    ``native.load()`` gives the library, the Python engine when a switch
+    selects it (selection mirrors MCA component fallback).  A failed
+    build raises."""
+    from .. import native
+
+    if native.available():
+        return NativeMatchingEngine()
     return MatchingEngine()

@@ -58,7 +58,7 @@ Selection and fallback live in ``pt2pt/tcp.py`` (self → sm → tcp,
   the holder table, ``_rma_hdr_len``), so a JAX-package origin maps a
   port-owned region and the reverse.  A region is a page of header — a
   **lock word** serializing fetch-atomics cross-process (the port's
-  ``native/shm_amo.cpp`` ``__atomic`` CAS, the same domain as the
+  ``native/zompi_native.cpp`` ``__atomic`` CAS, the same domain as the
   namesake's native library; ``flock`` critical sections only when
   ``native_kernels``/``ZOMPI_NATIVE=0`` say so), shared/exclusive
   passive-target lock counts with a per-rank holder table, the futex
@@ -1449,7 +1449,7 @@ _LK_NONE, _LK_SHARED, _LK_EXCL, _LK_WAITW = 0, 1, 2, 3
 
 _MUTEX_WAIT = 1 << 31  # waiters-present bit of the region lock word
 
-# zompi_shm_amo operand codes (native/shm_amo.cpp enums)
+# zompi_shm_amo operand codes (native/zompi_native.cpp enums)
 _AMO_ADD, _AMO_SWAP, _AMO_CAS, _AMO_SET, _AMO_FETCH = range(5)
 _U32_CODE = 5  # TYPE_CODES["uint32"]
 
@@ -1459,7 +1459,7 @@ def _rma_hdr_len(nprocs: int) -> int:
 
 
 def _native_amo():
-    """The port's ``__atomic`` AMO library (``native/shm_amo.cpp``, the
+    """The port's ``__atomic`` AMOs (``native/zompi_native.cpp``, the
     namesake's entry points and codes), or None when ``native_kernels``/
     ``ZOMPI_NATIVE=0`` select the flock domain: the region lock word then
     degrades to flock-serialized critical sections on the region fd

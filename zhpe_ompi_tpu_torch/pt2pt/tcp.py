@@ -2977,9 +2977,13 @@ class TcpProc(errh.HasErrhandler, ulfm.UlfmEndpointAPI, HostCollectives,
                         raise fail_exc
                     return self.call_errhandler(fail_exc)
                 # diagnosis: is the message parked unexpected while our
-                # posted recv failed to match it?
+                # posted recv failed to match it? (queue snapshots exist
+                # on the Python engine only)
                 hit = self.engine.probe(source, tag, cid)
-                posted, unexpected = self.engine.debug_rows()
+                posted, unexpected = [], []
+                rows = getattr(self.engine, "debug_rows", None)
+                if rows is not None:
+                    posted, unexpected = rows()
                 exc = errors.InternalError(
                     f"tcp recv timeout (src={source}, tag={tag}, "
                     f"cid={cid}); probe={hit}; stats={self.engine.stats()}"

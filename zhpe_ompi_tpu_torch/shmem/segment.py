@@ -12,7 +12,7 @@ This module is that design for launcher-started OS processes:
   substrate: put/get are direct loads/stores into the peer's mapping (no
   message, no target-side service loop — true shared-memory PGAS), AMOs
   go through the port's ``zompi_shm_amo`` (__atomic builtins, coherent
-  across processes; ``native/shm_amo.cpp``, the namesake's entry point
+  across processes; ``native/zompi_native.cpp``, the namesake's entry point
   and codes, so a JAX-package PE's AMOs on the same word are one
   domain) with an ``flock``-serialized fallback when ``native_kernels``
   or ``ZOMPI_NATIVE=0`` select it, and distributed locks are ``flock``

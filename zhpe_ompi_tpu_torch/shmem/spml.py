@@ -12,7 +12,7 @@ highest-priority admitted component that supports the endpoint:
   numpy-view put/get.
 - **mmap** (60): socket ranks that are all processes on ONE host —
   mapped tmpfs segments with the port's native atomics
-  (``shmem/segment.py``, ``native/shm_amo.cpp``).
+  (``shmem/segment.py``, ``native/zompi_native.cpp``).
 - **am** (40): any wire endpoint — the symmetric heap attaches to a
   dynamic window of the direct-map osc plane (``shmem/api.py``'s
   ``_AmBackend`` over ``osc/direct.py``): same-host peers get mapped

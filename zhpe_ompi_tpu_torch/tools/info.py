@@ -7,7 +7,9 @@ full MCA variable table with current values and their sources (the MPI_T
 cvar surface), and every MPI_T performance variable with its value (the
 pvar surface: ``tools/mpit.py``'s universe, the documented SPC counters and
 the registered state pvars).  The coll framework lists ``nccl`` where the
-namesake lists ``tpu``.
+namesake lists ``tpu``.  With the components it lists the native host
+kernels' state: loaded, or the switch that turned them off
+(``native.disabled_by``), and where the C ABI shim is built.
 
 Usage::
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -54,6 +57,22 @@ def _load_everything():
     native.load()  # registration happens inside load(), not at import
 
 
+def _native_state() -> dict:
+    """The kernel library's state: loaded (and from where), or the switch
+    that turned it off (``disabled_by``), and the C ABI shim's path."""
+    from .. import native
+
+    lib = native.load()
+    return {
+        "kernels": "loaded" if lib is not None else "disabled",
+        "library": getattr(lib, "_name", None),
+        "disabled_by": native.disabled_by,
+        "abi_version": native.ABI_VERSION,
+        "mpi_shim": native.mpi_shim_path(),
+        "mpi_shim_built": os.path.exists(native.mpi_shim_path()),
+    }
+
+
 def gather(prefix: str | None = None) -> dict:
     _load_everything()
     from .. import __version__
@@ -67,6 +86,7 @@ def gather(prefix: str | None = None) -> dict:
         "package": "zhpe_ompi_tpu_torch",
         "frameworks": mca_component.info(),
         "profiles": tuned.profiles(),
+        "native": _native_state(),
         "params": [
             {
                 "name": v.name,
@@ -111,6 +131,13 @@ def main(argv: list[str] | None = None) -> int:
                     f"    {c['name']:<12} priority={c['priority']:<4} "
                     f"v{c['version']}{avail}"
                 )
+        nat = data["native"]
+        print("\n== Native host kernels (native/zompi_native.cpp) ==")
+        print(f"  kernels      {nat['kernels']}"
+              + (f"  (disabled by {nat['disabled_by']})"
+                 if nat["disabled_by"] else f"  {nat['library']}"))
+        print(f"  C ABI shim   {nat['mpi_shim']}"
+              + ("" if nat["mpi_shim_built"] else "  (not built yet)"))
     if show_all or args.params is not None:
         print("\n== MCA parameters ==")
         for v in data["params"]:

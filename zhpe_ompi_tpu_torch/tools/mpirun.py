@@ -15,8 +15,8 @@ This CLI is that surface for the TCP/DCN plane:
   a port rank or a JAX-package rank joins through its own ``host_init``,
   and either package's launcher runs either package's ranks.  Python
   programs (``*.py``) run under this interpreter; anything else is exec'd
-  directly (the C ranks of the namesake's ABI shim, which the port does
-  not carry yet).
+  directly (C ranks built by ``tools/zmpicc.py`` against the port's ABI
+  shim, ``native/zompi_mpi.cpp``, which join through the same contract).
 - **IOF**: children's stdout/stderr are line-forwarded with a ``[r]``
   prefix (mpirun ``--tag-output`` semantics, on by default).
 - **abort**: if any rank exits nonzero the remaining ranks are terminated
