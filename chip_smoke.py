@@ -370,11 +370,30 @@ Phases, each of which exits non-zero on failure:
    (GB/s of packed bytes, equal bytes); ``zompi_reduce`` against the torch
    combine for SUM of 16 Mi float32 (ms, equal bits).  Printed: one
    ``{"native": ...}`` line.
-24. Print one ``{"kernels": [...]}`` line (``launches``: per training
+24. The OSU ladders (``drive_osu``) of the port's harness,
+   ``zhpe_ompi_tpu_torch/benchmarks/osu_zmpi.py``, each with its own gates
+   armed.  The device plane, on a one-rank NCCL ``runtime.init()`` world
+   with CUDA tensors: ``bench_collective`` for allreduce, bcast, allgather
+   and alltoall at ``auto`` in float32 and bfloat16, and the allreduce with
+   every algorithm of ``coll/tuned._ALG_TABLES["allreduce"]`` forced (f32),
+   each from 4 B to 16,777,216 B (the flagship's tp allreduce payload,
+   batch x seq x d_model in bf16); each forced algorithm's top rung must
+   give the one-rank MPI answer; then ``bench_device_probe(3)`` (every
+   round "ok", no miss, no device fault); ``finalize()``.  The host plane:
+   ``bench_pt2pt`` and ``bench_tcp``, latency and ``--bw``, up to 4 MiB;
+   ``bench_sm`` in two processes; ``bench_host_coll`` allreduce at 4 ranks
+   (threads on TCP, processes on sm) up to 1 MiB; ``bench_osc`` in two
+   processes (direct against forced AM, byte-identical); ``bench_launch``
+   at 2 ranks, 1 rep.  The C plane: ``benchmarks/osu_c.c``, as it is,
+   through the port's ``tools/zmpicc`` and two ranks under its
+   ``tools/mpirun``: one ``c_pingpong`` line per size, each latency finite
+   and positive.  Printed: one ``{"osu": ...}`` line per ladder.
+25. Print one ``{"kernels": [...]}`` line (``launches``: per training
    step; ``launches_by_path``: per forward, training, remat, sp, runtime,
    long-context, Adam, ft rank, hybrid, ZeRO, serve step, phase 21's,
-   phase 22's and phase 23's forward), the smoke's total seconds, the
-   card's line, and last ``{"ok": true, "device": {...}}``.
+   phase 22's and phase 23's forward; phase 24 launches none), the smoke's
+   total seconds, the card's line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Imports nothing of JAX.  Exits non-zero, with no result line, when no CUDA
 device is present or when the port's package is not beside this script.
@@ -433,6 +452,10 @@ traced|names|abort`` is its child.
 
 runs only phase 23 (after the kernel build); ``--native-child`` is its
 child.
+
+    python3 chip_smoke.py --osu
+
+runs only phase 24 (no kernel build).
 
     python3 chip_smoke.py --bench-after
 
@@ -731,6 +754,35 @@ NATIVE_PACK_BYTES = 64 << 20
 NATIVE_REDUCE_ELEMS = 16 << 20
 NATIVE_TURNS = 3
 NATIVE_TIMEOUT_S = 600.0
+
+# Phase 24, the OSU ladders (zhpe_ompi_tpu_torch/benchmarks/osu_zmpi.py) on
+# the card's machine.  The device ladders run on the card from 4 B up to
+# the flagship's tp allreduce payload (BATCH x seq x d_model bf16, from the
+# port's bench widths), OSU_DEVICE_ITERS timed calls a rung, then
+# OSU_PROBE_ROUNDS device probes.  The host ladders: pt2pt and tcp (latency
+# and --bw) and sm (two processes) up to OSU_HOST_MAX, OSU_HOST_ITERS round
+# trips a rung; the host allreduce at OSU_COLL_RANKS ranks (threads on TCP,
+# processes on sm) up to OSU_COLL_MAX, OSU_COLL_ITERS calls; the one-sided
+# ladder (two processes) up to OSU_OSC_MAX; the launch ladder at
+# OSU_LAUNCH_RANKS ranks, OSU_LAUNCH_REPS each (every launch starts 3-7
+# interpreters that import torch, ~70 s a rep of its six rungs).  The C
+# plane: the repository's benchmarks/osu_c.c through the port's zmpicc,
+# two ranks under the port's mpirun, one c_pingpong line per size of
+# OSU_C_SIZES.
+OSU_OPS = ("allreduce", "bcast", "allgather", "alltoall")
+OSU_DEVICE_ITERS = 10
+OSU_PROBE_ROUNDS = 3
+OSU_HOST_MAX = 4 << 20
+OSU_HOST_ITERS = 20
+OSU_COLL_RANKS = 4
+OSU_COLL_MAX = 1 << 20
+OSU_COLL_ITERS = 5
+OSU_OSC_MAX = 1 << 20
+OSU_OSC_ITERS = 10
+OSU_LAUNCH_RANKS = 2
+OSU_LAUNCH_REPS = 3
+OSU_C_SIZES = (8, 64, 1024, 4096, 16384, 65536, 262144, 1048576, 4194304)
+OSU_TIMEOUT_S = 600.0
 
 # Shapes at the flash kernels' edges, (shape, causal, strided): a long
 # sequence, so the ring's mbarrier phases wrap many times (64 key or query
@@ -4875,6 +4927,156 @@ def drive_native(torch, np, tfm, card_line, build_s) -> dict:
     return report
 
 
+def _osu_rows_ok(rows, label) -> None:
+    """A ladder's rows must be there, each latency finite and positive."""
+    lat = [r.get("latency_us", r.get("best_ms")) for r in rows]
+    if not rows or not all(isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+                           for x in lat):
+        raise SystemExit(f"osu {label}: rows {rows}")
+
+
+def drive_osu(torch, card_line) -> dict:
+    """Phase 24: the OSU ladders of the port's harness (see the module doc),
+    each with its own gates armed; one ``{"osu": ...}`` line per ladder.
+    Fails unless every gate holds."""
+    import io
+    import shutil
+
+    from zhpe_ompi_tpu_torch.benchmarks import osu_zmpi as osu
+    from zhpe_ompi_tpu_torch.coll import tuned
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.runtime import init as rt
+    from zhpe_ompi_tpu_torch.tools import mpirun
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    top = BATCH * HEADLINE["seq"] * HEADLINE["d_model"] * 2  # the tp payload, bf16
+    summary: dict = {}
+
+    def emit(label, rows, seconds, **extra):
+        _osu_rows_ok(rows, label)
+        print(json.dumps({"osu": label, "rows": rows, "s": seconds, **extra,
+                          "card": card_line}))
+        last = rows[-1]
+        summary[label] = {"top_bytes": last.get("bytes"),
+                          "top_latency_us": last.get("latency_us"),
+                          "top_bandwidth_MBps": last.get("bandwidth_MBps"),
+                          "s": seconds, **extra}
+
+    # the device plane: one rank on NCCL, CUDA tensors
+    world = rt.init(device="cuda")
+    try:
+        if world.size != 1 or world.backend != "nccl":
+            raise SystemExit(f"osu: world of {world.size} on {world.backend}")
+        want = osu._sizes(top)
+        for dtype in (torch.float32, torch.bfloat16):
+            for op in OSU_OPS:
+                t = time.perf_counter()
+                rows = osu.bench_collective(op, "auto", top, OSU_DEVICE_ITERS,
+                                            dtype=dtype, device="cuda")
+                if [r["bytes"] for r in rows] != want:
+                    raise SystemExit(f"osu device {op}: bytes {[r['bytes'] for r in rows]}")
+                emit(f"device {op} auto {str(dtype).split('.')[-1]}", rows,
+                     time.perf_counter() - t)
+        for alg in tuned._ALG_TABLES["allreduce"]:
+            t = time.perf_counter()
+            rows = osu.bench_collective("allreduce", alg, top, OSU_DEVICE_ITERS,
+                                        device="cuda")
+            seconds = time.perf_counter() - t
+            # the top rung under the same forced algorithm.  At one rank every
+            # coll/algorithms allreduce returns its input (no device work: its
+            # rows time the dispatch and a synchronise), so the check is that
+            # the forced call reached it; `xla` is NCCL's own allreduce, held
+            # against the one-rank answer.  tests/_torch_dist_worker.py osu
+            # holds every algorithm at four ranks.
+            x = osu._rung(world, top, torch.float32, "cuda")
+            mca_var.set_var("coll_tuned_allreduce_algorithm", alg)
+            try:
+                got = osu._collective(world, "allreduce", x)()
+            finally:
+                mca_var.set_var("coll_tuned_allreduce_algorithm", "auto")
+            identity = alg != "xla"
+            if identity and got is not x:
+                raise SystemExit(f"osu device allreduce [{alg}]: the forced call did "
+                                 "not reach coll/algorithms")
+            if not identity and not (
+                    got is not x and got.device == x.device and got.shape == x.shape
+                    and torch.equal(got, _one_rank_answer(torch, "allreduce", x))):
+                raise SystemExit("osu device allreduce [xla]: the top rung is not "
+                                 "the one-rank answer")
+            emit(f"device allreduce {alg} float32", rows, seconds,
+                 one_rank_identity=identity)
+        t = time.perf_counter()
+        probe = osu.bench_device_probe(OSU_PROBE_ROUNDS, device="cuda")
+        print(json.dumps({"osu": "device_probe", "rows": probe,
+                          "s": time.perf_counter() - t, "card": card_line}))
+        summary["device_probe"] = probe[0]
+    finally:
+        rt.finalize()
+
+    # the host plane on the card's machine, every ladder's gates armed
+    host = (
+        ("pt2pt pingpong", lambda: osu.bench_pt2pt(OSU_HOST_MAX, OSU_HOST_ITERS)),
+        ("pt2pt bw", lambda: osu.bench_pt2pt(OSU_HOST_MAX, OSU_HOST_ITERS, bw=True)),
+        ("tcp pingpong", lambda: osu.bench_tcp(OSU_HOST_MAX, OSU_HOST_ITERS)),
+        ("tcp bw", lambda: osu.bench_tcp(OSU_HOST_MAX, OSU_HOST_ITERS, bw=True)),
+        ("sm pingpong processes",
+         lambda: osu.bench_sm(OSU_HOST_MAX, OSU_HOST_ITERS, real_procs=True)),
+        ("host allreduce tcp threads",
+         lambda: osu.bench_host_coll("allreduce", "auto", OSU_COLL_MAX, OSU_COLL_ITERS,
+                                     nprocs=OSU_COLL_RANKS, sm=False)),
+        ("host allreduce sm processes",
+         lambda: osu.bench_host_coll("allreduce", "auto", OSU_COLL_MAX, OSU_COLL_ITERS,
+                                     nprocs=OSU_COLL_RANKS, sm=True, real_procs=True)),
+        ("osc processes",
+         lambda: osu.bench_osc(OSU_OSC_MAX, OSU_OSC_ITERS, real_procs=True)),
+    )
+    for label, run in host:
+        t = time.perf_counter()
+        rows = run()
+        emit(label, rows, time.perf_counter() - t)
+    t = time.perf_counter()
+    launch = osu.bench_launch(nprocs=OSU_LAUNCH_RANKS, reps=OSU_LAUNCH_REPS)
+    seconds = time.perf_counter() - t
+    _osu_rows_ok(launch, "launch")
+    print(json.dumps({"osu": "launch", "rows": launch, "s": seconds, "card": card_line}))
+    summary["launch"] = {r["mode"]: {"best_ms": r["best_ms"], "median_ms": r["median_ms"]}
+                         for r in launch} | {"s": seconds}
+
+    # the C plane: osu_c.c as it is, through the port's zmpicc and mpirun
+    work = tempfile.mkdtemp(prefix="zmpi-osu-")
+    try:
+        exe = os.path.join(work, "osu_c")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t = time.perf_counter()
+        cc = subprocess.run(
+            [sys.executable, "-m", "zhpe_ompi_tpu_torch.tools.zmpicc",
+             os.path.join(here, "benchmarks", "osu_c.c"), "-o", exe],
+            env=env, capture_output=True, text=True, timeout=OSU_TIMEOUT_S)
+        zmpicc_s = time.perf_counter() - t
+        if cc.returncode != 0:
+            raise SystemExit(f"osu: zmpicc osu_c.c rc {cc.returncode}:\n{cc.stderr}")
+        out, err = io.StringIO(), io.StringIO()
+        t = time.perf_counter()
+        rc = mpirun.launch(2, [exe], timeout=OSU_TIMEOUT_S, tag_output=False,
+                           stdout=out, stderr=err)
+        job_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work)
+    lines = [json.loads(x) for x in out.getvalue().splitlines()
+             if x.startswith('{"op": "c_pingpong"')]
+    if rc != 0 or [x["bytes"] for x in lines] != list(OSU_C_SIZES) or not all(
+            math.isfinite(x["latency_us"]) and x["latency_us"] > 0 for x in lines):
+        raise SystemExit(f"osu: osu_c under mpirun rc {rc}, lines {lines}\n"
+                         f"{out.getvalue()[-2000:]}\n{_rank_tails(err.getvalue(), 40)}")
+    emit("c pingpong", lines, job_s, zmpicc_s=zmpicc_s)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"osu: {len(summary) - 1} ladders, every gate held, phase "
+          f"{summary['phase_s']} s on {card_line}")
+    return summary
+
+
 def start_native_build():
     """Build the native kernel library and the C ABI shim with ``g++`` in a
     thread (beside the CUDA kernels' ``nvcc``); the returned function joins
@@ -5332,6 +5534,15 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _take_widths()
         return native_child()
+    if args == ["--osu"]:
+        # phase 24 alone (no kernel is on its path)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        card_line = _card_line()
+        print(f"card: {card_line}")
+        drive_osu(torch, card_line)
+        print(card_line)
+        return 0
     if args == ["--native"]:
         # phase 23 alone, after the kernel build
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5457,7 +5668,7 @@ def main() -> int:
               "| --hybrid-child | --serve | --serve-child kill|elastic "
               "| --osc-io | --osc-io-child | --tools "
               "| --tools-child traced|names|abort [DIR] | --native "
-              "| --native-child]",
+              "| --native-child | --osu]",
               file=sys.stderr)
         return 2
     if args:
@@ -5574,6 +5785,7 @@ def main() -> int:
     osc_io = drive_osc_io(torch, np, tfm, card_line)
     tools = drive_tools(torch, np, tfm, card_line)
     native = drive_native(torch, np, tfm, card_line, native_build_s)
+    osu = drive_osu(torch, card_line)
     native_launches = {"layernorm_fwd": native["launches_per_forward"].get("ln_fwd", 0),
                        "flash_attention_fwd":
                            native["launches_per_forward"].get("flash_fwd", 0)}
@@ -5616,7 +5828,7 @@ def main() -> int:
                       "host_plane": host_plane, "host_moe": host_moe,
                       "ft": ft, "ft_processes": ft_processes, "ft_dvm": ft_dvm,
                       "hybrid": hybrid, "serve": serve, "osc_io": osc_io,
-                      "tools": tools, "native": native,
+                      "tools": tools, "native": native, "osu": osu,
                       "smoke_s": time.perf_counter() - t_start}))
     print(f"smoke total: {time.perf_counter() - t_start} s")
     print(card_line)

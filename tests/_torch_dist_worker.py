@@ -5,9 +5,10 @@ MODE RANK WORLD DIR``: it joins a gloo group through a ``FileStore`` in
 DIR, does MODE, and writes ``DIR/out<RANK>.npz``.  Imports the port, never
 jax.  ``coll_inputs`` and ``coll_cases`` define the collective checks,
 ``moe_pipe_inputs`` the MoE and pipeline inputs, ``shmem_cases`` the
-device-heap programs (run by either package through ``run_shmem_case``)
-and ``topo_cases`` the neighbor exchanges (built by ``build_topology``),
-so that the tests can feed the same inputs to the JAX package.
+device-heap programs (run by either package through ``run_shmem_case``),
+``topo_cases`` the neighbor exchanges (built by ``build_topology``) and
+``OSU_OPS``/``OSU_MAX`` the device ladder of ``osu``, so that the tests
+can feed the same inputs to the JAX package.
 ``run_tcp_threads`` runs a ``TcpProc`` universe (either package's ranks)
 in the calling test's threads.
 """
@@ -929,6 +930,52 @@ SURVIVOR_CASES = {4: [("dp", [1]), ("tp", [0])],
                   8: [("dp", [0]), ("tp", [1]), ("sp", [0])]}
 
 
+OSU_OPS = ("allreduce", "bcast", "allgather", "alltoall")
+OSU_MAX = 64
+
+
+def _osu(rank, world, out):
+    """The device ladder on gloo: ``bench_collective`` of each OSU op at
+    ``auto`` up to OSU_MAX bytes (float32, and allreduce in bfloat16 and
+    with each algorithm of ``coll/tuned`` forced), its rows' bytes and
+    keys, and each op's result on the top rung's buffer through the
+    ladder's own call, the allreduce under each forced algorithm too."""
+    import zhpe_ompi_tpu_torch as zmpi
+    from zhpe_ompi_tpu_torch.benchmarks import osu_zmpi as osu
+    from zhpe_ompi_tpu_torch.coll import tuned
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+
+    algs = list(tuned._ALG_TABLES["allreduce"])
+    comm = zmpi.init(device="cpu")
+    try:
+        cases = [(op, "auto", torch.float32) for op in OSU_OPS]
+        cases += [("allreduce", "auto", torch.bfloat16)]
+        cases += [("allreduce", alg, torch.float32) for alg in algs]
+        for op, alg, dtype in cases:
+            tag = f"{op}_{alg}_{str(dtype).split('.')[-1]}"
+            rows = osu.bench_collective(op, alg, max_size=OSU_MAX, iters=2,
+                                        dtype=dtype, device="cpu")
+            out[f"{tag}_bytes"] = np.array([r["bytes"] for r in rows])
+            out[f"{tag}_keys"] = np.array([",".join(sorted(r)) for r in rows])
+            out[f"{tag}_latency_us"] = np.array([r["latency_us"] for r in rows])
+        for op in OSU_OPS:
+            x = osu._rung(comm, OSU_MAX, torch.float32, "cpu")
+            out[f"{op}_top"] = osu._collective(comm, op, x)().reshape(-1).numpy()
+        for alg in algs:
+            x = osu._rung(comm, OSU_MAX, torch.float32, "cpu")
+            mca_var.set_var("coll_tuned_allreduce_algorithm", alg)
+            try:
+                got = osu._collective(comm, "allreduce", x)()
+            finally:
+                mca_var.set_var("coll_tuned_allreduce_algorithm", "auto")
+            out[f"allreduce_{alg}_top"] = got.reshape(-1).numpy()
+        comm.barrier()
+    finally:
+        # stops the revocation watcher before the group goes: its store
+        # reads must not race the process's exit
+        zmpi.finalize()
+
+
 def run_tcp_threads(n: int, fn, kwargs_by_rank=None, kinds=None,
                     timeout: float = 60.0, rank_timeout: float = 20.0, **common):
     """``fn(proc)`` on an n-rank ``TcpProc`` universe whose ranks are
@@ -1058,6 +1105,8 @@ def main() -> int:
             _osc_shmem(comm, rank, world, out)
         elif mode == "topo":
             _topo(comm, rank, world, out)
+        elif mode == "osu":
+            _osu(rank, world, out)
         elif mode == "select":
             out["coll_components"] = np.array(
                 sorted({c for _, c in comm.coll.values()}))

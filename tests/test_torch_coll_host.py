@@ -261,6 +261,30 @@ def test_minloc_pairs_combine_whole():
         assert vals.tolist() == [1.0, 1.0] and idx.tolist() == [2, 0]
 
 
+@pytest.mark.parametrize("a,b", [(np.float64(1.5), np.float64(2.5)),
+                                 (1.5, 2.5), (3, 4), (np.int32(3), np.int32(4)),
+                                 (np.complex128(1 + 2j), np.complex128(3j)),
+                                 (True, False)])
+def test_scalar_partials_cross_the_wire_as_the_namesakes(a, b):
+    """A scalar reduction's partial result is a numpy scalar, as the
+    namesake's ufunc gives, so it crosses the wire in the same dss record
+    (10 bytes for a float64, where a 0-d tensor took 16); the value and
+    its dtype are the namesake's."""
+    from zhpe_ompi_tpu.coll import host as jhost
+    from zhpe_ompi_tpu.utils import dss as jdss
+    from zhpe_ompi_tpu_torch.utils import dss as tdss
+
+    names = ("LOR", "LAND") if isinstance(a, bool) else \
+        ("SUM", "PROD") if isinstance(a, (complex, np.complexfloating)) \
+        else ("SUM", "MAX")
+    for jop, top in ((getattr(jops, n), getattr(tops, n)) for n in names):
+        want = jhost._combine(jop, a, b)
+        got = thost._combine(top, a, b)
+        assert isinstance(got, np.generic) and got.dtype == np.asarray(want).dtype
+        assert got == want
+        assert len(tdss.pack(got)) == len(jdss.pack(want))
+
+
 def test_han_seam(tmp_path):
     """A thread universe is one locality group: a forced han (``on``, or a
     ``han`` rules line) runs the flat algorithm and counts the fallback on

@@ -25,6 +25,8 @@ GPU machine without JAX:
   ``restore`` places them back on the card.
 - ``device_pack``/``device_unpack`` of a vector type on CUDA tensors (f32
   and bf16) equal to the host convertor's bytes.
+- The OSU harness's device rows: ``bench_collective`` of each OSU op and
+  every forced allreduce algorithm, and ``bench_device_probe``.
 """
 
 import os
@@ -156,3 +158,47 @@ def test_device_pack_on_the_card(cuda, dtype):
     host_out = torch.zeros_like(host_src)
     convertor.unpack(want, vec, count, out=host_out)
     assert torch.equal(out.cpu(), host_out)
+
+
+@pytest.mark.cuda
+def test_osu_device_rows_on_the_card(nccl_comm):
+    """The OSU harness's device rows on the card (the one-rank NCCL group
+    of ``nccl_comm`` adopted by ``runtime.init``): ``bench_collective`` of
+    each OSU op in f32 and bf16 with the namesake's row keys and one-rank
+    ``bytes``; every forced allreduce algorithm's top rung: at one rank
+    each ``coll/algorithms`` allreduce returns its input itself (no
+    device work), and ``xla`` (NCCL) a fresh tensor equal to it; and a
+    probe row with no miss."""
+    from zhpe_ompi_tpu_torch.benchmarks import osu_zmpi as osu
+    from zhpe_ompi_tpu_torch.coll import tuned
+    from zhpe_ompi_tpu_torch.mca import var as mca_var
+    from zhpe_ompi_tpu_torch.runtime import init as rt
+
+    keys = ["algorithm", "bandwidth_MBps", "bytes", "latency_us", "op"]
+    try:
+        world = rt.init()
+        for dtype in (torch.float32, torch.bfloat16):
+            for op in ("allreduce", "bcast", "allgather", "alltoall"):
+                rows = osu.bench_collective(op, max_size=1 << 12, iters=3,
+                                            dtype=dtype)
+                assert [r["bytes"] for r in rows] == osu._sizes(1 << 12)
+                assert all(sorted(r) == keys and r["latency_us"] > 0
+                           for r in rows)
+        for alg in tuned._ALG_TABLES["allreduce"]:
+            rows = osu.bench_collective("allreduce", alg, max_size=1 << 12,
+                                        iters=2)
+            assert {r["algorithm"] for r in rows} == {alg}
+            x = osu._rung(world, 1 << 12, torch.float32, "cuda")
+            mca_var.set_var("coll_tuned_allreduce_algorithm", alg)
+            try:
+                got = osu._collective(world, "allreduce", x)()
+            finally:
+                mca_var.set_var("coll_tuned_allreduce_algorithm", "auto")
+            if alg == "xla":
+                assert got is not x and got.is_cuda and torch.equal(got, x)
+            else:
+                assert got is x, alg
+        probe = osu.bench_device_probe(rounds=1)
+        assert probe[0]["misses"] == probe[0]["device_faults"] == 0
+    finally:
+        rt.finalize()

@@ -33,12 +33,14 @@ import torch
 
 from zhpe_ompi_tpu import datatype as jdt
 from zhpe_ompi_tpu.core import errors as jerrors
+from zhpe_ompi_tpu.io import fbtl as jfbtl
 from zhpe_ompi_tpu.io import fcoll as jfcoll
 from zhpe_ompi_tpu.io import file as jfile
 from zhpe_ompi_tpu.io import fs as jfs
 from zhpe_ompi_tpu.mca import var as jvar
 from zhpe_ompi_tpu_torch import datatype as tdt
 from zhpe_ompi_tpu_torch.core import errors as terrors
+from zhpe_ompi_tpu_torch.io import fbtl as tfbtl
 from zhpe_ompi_tpu_torch.io import fcoll as tfcoll
 from zhpe_ompi_tpu_torch.io import file as tfile
 from zhpe_ompi_tpu_torch.io import fs as tfs
@@ -47,9 +49,9 @@ from zhpe_ompi_tpu_torch.mca import var as tvar
 from test_torch_osc import _data, _equal
 
 JAX = NS(name="jax", file=jfile, dt=jdt, errors=jerrors, fcoll=jfcoll,
-         fs=jfs, var=jvar)
+         fs=jfs, var=jvar, fbtl=jfbtl)
 PORT = NS(name="port", file=tfile, dt=tdt, errors=terrors, fcoll=tfcoll,
-          fs=tfs, var=tvar)
+          fs=tfs, var=tvar, fbtl=tfbtl)
 N = 4
 COMM = NS(size=N)
 
@@ -151,7 +153,9 @@ def test_nonblocking_sizes_and_modes(tmp_path):
         out = []
         path = f"{d}/nb.bin"
         with F.File(COMM, path, F.MODE_CREATE | F.MODE_WRONLY) as f:
-            reqs = [f.iwrite_at(8 * i, _data(i, 8, np.int64))
+            # 64 bytes apart: each write has its own bytes (MPI leaves
+            # overlapping nonblocking writes to the caller's race)
+            reqs = [f.iwrite_at(64 * i, _data(i, 8, np.int64))
                     for i in range(3)]
             out.append([q.wait() for q in reqs])
             f.preallocate(512)
@@ -178,6 +182,72 @@ def test_nonblocking_sizes_and_modes(tmp_path):
     got, files = same(prog, tmp_path)
     assert got[1:3] == [512, 200] and got[4] == 200
     assert list(files) == ["nb.bin"]
+
+
+ORDERS = {"submitted": (0, 1, 2), "reversed": (2, 1, 0)}
+
+
+def _force_completion_order(monkeypatch, P, order):
+    """Retire package P's first ``len(order)`` nonblocking transfers on the
+    caller's thread in ``order`` (indices in submission order), once the
+    last of them is submitted, and every later one as it comes: the pool's
+    scheduling made deterministic."""
+    held = []
+
+    def run(req, fn, args):
+        try:
+            req.complete(fn(*args))
+        except BaseException as e:  # noqa: BLE001 - surfaces at wait
+            req.fail(e)
+
+    def submit(self, fn, *args):
+        req = P.fbtl.FileRequest()
+        held.append((req, fn, args))
+        if len(held) == len(order):
+            for i in order:
+                run(*held[i])
+        elif len(held) > len(order):
+            run(*held[-1])
+        return req
+
+    monkeypatch.setattr(P.fbtl.AsyncFbtl, "submit", submit)
+
+
+def _three_iwrites(stride):
+    def prog(P, d):
+        F = P.file
+        with F.File(COMM, f"{d}/nb.bin", F.MODE_CREATE | F.MODE_WRONLY) as f:
+            reqs = [f.iwrite_at(stride * i, _data(i, 8, np.int64))
+                    for i in range(3)]
+            return [q.wait() for q in reqs]
+    return prog
+
+
+@pytest.mark.parametrize("port_order", list(ORDERS))
+@pytest.mark.parametrize("jax_order", list(ORDERS))
+@pytest.mark.parametrize("stride", [8, 64], ids=["overlapping", "disjoint"])
+def test_nonblocking_writes_under_forced_completion_orders(
+        tmp_path, stride, jax_order, port_order):
+    """Three ``iwrite_at`` of 64 bytes each, their completion order forced
+    per package.  At 8 bytes apart they overlap, and the file's bytes are
+    the last writer's: equal when both packages retire in the same order,
+    different when they do not, so the bytes of the overlapping program
+    follow the pool's scheduling (the caller's race, as MPI's non-atomic
+    mode leaves it).  At 64 bytes apart they are equal under every pair of
+    orders."""
+    files = []
+    for P, order in ((JAX, jax_order), (PORT, port_order)):
+        d = tmp_path / P.name
+        d.mkdir()
+        with pytest.MonkeyPatch.context() as mp:
+            _force_completion_order(mp, P, ORDERS[order])
+            assert _three_iwrites(stride)(P, str(d)) == [64, 64, 64]
+        files.append((d / "nb.bin").read_bytes())
+    assert len(files[0]) == len(files[1]) == 2 * stride + 64
+    if stride == 64 or jax_order == port_order:
+        assert files[0] == files[1]
+    else:
+        assert files[0] != files[1]
 
 
 def test_error_contract(tmp_path):

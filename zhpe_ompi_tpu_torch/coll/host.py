@@ -240,7 +240,16 @@ def _combine(op, a: Any, b: Any) -> Any:
         if not isinstance(b, (list, tuple)) or len(a) != len(b):
             raise errors.ArgError("blockwise reduce of mismatched sequences")
         return type(a)(_combine(op, x, y) for x, y in zip(a, b))
-    return op(_operand(a), _operand(b))
+    out = op(_operand(a), _operand(b))
+    if isinstance(a, _SCALARS) and isinstance(b, _SCALARS):
+        # a numpy scalar, as the namesake's ufunc gives: a partial result
+        # crosses the wire as its 10-byte scalar record, not a 0-d tensor
+        return out.numpy()[()]
+    return out
+
+
+#: the operands a scalar reduction combines
+_SCALARS = (np.generic, bool, int, float, complex)
 
 
 def _like(value: Any, like: Any) -> Any:
@@ -252,6 +261,9 @@ def _like(value: Any, like: Any) -> Any:
         return type(like)(_like(v, w) for v, w in zip(value, like))
     if isinstance(like, torch.Tensor):
         return _operand(value) if isinstance(value, np.ndarray) else value
+    if isinstance(value, np.generic) and isinstance(like, _SCALARS) \
+            and not isinstance(like, np.generic):
+        return value.item()
     if not isinstance(value, torch.Tensor):
         return value
     if isinstance(like, np.ndarray):

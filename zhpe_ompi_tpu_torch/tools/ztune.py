@@ -3,8 +3,10 @@
 
 The reference's coll/tuned earns its name by shipping decision tables
 distilled from OSU benchmark sweeps; this tool closes that loop for the
-analog.  It runs the collective ladders of ``benchmarks/osu_zmpi.py``
-(the port's copy inside the package) per emulated topology shape
+analog.  It runs the collective cells on the port's OSU harness,
+``zhpe_ompi_tpu_torch/benchmarks/osu_zmpi.py`` (every ladder of its
+namesake ``benchmarks/osu_zmpi.py``: its thread harness, worker
+environment and size ladder), per emulated topology shape
 (flat / han2 / han3 — real processes with
 ``--real-procs``, the in-process thread harness by default), per op ×
 per size × candidate algorithm, and distills the winners into a
@@ -143,8 +145,7 @@ def orphaned_sweep_processes() -> list[str]:
 
 
 def _osu():
-    """The benchmark harness module (the port's own copy of the pieces
-    this tool calls, inside the package)."""
+    """The port's OSU harness module, inside the package."""
     from ..benchmarks import osu_zmpi
 
     return osu_zmpi
