@@ -2852,7 +2852,8 @@ def hybrid_child() -> int:
 
             counted_step(hyb, one_step)
             hyb["split_ms"].append({k: (v - before.get(k, 0.0)) * 1e3
-                                    for k, v in timings.items()})
+                                    for k, v in timings.items()
+                                    if k not in ("coll_calls", "coll_bytes")})
             if i == 0 and r == 0:
                 first = ({k: v.clone() for k, v in params.items()},
                          {k: opt.state[params[k]]["exp_avg"].clone() for k in params})

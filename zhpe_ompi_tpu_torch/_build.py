@@ -21,12 +21,15 @@ calls :func:`load` inside the function that launches its kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+
+from .runtime import ztrace
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
@@ -52,6 +55,25 @@ def count_launch(fn) -> None:
     if counts is None:
         counts = _thread_counts.counts = {}
     counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
+
+
+def kernel_range(fn):
+    """Decorate the kernel wrapper ``fn``: while a ``torch.profiler``
+    profile records, each call runs inside a profiler range
+    (``runtime/ztrace.profiler_range``) named ``zmpi.kernel.<wrapper>``
+    (on the kernel and the plain paths
+    alike), which puts the launch beside its kernel in the trace; else a
+    call costs one check (``runtime/ztrace.profiler_recording``)."""
+    name = f"zmpi.kernel.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def ranged(*args, **kwargs):
+        if not ztrace.profiler_recording():
+            return fn(*args, **kwargs)
+        with ztrace.profiler_range(name):
+            return fn(*args, **kwargs)
+
+    return ranged
 
 
 def thread_launches() -> dict[str, int]:

@@ -53,6 +53,10 @@ The collective function table (``comm.coll``) is composed per communicator,
 per operation from the coll framework's components by priority, mirroring
 ``mca_coll_base_comm_select.c:108-152``; every MPI collective method goes
 through it, past the PMPI interposition point (``tools/pmpi.py``).
+``_coll_call_inner`` is also the collectives' counting seam: while a
+``coll/monitoring`` window is armed or a profiler records, each call runs
+in a ``zmpi.coll.<op>`` profiler range and is counted into the armed
+tallies (calls, payload bytes, host time).
 ``shift``, ``permute`` and ``ppermute`` are the SPMD plane's point-to-point
 (``pt2pt/spmd.py``).
 """
@@ -60,6 +64,7 @@ through it, past the PMPI interposition point (``tools/pmpi.py``).
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Sequence
 
 import torch
@@ -68,6 +73,7 @@ import torch.distributed.distributed_c10d as c10d
 from torch.distributed.constants import default_pg_timeout
 
 from .. import ops as _ops
+from ..coll import monitoring
 from ..core import attributes
 from ..core import errhandler as errh
 from ..core import errors
@@ -452,11 +458,29 @@ class Communicator(errh.HasErrhandler, attributes.AttrHost):
                 f"no coll component provides {opname} for {self.name}"
             )
         fn, _ = entry
+        if monitoring.active or ztrace.profiler_recording():
+            return self._coll_call_watched(opname, fn, args, kwargs)
         # PMPI interposition point (the weak-symbol MPI_X = PMPI_X analog,
         # ompi/mpi/c/send.c:37-39): tools see the call before the MCA path
         if pmpi.active():
             return pmpi.dispatch(opname, self, fn, args, kwargs)
         return fn(self, *args, **kwargs)
+
+    def _coll_call_watched(self, opname: str, fn, args, kwargs):
+        """The dispatch while a ``coll/monitoring`` window is armed or a
+        profiler records: the call runs inside a ``zmpi.coll.<op>``
+        profiler range, and its payload bytes and host nanoseconds go into
+        the armed tallies."""
+        with ztrace.profiler_range(f"zmpi.coll.{opname}"):
+            t0 = time.perf_counter_ns()
+            if pmpi.active():
+                out = pmpi.dispatch(opname, self, fn, args, kwargs)
+            else:
+                out = fn(self, *args, **kwargs)
+            ns = time.perf_counter_ns() - t0
+        if monitoring.active:
+            monitoring.note(opname, self.cid, args[0] if args else None, ns)
+        return out
 
     @property
     def device(self) -> torch.device:

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import ops as zops
+from ..coll import monitoring
 from ..core import errors
 from ..ops import fused_ce, fused_norm
 from ..ops import flash_attention as fa
@@ -213,17 +214,26 @@ def forward(params: dict, tokens, cfg: Config, tp_comm=None, sp_comm=None):
     return fused_ce._logits(x, params["embed"].to(cfg.dtype))
 
 
-def loss_fn(params, tokens, targets, cfg: Config, tp_comm=None, sp_comm=None):
+def loss_fn(params, tokens, targets, cfg: Config, tp_comm=None, sp_comm=None,
+            *, laps: hybrid.Laps | None = None):
     """Mean token cross-entropy (over this rank's tokens) in the fused lse
     form, vocab-chunked when ``cfg.ce_chunk`` is set; differentiable on
-    every path."""
-    # targets go to the device before the forward is queued: a copy from
-    # host memory queued after it would hold the host until the device
-    # had run the whole forward
-    targets = torch.as_tensor(targets, device=params["embed"].device).long()
-    x = forward_hidden(params, tokens, cfg, tp_comm, sp_comm)
-    return fused_ce.token_ce(x, params["embed"].to(cfg.dtype), targets,
-                             cfg.ce_chunk)
+    every path.  ``laps`` (the training step's phase timer) times the
+    ``"forward"`` (through the final layernorm) and the ``"loss"``
+    (:func:`fused_ce.token_ce`) apart."""
+    laps = laps or _NO_LAPS
+    with laps.phase("forward"):
+        # targets go to the device before the forward is queued: a copy
+        # from host memory queued after it would hold the host until the
+        # device had run the whole forward
+        targets = torch.as_tensor(targets, device=params["embed"].device).long()
+        x = forward_hidden(params, tokens, cfg, tp_comm, sp_comm)
+    with laps.phase("loss"):
+        return fused_ce.token_ce(x, params["embed"].to(cfg.dtype), targets,
+                                 cfg.ce_chunk)
+
+
+_NO_LAPS = hybrid.Laps(None)
 
 
 # Parameters replicated over tp (everything else is tp-sharded).
@@ -345,16 +355,37 @@ def make_train_step_optax(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
     optimizer's ``step``, and the loss returned is the synced one.  At
     ``dcn_proc.size == 1`` nothing moves (as in the namesake).
 
-    ``timings`` (the port's addition), when given a dict, accumulates each
-    step's host seconds by phase, the device synchronized at each boundary:
-    ``"local"`` (loss, autograd, :func:`_sync_grads`), the dcn sync's
-    ``"d2h"``, ``"dcn"`` and ``"h2d"``, and ``"optimizer"``."""
+    ``timings`` (the port's addition), when given a dict, accumulates over
+    the steps, in seconds by phase (``parallel/hybrid.Laps``: on the card
+    each phase's span on the CUDA stream, with no synchronization at its
+    edges; the step returns once the last edge is reached):
+
+    - ``"forward"`` (:func:`forward_hidden`), ``"loss"``
+      (``fused_ce.token_ce``), ``"backward"`` (``torch.autograd.grad``),
+      ``"sync"`` (:func:`_sync_grads`), and ``"local"``, their sum;
+    - the dcn sync's ``"d2h"``, ``"dcn"`` and ``"h2d"``;
+    - ``"optimizer"``: the gradients' casts, the optimizer's ``step`` and
+      clearing the gradients;
+    - ``"coll_calls"``, ``"coll_bytes"`` and ``"coll_host_s"``: the calls
+      into the framework's collectives, their payload bytes and the host
+      seconds inside them, counted at the dispatch point
+      (``Communicator._coll_call_inner``, through a ``coll/monitoring``
+      window armed around the step for its communicators, the backward's
+      calls on autograd's threads included).
+
+    With ``timings`` each phase runs in a profiler range
+    ``zmpi.step.<phase>``, and while ``runtime/ztrace`` is armed it is
+    recorded as a ``PHASE`` span ``step.<phase>``."""
     factory = _adam if optimizer is None else optimizer
     dp = dp_comm.size
     tp = tp_comm.size if tp_comm is not None else 1
     sp = sp_comm.size if sp_comm is not None else 1
     param_specs = {name: _TP_AXIS.get(name) for name in
                    ("embed", "wqkv", "wo", "w1", "w2", "ln1", "ln2", "lnf")}
+
+    # the rank the step's ztrace spans carry
+    world_rank = (dp_comm.group.global_of_rank(dp_comm.rank)
+                  if timings is not None else 0)
 
     def init_opt_state(params):
         return factory([params[n] for n in params])
@@ -366,14 +397,33 @@ def make_train_step_optax(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
             raise errors.ArgError(
                 "opt_state was not built over these parameter tensors "
                 "(init_opt_state(params))")
-        laps = hybrid.Laps(timings)
+        if timings is None:
+            return _step(params, opt_state, tokens, targets, names, _NO_LAPS)
+        laps = hybrid.Laps(timings, params[names[0]].device, "step", world_rank)
+        tally = monitoring.arm(c for c in (dp_comm, tp_comm, sp_comm) if c is not None)
+        try:
+            out = _step(params, opt_state, tokens, targets, names, laps)
+        finally:
+            monitoring.disarm(tally)
+        spent = laps.close()
+        timings["local"] = timings.get("local", 0.0) + sum(
+            spent[p] for p in ("forward", "loss", "backward", "sync"))
+        for key, value in (("coll_calls", tally.calls),
+                           ("coll_bytes", tally.nbytes),
+                           ("coll_host_s", tally.host_s)):
+            timings[key] = timings.get(key, 0) + value
+        return out
+
+    def _step(params, opt_state, tokens, targets, names, laps):
         leaves = {n: params[n].detach().requires_grad_(True) for n in names}
         with torch.enable_grad():
-            loss = loss_fn(leaves, tokens, targets, cfg, tp_comm, sp_comm)
-            grads = torch.autograd.grad(loss, [leaves[n] for n in names])
-        synced, loss = _sync_grads(dict(zip(names, grads)), loss.detach(),
-                                   dp_comm, tp_comm, sp_comm, dp, tp, sp)
-        laps.lap("local")
+            loss = loss_fn(leaves, tokens, targets, cfg, tp_comm, sp_comm,
+                           laps=laps)
+            with laps.phase("backward"):
+                grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        with laps.phase("sync"):
+            synced, loss = _sync_grads(dict(zip(names, grads)), loss.detach(),
+                                       dp_comm, tp_comm, sp_comm, dp, tp, sp)
         if dcn_proc is not None and dcn_proc.size > 1:
             # the loss rides the gradients' float32 bucket: no extra round
             sync = (hybrid.dcn_grad_sync_sharded if dcn_sharded
@@ -382,13 +432,13 @@ def make_train_step_optax(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
                           weight=dcn_weight, timings=timings)
             synced, loss = bundle["grads"], bundle["loss"]
             laps.restart()
-        for n in names:
-            params[n].grad = synced[n].to(params[n].dtype)
-        with torch.no_grad():
-            opt_state.step()
-        for n in names:
-            params[n].grad = None
-        laps.lap("optimizer")
+        with laps.phase("optimizer"):
+            for n in names:
+                params[n].grad = synced[n].to(params[n].dtype)
+            with torch.no_grad():
+                opt_state.step()
+            for n in names:
+                params[n].grad = None
         return params, opt_state, loss
 
     return init_opt_state, step, param_specs

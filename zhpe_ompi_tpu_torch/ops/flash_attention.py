@@ -22,6 +22,10 @@ their plain versions (namesake: ``zhpe_ompi_tpu/ops/flash_attention.py``).
 - :func:`tma_map_geometry` — the dims, byte strides and box of the TMA
   tensor map through which the kernels read each operand; the wrappers
   pass it to C, which encodes the maps per call.
+
+While a profiler records, each call of the three kernel wrappers runs in a
+profiler range ``zmpi.kernel.<wrapper>``
+(``_build.kernel_range``).
 """
 
 from __future__ import annotations
@@ -186,6 +190,7 @@ def _check_rows(who, name, t, B, S, h, device):
             f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+@_build.kernel_range
 def flash_fwd(q, k, v, causal=True):
     """Attention forward over (B, S, heads, head_dim) tensors.  CUDA
     tensors: the hand-written kernel, or an error; CPU tensors: the plain
@@ -213,6 +218,7 @@ def flash_fwd(q, k, v, causal=True):
 flash_fwd.launches = 0
 
 
+@_build.kernel_range
 def flash_bwd_dq(q, k, v, o, lse, do, causal=True):
     """The dq kernel on CUDA tensors (or an error): ``(dq, delta)``, with
     delta = rowsum(dO * O) as (B*h, S) float32 for :func:`flash_bwd_dkv`."""
@@ -240,6 +246,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal=True):
 flash_bwd_dq.launches = 0
 
 
+@_build.kernel_range
 def flash_bwd_dkv(q, k, v, lse, delta, do, causal=True):
     """The dk/dv kernel on CUDA tensors (or an error): ``(dk, dv)``."""
     _check_qkv("flash_bwd_dkv", q, k, v)

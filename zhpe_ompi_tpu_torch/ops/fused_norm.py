@@ -14,6 +14,10 @@ plain versions (namesake: ``zhpe_ompi_tpu/ops/fused_norm.py``).
 - :func:`layer_norm` — the dispatcher the model calls; its kernel path is
   an autograd function whose forward saves the statistics and whose
   backward is :func:`ln_bwd`.
+
+While a profiler records, each wrapper call runs in a profiler range
+``zmpi.kernel.ln_fwd`` or ``zmpi.kernel.ln_bwd``
+(``_build.kernel_range``).
 """
 
 from __future__ import annotations
@@ -91,6 +95,7 @@ def _check_rows(who, x2, g):
             f"{x2.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
 
 
+@_build.kernel_range
 def ln_fwd(x2, g):
     """Layernorm of each row of ``x2`` (N, D) with float32 gain ``g`` (D,).
     CUDA tensor: the hand-written kernel, or an error; CPU tensor: the
@@ -119,6 +124,7 @@ def ln_fwd(x2, g):
 ln_fwd.launches = 0
 
 
+@_build.kernel_range
 def ln_bwd(x2, g, dy2, mean, rstd):
     """Layernorm backward of rows ``x2`` (N, D) with float32 gain ``g``
     (D,), upstream gradient ``dy2`` (N, D) and the forward's (N,) float32

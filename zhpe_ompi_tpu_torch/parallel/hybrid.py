@@ -37,6 +37,7 @@ What differs from the namesake, in form only:
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import time
 from typing import Any
@@ -47,6 +48,7 @@ from torch.utils import _pytree as pytree
 
 from .. import ops as zops
 from ..core import errors
+from ..runtime import ztrace
 from ..utils.payload import tree_flatten
 
 # carried as float32 on the wire and cast back at unpack
@@ -57,29 +59,114 @@ _EXTENSION_FLOATS = frozenset(
 
 
 class Laps:
-    """Accumulates host seconds by phase into ``timings`` (a dict), the
-    device synchronized at each boundary; a no-op without a dict (the
-    port's ``timings=`` hook of the multi-slice step)."""
+    """Accumulates seconds by phase into ``timings`` (a dict); a no-op
+    without a dict (the port's ``timings=`` hook of the training step and
+    of the host-plane syncs).
 
-    def __init__(self, timings: dict | None):
+    Each phase runs from one edge to the next: :meth:`lap` closes the
+    current phase and opens the next, :meth:`restart` opens a new one
+    after a stretch that is timed elsewhere.  On CUDA (``device`` a CUDA
+    device, or None where a card is present) an edge records a
+    ``torch.cuda.Event`` on the current stream and nothing waits there: a
+    phase's time is the stream's own span between its two edges
+    (``elapsed_time``).  A phase in which the device idles (a host-plane
+    leg: ``d2h``, ``dcn``, ``h2d``) reads host time all the same, since an
+    event on an idle stream completes as it is recorded.  Elsewhere an
+    edge reads the host clock.  :meth:`close` adds the pending phases into
+    ``timings``; on CUDA it waits on the last edge alone, which is the
+    point a caller reading a result of the work waits for anyway.
+
+    With a ``name``, :meth:`phase` runs a block as a phase inside a
+    profiler range ``zmpi.<name>.<phase>`` (which puts it in a
+    profiler trace on the kernels' clock), and while ``runtime/ztrace`` is
+    armed :meth:`close` records each phase as a ``PHASE`` span named
+    ``<name>.<phase>`` on ``rank``, from its host edges, with its device
+    milliseconds as ``device_ms`` on CUDA."""
+
+    def __init__(self, timings: dict | None, device=None,
+                 name: str | None = None, rank: int = 0):
         self.timings = timings
-        self._sync = torch.cuda.is_available() and timings is not None
+        self._events = (timings is not None and torch.cuda.is_available()
+                        and (device is None
+                             or torch.device(device).type == "cuda"))
+        self._device = device
+        self._name = name
+        self._rank = rank
+        self._pending: list = []
         self.restart()
+
+    def _edge(self) -> tuple:
+        """(host monotonic ns, the event recorded on the stream or None)."""
+        ev = None
+        if self._events:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self._device))
+        return time.monotonic_ns(), ev
 
     def restart(self) -> None:
         if self.timings is not None:
-            if self._sync:
-                torch.cuda.synchronize()
-            self._t0 = time.perf_counter()
+            self._start = self._edge()
 
     def lap(self, phase: str) -> None:
         if self.timings is None:
             return
-        if self._sync:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.timings[phase] = self.timings.get(phase, 0.0) + now - self._t0
-        self._t0 = now
+        end = self._edge()
+        self._pending.append((phase, self._start, end))
+        self._start = end
+
+    def phase(self, phase: str):
+        """Context manager: the block ends phase ``phase`` (which began at
+        the last edge), in its profiler range.  A shared null
+        context without a dict."""
+        if self.timings is None:
+            return _NO_PHASE
+        return _Phase(self, phase)
+
+    def close(self) -> dict:
+        """Add the pending phases into ``timings``; returns the seconds of
+        each phase this call added."""
+        spent: dict = {}
+        if not self._pending:
+            return spent
+        pending, self._pending = self._pending, []
+        if self._events:
+            pending[-1][2][1].synchronize()
+        for phase, (h0, e0), (h1, e1) in pending:
+            secs = e0.elapsed_time(e1) / 1e3 if e0 is not None else (h1 - h0) / 1e9
+            self.timings[phase] = self.timings.get(phase, 0.0) + secs
+            spent[phase] = spent.get(phase, 0.0) + secs
+            if ztrace.active and self._name is not None:
+                fields = {"device_ms": secs * 1e3} if e0 is not None else {}
+                ztrace.record_span(ztrace.PHASE, self._rank, h0, h1,
+                                   name=f"{self._name}.{phase}", **fields)
+        return spent
+
+
+class _Phase:
+    """One :meth:`Laps.phase` block."""
+
+    __slots__ = ("_laps", "_phase", "_range")
+
+    def __init__(self, laps: Laps, phase: str):
+        self._laps = laps
+        self._phase = phase
+        self._range = None
+
+    def __enter__(self):
+        if self._laps._name is not None:
+            self._range = ztrace.profiler_range(f"zmpi.{self._laps._name}.{self._phase}")
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            self._laps.lap(self._phase)
+        return False
+
+
+_NO_PHASE = contextlib.nullcontext()
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -192,7 +279,8 @@ def dcn_grad_sync(proc, grads: Any, weight: float | None = None,
     (the namesake's collective order).  At size 1 nothing moves; an
     explicit ``weight`` still applies (the caller asked for a weighted
     sum).  ``timings`` (see :class:`Laps`) gathers ``"d2h"`` (packing and
-    the copies to the host), ``"dcn"`` and ``"h2d"``."""
+    the copies to the host), ``"dcn"`` and ``"h2d"``, each resolved before
+    the call returns."""
     laps = Laps(timings)
     w = (1.0 / proc.size) if weight is None else float(weight)
     scale = None if (proc.size == 1 and weight is None) else w
@@ -204,6 +292,7 @@ def dcn_grad_sync(proc, grads: Any, weight: float | None = None,
                        else _reduce(proc, flat[key], laps))
     out = unpack_tree(summed, spec, meta)
     laps.lap("h2d")
+    laps.close()
     return out
 
 
@@ -261,6 +350,7 @@ def dcn_grad_sync_sharded(proc, grads: Any, weight: float | None = None,
                                timings=timings)
         for i, v in zip(host_idx, synced):
             out[i] = v
+    laps.close()
     return pytree.tree_unflatten(out, spec)
 
 

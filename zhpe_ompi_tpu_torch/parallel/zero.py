@@ -44,9 +44,10 @@ class ZeroOptimizer:
 
     ``step(params, grads)`` takes the full (replicated) params tree and the
     LOCAL gradient tree and returns the updated full params tree.
-    ``timings``, when given a dict to ``step``, accumulates its host seconds
+    ``timings``, when given a dict to ``step``, accumulates its seconds
     by phase (``"d2h"``, ``"reduce_scatter"``, ``"h2d"``, ``"optimizer"``,
-    ``"allgather"``), the device synchronized at each boundary."""
+    ``"allgather"``): on the card each phase's span on the CUDA stream,
+    with no synchronization at its edges (``parallel/hybrid.Laps``)."""
 
     def __init__(self, proc, optimizer=None, params: Any = None,
                  weight: float | None = None, device=None):
@@ -154,7 +155,7 @@ class ZeroOptimizer:
         """One ZeRO-1 step: reduce-scatter the gradients, update the owned
         partition on the device, allgather the updated parameters.
         Collective over the proc's whole group."""
-        laps = hybrid.Laps(timings)
+        laps = hybrid.Laps(timings, self.device)
         p_flat, p_spec, p_meta = hybrid._pack_device(params)
         n, me = self.proc.size, self.proc.rank
         w = (1.0 / n) if self.weight is None else float(self.weight)
@@ -200,4 +201,5 @@ class ZeroOptimizer:
                 laps.lap("allgather")
         out = hybrid.unpack_tree(new, p_spec, p_meta)
         laps.lap("h2d")
+        laps.close()
         return out

@@ -25,7 +25,21 @@ Cost discipline mirrors :mod:`.peruse`: the recorder is ARMED refcounted
 ``active`` before paying anything; a disarmed process pays one false
 boolean per seam.  The seams the port has so far are the device liveness
 probe (``DEVICE_PROBE``) and the survivor mesh (``REMESH``) in
-``parallel/mesh.py``, and ``Communicator.shrink``/``agree``.
+``parallel/mesh.py``, ``Communicator.shrink``/``agree``, and the phases of
+``models/transformer.make_train_step_optax`` given ``timings=``: one
+``PHASE`` span a phase, named ``step.<phase>``, with the phase's device
+milliseconds as ``device_ms`` on CUDA (``parallel/hybrid.Laps``).
+
+Spans against a ``torch.profiler`` trace: the recorder's ``anchor_wall``
+and the profiler's ``trace_start_ns`` are both Unix time.  A span's
+``wall_of(t0)`` (seconds) therefore sits at
+``wall_of(t0) * 1e6 - trace_start_ns / 1e3`` microseconds on the trace's
+clock, where a profiler event's ``time_range.start`` lies (the kineto
+results of a finished profile: ``prof.profiler.kineto_results
+.trace_start_ns()``); the step's phases also open profiler ranges named
+``zmpi.step.<phase>`` that land there, beside the kernels.
+:func:`profiler_recording` is the seams' check for a recording profiler,
+and :data:`profiler_range` the range they open.
 """
 
 from __future__ import annotations
@@ -35,6 +49,9 @@ import os
 import threading
 import time
 from typing import Any
+
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
 from ..mca import var as mca_var
 from . import spc
@@ -94,6 +111,19 @@ active = False
 
 def _now_ns() -> int:
     return time.monotonic_ns()
+
+
+def profiler_recording() -> bool:
+    """True while a ``torch.profiler`` profile records in this process:
+    the gate of the seams' profiler ranges (one module attribute read, as
+    ``active`` is)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+#: ``profiler_range(name)``: a context manager that shows in a profiler
+#: trace as ``torch.profiler.record_function(name)`` does, at a tenth of
+#: its host cost (its C++ form; a traced training step opens hundreds)
+profiler_range = _RecordFunctionFast
 
 
 class SpanRecorder:
