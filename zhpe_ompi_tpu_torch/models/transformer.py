@@ -23,7 +23,11 @@ Parameters keep the JAX package's stacked layout, so that
 (L, D, 3, H), ``wo`` (L, H, D), ``w1`` (L, D, F), ``w2`` (L, F, D), the
 gains ``ln1``/``ln2`` (L, D) and ``lnf`` (D,), ``embed`` (V, D), all
 float32 masters cast to the model dtype at use.  The JAX package's
-``lax.scan`` over layers is a Python loop over layer slices here.
+``lax.scan`` over layers is a Python loop over layer slices here, taken
+once per forward by ``unbind``: indexing a stacked leaf per layer would
+make autograd fill a zero tensor the size of the whole stack and add it
+into the leaf's gradient at every layer, where ``unbind``'s backward
+stacks the layers' slices once.
 
 ``make_train_step_optax`` takes a ``torch.optim`` optimizer in place of an
 optax transformation (default Adam with optax's defaults), which updates
@@ -83,6 +87,9 @@ class Config:
 # package's _param_specs, transformer.py:228-238); the rest is replicated
 _TP_AXIS = {"wqkv": 3, "wo": 1, "w1": 2, "w2": 1}
 
+# the parameters stacked over the layers (leading axis L)
+_STACKED = ("wqkv", "wo", "w1", "w2", "ln1", "ln2")
+
 
 def _device(device) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
@@ -137,31 +144,32 @@ def _attention(q, k, v, cfg, sp_comm):
     return fa.flash_attention(q, k, v, causal=True, force=cfg.flash is True)
 
 
-def _block(x, params, layer, cfg, tp_comm, sp_comm):
-    """One transformer layer on this rank's shard."""
+def _block(x, w, cfg, tp_comm, sp_comm):
+    """One transformer layer on this rank's shard; ``w`` maps each name of
+    ``_STACKED`` to this layer's slice of it."""
     dtype = cfg.dtype
     B, S, D = x.shape
     hd = D // cfg.n_heads
-    n_heads_local = params["wqkv"].shape[-1] // hd
-    h = _ln(x, params["ln1"][layer], cfg.fused_ln)
+    n_heads_local = w["wqkv"].shape[-1] // hd
+    h = _ln(x, w["ln1"], cfg.fused_ln)
     if tp_comm is not None:
         h = f_identity(tp_comm, h)
-    wqkv = params["wqkv"][layer].to(dtype)  # (D, 3, H_local)
+    wqkv = w["wqkv"].to(dtype)  # (D, 3, H_local)
     qkv = (h.reshape(B * S, D) @ wqkv.reshape(D, -1)).reshape(B, S, 3, -1)
     q = qkv[:, :, 0].reshape(B, S, n_heads_local, hd)
     k = qkv[:, :, 1].reshape(B, S, n_heads_local, hd)
     v = qkv[:, :, 2].reshape(B, S, n_heads_local, hd)
     o = _attention(q, k, v, cfg, sp_comm).reshape(B, S, -1)
-    o = o @ params["wo"][layer].to(dtype)
+    o = o @ w["wo"].to(dtype)
     if tp_comm is not None:
         o = g_allreduce(tp_comm, o)
     x = x + o
-    h = _ln(x, params["ln2"][layer], cfg.fused_ln)
+    h = _ln(x, w["ln2"], cfg.fused_ln)
     if tp_comm is not None:
         h = f_identity(tp_comm, h)
     # jax.nn.gelu's default is the tanh approximation
-    u = F.gelu(h @ params["w1"][layer].to(dtype), approximate="tanh")
-    d = u @ params["w2"][layer].to(dtype)
+    u = F.gelu(h @ w["w1"].to(dtype), approximate="tanh")
+    d = u @ w["w2"].to(dtype)
     if tp_comm is not None:
         d = g_allreduce(tp_comm, d)
     return x + d
@@ -198,12 +206,13 @@ def forward_hidden(params: dict, tokens, cfg: Config, tp_comm=None,
     emb = params["embed"]
     tokens = torch.as_tensor(tokens, device=emb.device).long()
     x = emb.to(cfg.dtype)[tokens]  # (B, S_local, D)
-    for layer in range(params["wqkv"].shape[0]):
+    for slices in zip(*(params[n].unbind(0) for n in _STACKED)):
+        w = dict(zip(_STACKED, slices))
         if cfg.remat:
-            x = checkpoint(_block, x, params, layer, cfg, tp_comm, sp_comm,
+            x = checkpoint(_block, x, w, cfg, tp_comm, sp_comm,
                            use_reentrant=False, context_fn=_remat_contexts)
         else:
-            x = _block(x, params, layer, cfg, tp_comm, sp_comm)
+            x = _block(x, w, cfg, tp_comm, sp_comm)
     return _ln(x, params["lnf"], cfg.fused_ln)
 
 
