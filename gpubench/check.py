@@ -30,7 +30,7 @@ def _rel_gap(prog: dict, ref: dict, leaves) -> float:
 
 def numbers(prog: dict, ref: dict) -> dict:
     """The three numbers of program readings ``prog`` against reference
-    readings ``ref`` (each as ``reference.model.readings`` returns)."""
+    readings ``ref`` (each as ``reference.common.readings`` returns)."""
     if len(prog["losses"]) != len(ref["losses"]):
         raise ValueError("the two sides followed different numbers of steps")
     leaves = list(ref["grad_norms"])

@@ -51,25 +51,26 @@ def model_flops_per_step(vocab, d_model, d_ff, n_layers, batch, seq) -> float:
     return 6 * matmul_params(vocab, d_model, d_ff, n_layers) * tokens + attn
 
 
-def flash_fwd(batch, seq, heads, head_dim) -> Work:
-    """Causal flash forward: S = QK^T and O = PV over the causal pairs;
-    reads q, k, v (bf16), writes o (bf16) and lse (f32 per row)."""
-    rows = batch * heads
+def flash_fwd(batch, seq, q_heads, kv_heads, head_dim) -> Work:
+    """Causal flash forward: S = QK^T and O = PV over the causal pairs of
+    every query head; reads q, k, v (bf16), writes o (bf16) and lse (f32
+    per query row).  k and v have ``kv_heads`` heads."""
+    rows = batch * q_heads
     flops = 2 * 2 * head_dim * causal_pairs(seq) * rows
-    elems = batch * seq * heads * head_dim
-    return Work(flops, 4 * elems * BF16 + rows * seq * F32)
+    q_elems, kv_elems = (batch * seq * h * head_dim for h in (q_heads, kv_heads))
+    return Work(flops, (2 * q_elems + 2 * kv_elems) * BF16 + rows * seq * F32)
 
 
-def flash_bwd(batch, seq, heads, head_dim) -> Work:
+def flash_bwd(batch, seq, q_heads, kv_heads, head_dim) -> Work:
     """Causal flash backward as one computation: the five products (S
     recomputed once, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q) over
-    the causal pairs; reads q, k, v, o, dO and lse, writes dq, dk, dv.  A
-    split that recomputes S twice, and delta passed between two kernels,
-    earn nothing."""
-    rows = batch * heads
+    the causal pairs of every query head; reads q, k, v, o, dO and lse,
+    writes dq, dk, dv.  A split that recomputes S twice, and delta passed
+    between two kernels, earn nothing."""
+    rows = batch * q_heads
     flops = 5 * 2 * head_dim * causal_pairs(seq) * rows
-    elems = batch * seq * heads * head_dim
-    return Work(flops, 8 * elems * BF16 + rows * seq * F32)
+    q_elems, kv_elems = (batch * seq * h * head_dim for h in (q_heads, kv_heads))
+    return Work(flops, (4 * q_elems + 4 * kv_elems) * BF16 + rows * seq * F32)
 
 
 def ln_fwd(rows, width, itemsize=BF16) -> Work:

@@ -3,18 +3,20 @@ comparison takes), the measured window, then the reference.
 
 The path every cell drives: ``runtime.init()``, a ``{"dp": 1, "tp": 1}``
 mesh from ``parallel/mesh.make_mesh``, framework ``Communicator``s over its
-``dp`` and ``tp`` groups, and the step of
-``models/transformer.make_train_step_optax`` with its default Adam.  The
-window calls ``step(params, opt_state, tokens, targets)`` again and again,
-each step ending with the host reading the loss, as a training loop that
-logs it does.  Set-up builds the step once and drives it through its first
-``checked_steps`` steps (which also warm up every shape), and the window
-goes on with that same step, parameters and optimizer state.
+``dp`` and ``tp`` groups, and the step that the cell's architecture builds
+over them (``arch/<name>.py``: the port's training entry point with its
+default Adam).  The window calls ``step(params, opt_state, tokens,
+targets)`` again and again, each step ending with the host reading the
+loss, as a training loop that logs it does.  Set-up builds the step once
+and drives it through its first ``checked_steps`` steps (which also warm
+up every shape), and the window goes on with that same step, parameters
+and optimizer state.
 """
 
 from __future__ import annotations
 
 import gc
+import json
 import math
 import statistics
 import sys
@@ -24,9 +26,8 @@ from dataclasses import dataclass, field
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from . import cells, check, commspan, flops, inputs, peaks
+from . import cells, check, commspan, inputs, peaks, watch
 from . import trace as trace_mod
-from .reference import model as reference
 
 #: top-level module names that the process must not hold
 FORBIDDEN = ("jax", "jaxlib", "flax", "zhpe_ompi_tpu")
@@ -53,6 +54,8 @@ class Program:
     timings: dict | None
     tally: dict | None
     next_batch: int = 0
+    #: host clock when the last step's call returned, before its loss was read
+    issued: float = 0.0
 
     def run_step(self, part=None) -> float:
         tokens, targets = self.batches[self.next_batch % len(self.batches)]
@@ -61,6 +64,7 @@ class Program:
             tokens, targets = part(tokens), part(targets)
         self.params, self.opt_state, loss = self.step(
             self.params, self.opt_state, tokens, targets)
+        self.issued = time.perf_counter()
         return loss.item()
 
 
@@ -72,7 +76,6 @@ def build(cell: cells.Cell, seed: int, device, trace: bool,
     step keeps ``timings``.  ``marks`` gets the seconds from the first
     line of ``run.py`` at which each part was done."""
     from zhpe_ompi_tpu_torch.comm.communicator import Communicator
-    from zhpe_ompi_tpu_torch.models import transformer as tfm
     from zhpe_ompi_tpu_torch.parallel import mesh as mesh_mod
 
     mesh = mesh_mod.make_mesh({"dp": 1, "tp": 1})
@@ -84,16 +87,12 @@ def build(cell: cells.Cell, seed: int, device, trace: bool,
         dp_comm = commspan.CountingComm(dp_comm, tally)
         tp_comm = commspan.CountingComm(tp_comm, tally)
     _mark(marks, "communicators")
-    model = cell.model
-    fields = dict(model, dtype=getattr(torch, model["dtype"]))
-    cfg = tfm.Config(**fields)
-    init_opt_state, step, _ = tfm.make_train_step_optax(
-        cfg, dp_comm, tp_comm, timings=timings)
-    params = inputs.make_params(model, seed, device)
+    init_opt_state, step = cell.arch.build(cell.model, dp_comm, tp_comm, timings)
+    params = cell.leaves(seed, device).all()
     if device.type == "cuda":
         torch.cuda.synchronize()
     _mark(marks, "weights")
-    batches = inputs.make_batches(cell.traffic, model["vocab"], seed)
+    batches = inputs.make_batches(cell.traffic, cell.model["vocab"], seed)
     _mark(marks, "batches")
     return Program(step, params, init_opt_state(params), batches, timings, tally)
 
@@ -121,9 +120,10 @@ def first_steps(prog: Program, cell: cells.Cell, seed: int, device,
                 m = st.get("exp_avg")
                 grad_norms[n] = 0.0 if m is None else float(m.norm()) / (1 - ADAM_B1)
     change = {}
+    leaves = cell.leaves(seed, device)
     with torch.no_grad():
-        for n in inputs.LEAVES:
-            w0 = inputs.make_leaf(n, cell.model, seed, device)
+        for n in leaves.names:
+            w0 = leaves.draw(n)
             change[n] = float((prog.params[n] - w0).norm())
             del w0
     return {"losses": losses, "grad_norms": grad_norms, "change_norms": change}
@@ -134,6 +134,10 @@ class Window:
     """What the measured window recorded."""
 
     times: list = field(default_factory=list)
+    #: host seconds of each step until its call returned, before its loss
+    #: was read
+    issue: list = field(default_factory=list)
+    gc: watch.GcWatch = field(default_factory=watch.GcWatch)
     seconds: float = 0.0
     failed: int = 0
     peak_bytes: int = 0
@@ -154,6 +158,17 @@ def window(prog: Program, seconds: float, trace: bool, cuda: bool) -> Window:
         prog.tally.update(calls=0, host_s=0.0)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    with w.gc:
+        _steps(prog, w, seconds, trace, cuda)
+    if cuda:
+        w.peak_bytes = torch.cuda.max_memory_allocated()
+    if prog.timings is not None:
+        w.timings, w.tally = dict(prog.timings), dict(prog.tally)
+    return w
+
+
+def _steps(prog: Program, w: Window, seconds: float, trace: bool, cuda: bool):
+    """The window's steps, recorded into ``w``."""
     prof = span = None
     t0 = time.perf_counter()
     while True:
@@ -172,6 +187,7 @@ def window(prog: Program, seconds: float, trace: bool, cuda: bool) -> Window:
             loss = prog.run_step()
         te = time.perf_counter()
         w.times.append(te - ts)
+        w.issue.append(prog.issued - ts)
         if not math.isfinite(loss):
             w.failed += 1
         if prof is not None and i == PROFILE_AFTER + PROFILE_STEPS - 1:
@@ -184,11 +200,6 @@ def window(prog: Program, seconds: float, trace: bool, cuda: bool) -> Window:
         if te - t0 >= seconds and (not trace or w.profiled):
             break
     w.seconds = te - t0
-    if cuda:
-        w.peak_bytes = torch.cuda.max_memory_allocated()
-    if prog.timings is not None:
-        w.timings, w.tally = dict(prog.timings), dict(prog.tally)
-    return w
 
 
 @dataclass
@@ -207,11 +218,6 @@ class RunRecord:
     @property
     def unprofiled_times(self) -> list:
         return [t for i, t in enumerate(self.window.times) if i not in self.window.profiled]
-
-    def model_flops_per_step(self) -> float:
-        m = self.cell.model
-        return flops.model_flops_per_step(m["vocab"], m["d_model"], m["d_ff"],
-                                          m["n_layers"], self.cell.batch, m["seq"])
 
     def kernel_roofline(self, needles, work_per_call) -> float | None:
         """Percent of the least time of the kernels named by ``needles``
@@ -262,7 +268,17 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
                                     if k != "t_start")
               + f", {cell.checked_steps} checked steps done at {setup_s:.2f} s",
               file=sys.stderr)
+        before = watch.card_state() if cuda else None
+        proc_before = watch.process_state(cuda)
         w = window(prog, seconds, trace, cuda)
+        proc_after = watch.process_state(cuda)
+        after = watch.card_state() if cuda else None
+        print("window: " + json.dumps(watch.summary(w.times, w.issue, w.gc, before, after,
+                                                    proc_before, proc_after)),
+              file=sys.stderr)
+        print("window steps: " + json.dumps({"step_ms": watch.ms(w.times),
+                                             "issue_ms": watch.ms(w.issue)}),
+              file=sys.stderr)
         del prog
         gc.collect()
     finally:
@@ -272,8 +288,8 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool, device,
     found = forbidden_modules()
     if found:
         raise RuntimeError(f"JAX or the JAX package is loaded: {', '.join(found)}")
-    ref = reference.readings(cell.model, seed, inputs.make_batches(
-        cell.traffic, cell.model["vocab"], seed), cell.checked_steps, dev)
+    ref = cell.reference.readings(cell.model, cell.leaves(seed, dev), inputs.make_batches(
+        cell.traffic, cell.model["vocab"], seed), cell.checked_steps)
     ok, checks = check.verdict(check.numbers(readings, ref), cell.workload["limits"])
     ok = ok and w.failed == 0
     device_info = {"platform": "gpu" if cuda else "cpu", "kind": kind, "count": 1,

@@ -2,12 +2,11 @@
 the program and to the reference alike: the weights, drawn on the device,
 and the token batches, drawn on the host.
 
-Weights follow the JAX package's ``init_params`` layout and scales, as
-float32 masters (the type the port holds them in): ``embed`` (V, D) at
-0.02, ``wqkv`` (L, D, 3, D) at D^-1/2, ``wo`` (L, D, D) at D^-1/2, ``w1``
-(L, D, F) at D^-1/2, ``w2`` (L, F, D) at F^-1/2, the gains ``ln1``,
-``ln2`` (L, D) and ``lnf`` (D,) at 1.  Each leaf comes from a generator of
-its own, so one leaf can be drawn again alone, bit for bit.
+The leaves, their shapes and their scales are the architecture's
+(``arch/<name>.py``: ``LEAVES`` and ``leaf_shape_scale``), as float32
+masters, the type the port holds them in.  Each leaf comes from a
+generator of its own, seeded by the seed and the leaf's index, so one leaf
+can be drawn again alone, bit for bit.
 """
 
 from __future__ import annotations
@@ -15,40 +14,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: the leaves in the order they are drawn, each with its index
-LEAVES = ("embed", "wqkv", "wo", "w1", "w2", "ln1", "ln2", "lnf")
 
+class Leaves:
+    """The leaves of architecture module ``arch`` at the sizes ``model``,
+    from ``seed``, on ``device``."""
 
-def leaf_shape_scale(name: str, vocab: int, d_model: int, d_ff: int,
-                     n_layers: int, **_) -> tuple[tuple, float | None]:
-    """Shape and scale of a leaf; scale None for a gain of ones."""
-    V, D, F, L = vocab, d_model, d_ff, n_layers
-    return {
-        "embed": ((V, D), 0.02),
-        "wqkv": ((L, D, 3, D), D ** -0.5),
-        "wo": ((L, D, D), D ** -0.5),
-        "w1": ((L, D, F), D ** -0.5),
-        "w2": ((L, F, D), F ** -0.5),
-        "ln1": ((L, D), None),
-        "ln2": ((L, D), None),
-        "lnf": ((D,), None),
-    }[name]
+    def __init__(self, arch, model: dict, seed: int, device):
+        self.arch, self.model, self.seed, self.device = arch, model, int(seed), device
+        self.names = tuple(arch.LEAVES)
 
+    def draw(self, name: str) -> torch.Tensor:
+        """One float32 leaf drawn on the device in one call; a leaf whose
+        scale is None is a gain of ones."""
+        shape, scale = self.arch.leaf_shape_scale(name, self.model)
+        if scale is None:
+            return torch.ones(shape, dtype=torch.float32, device=self.device)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed * len(self.names) + self.names.index(name))
+        out = torch.randn(shape, generator=gen, dtype=torch.float32, device=self.device)
+        return out.mul_(scale)
 
-def make_leaf(name: str, model: dict, seed: int, device) -> torch.Tensor:
-    """One float32 leaf drawn on ``device`` in one call from a generator
-    seeded by ``seed`` and the leaf's index."""
-    shape, scale = leaf_shape_scale(name, **model)
-    if scale is None:
-        return torch.ones(shape, dtype=torch.float32, device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) * len(LEAVES) + LEAVES.index(name))
-    out = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return out.mul_(scale)
-
-
-def make_params(model: dict, seed: int, device) -> dict:
-    return {n: make_leaf(n, model, seed, device) for n in LEAVES}
+    def all(self) -> dict:
+        return {n: self.draw(n) for n in self.names}
 
 
 def make_batches(traffic: dict, vocab: int, seed: int) -> list:

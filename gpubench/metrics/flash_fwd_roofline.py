@@ -1,15 +1,16 @@
 """``ops/flash_attention``'s forward kernel (``flash_fwd_kernel`` of
 ``csrc/flash_attention.cu``): percent of its least time, by the causal
-forward's work (``gpubench.flops.flash_fwd``), over its device time in the
-trace, at the cell's shape."""
+forward's work (``gpubench.flops.flash_fwd``) at the architecture's
+attention shape, over its device time in the trace."""
 
 from gpubench import flops
 
 UNIT = "%"
 
 
+def work(run) -> flops.Work:
+    return flops.flash_fwd(**run.cell.attention_shape())
+
+
 def read(run):
-    m = run.cell.model
-    heads = m["n_heads"]
-    work = flops.flash_fwd(run.cell.batch, m["seq"], heads, m["d_model"] // heads)
-    return run.kernel_roofline(("flash_fwd_kernel",), work)
+    return run.kernel_roofline(("flash_fwd_kernel",), work(run))

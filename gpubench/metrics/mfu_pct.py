@@ -1,7 +1,8 @@
 """The whole step's share of the card's published dense bf16 peak: model
-FLOPs (``gpubench.flops.model_flops_per_step``: 6 per matmul parameter per
-token plus causal attention, nothing for recomputation) of the window's
-steps outside the profiled slice, over their host-clock seconds."""
+FLOPs (the architecture's ``model_flops_per_step``; for GPT
+``gpubench.flops.model_flops_per_step``: 6 per matmul parameter per token
+plus causal attention, nothing for recomputation) of the window's steps
+outside the profiled slice, over their host-clock seconds."""
 
 UNIT = "%"
 
@@ -12,4 +13,4 @@ def read(run):
     times = run.unprofiled_times
     if not times:
         return None
-    return 100.0 * len(times) * run.model_flops_per_step() / sum(times) / run.peaks[0]
+    return 100.0 * len(times) * run.cell.model_flops_per_step() / sum(times) / run.peaks[0]

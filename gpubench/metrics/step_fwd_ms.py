@@ -1,5 +1,5 @@
 """Ms per window step in ``make_train_step_optax``'s ``forward`` phase
-(``models/transformer.forward_hidden``: the embedding gather to the final
+(``models/transformer.forward_hidden``: the token lookup to the final
 layernorm), on the card the CUDA stream's span between the phase's events,
 from the step's ``timings=`` dict."""
 

@@ -1,7 +1,7 @@
 """The readings that the limits of ``correct`` are set from, for one cell
 at its own size on the card: the program's numbers over many seeds, the
-control's (the reference in float8, in the program's place) and a planted
-fault's, all in one process, one JSON line per reading::
+control's (the architecture's reference in float8, in the program's
+place) and a planted fault's, all in one process, one JSON line per reading::
 
     python -m gpubench.readings --workload gpt2-xl.train-s1024 \
         --seeds 11,12,13 --control 3 --half 3 [--out FILE]
@@ -28,7 +28,6 @@ from pathlib import Path
 import torch
 
 from . import cells, check, harness, inputs
-from .reference import model as reference
 
 
 def _emit(line: dict, out) -> None:
@@ -58,11 +57,13 @@ def unchanged(step, cell, seed, dev):
     """The fault "a step that returns its state unchanged": each step runs,
     then its parameters are drawn again and Adam's state is dropped."""
 
+    leaves = cell.leaves(seed, dev)
+
     def frozen(params, opt_state, tokens, targets):
         params, opt_state, loss = step(params, opt_state, tokens, targets)
         with torch.no_grad():
-            for n in inputs.LEAVES:
-                params[n].copy_(inputs.make_leaf(n, cell.model, seed, dev))
+            for n in leaves.names:
+                params[n].copy_(leaves.draw(n))
         opt_state.state.clear()
         return params, opt_state, loss
 
@@ -103,15 +104,16 @@ def main(argv=None) -> int:
             prog = _program(cell, seed, dev)
             t1 = time.perf_counter()
             batches = inputs.make_batches(cell.traffic, cell.model["vocab"], seed)
-            ref = reference.readings(cell.model, seed, batches, cell.checked_steps, dev)
+            leaves = cell.leaves(seed, dev)
+            ref = cell.reference.readings(cell.model, leaves, batches, cell.checked_steps)
             t2 = time.perf_counter()
             base = {"cell": cell.name, "seed": seed}
             _emit(dict(base, kind="program", numbers=check.numbers(prog, ref),
                        program=prog, reference=ref, program_s=t1 - t0,
                        reference_s=t2 - t1), out)
             if i < args.control:
-                ctl = reference.readings(cell.model, seed, batches, cell.checked_steps,
-                                         dev, precision="fp8")
+                ctl = cell.reference.readings(cell.model, leaves, batches,
+                                              cell.checked_steps, precision="fp8")
                 _emit(dict(base, kind="control", numbers=check.numbers(ctl, ref),
                            control=ctl, control_s=time.perf_counter() - t2), out)
             if i < args.half:

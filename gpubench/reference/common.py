@@ -1,24 +1,14 @@
-"""The plain reference of the training step the cells time, and its
-lower-precision control.
-
-The model is the configuration as it runs (``as_run`` of its file): a
-pre-layernorm transformer with tied embeddings, no biases, layernorm
-without beta (eps 1e-5), causal attention scaled by head_dim^-1/2, the tanh
-form of GELU, and the mean token cross-entropy of ``h @ embed^T``.  The
-optimizer is Adam (lr 1e-3, betas 0.9 and 0.999, eps 1e-8), written out
-here.  It starts from the weights and batches of ``gpubench.inputs`` and
-works out its own optimizer state.
+"""What the plain references of every architecture share: the products of
+the reference's precision and of its lower-precision control, causal
+attention in blocks of query rows, and the training steps they follow
+(Adam written out) with the readings the comparison takes.
 
 ``precision="f32"`` computes every product in float32 with TF32 off: the
 reference.  ``precision="fp8"`` is the control: every matrix product, the
 attention products included, takes operands rounded to float8 (e4m3 for
 weights and activations, e5m2 for gradients, one scale per tensor), the
 step a later change might take below the configuration's bfloat16.
-
-To fit at the timed sizes the forward runs in blocks of rows, each layer is
-recomputed in the backward, attention is computed in blocks of query rows
-(forward and backward by hand, from the saved log-sum-exp), and the loss in
-blocks of tokens.  Nothing here imports JAX, the JAX package or the port.
+Nothing here imports JAX, the JAX package or the port.
 """
 
 from __future__ import annotations
@@ -27,11 +17,7 @@ import contextlib
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
-from .. import inputs
-
-EPS_LN = 1e-5
 ADAM = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
 #: elements of one block of attention scores, and of one block of logits
 BLOCK_ELEMS = 1 << 29
@@ -95,7 +81,7 @@ def _causal_mask(i0, i1, device):
     return cols > rows
 
 
-class _Attention(torch.autograd.Function):
+class Attention(torch.autograd.Function):
     """Causal attention over (B, H, S, hd) float32 tensors in blocks of
     query rows; the backward recomputes each block's probabilities from the
     saved log-sum-exp."""
@@ -144,65 +130,6 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _ln(x, g):
-    m = x.mean(-1, keepdim=True)
-    c = x - m
-    return c * torch.rsqrt((c * c).mean(-1, keepdim=True) + EPS_LN) * g
-
-
-def _gelu_tanh(x):
-    return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
-                                       * (x + 0.044715 * x * x * x)))
-
-
-def _layer(x, wqkv, wo, w1, w2, g1, g2, n_heads, prec):
-    B, S, D = x.shape
-    hd = D // n_heads
-    h = _ln(x, g1).reshape(B * S, D)
-    qkv = prec.mm(h, wqkv.reshape(D, 3 * D)).reshape(B, S, 3, n_heads, hd)
-    q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
-    block = max(1, min(S, BLOCK_ELEMS // (B * n_heads * S)))
-    o = _Attention.apply(q, k, v, prec, block).transpose(1, 2).reshape(B * S, D)
-    x = x + prec.mm(o, wo).reshape(B, S, D)
-    h = _ln(x, g2).reshape(B * S, D)
-    return x + prec.mm(_gelu_tanh(prec.mm(h, w1)), w2).reshape(B, S, D)
-
-
-def _ce_sum(h, embed, targets, prec):
-    logits = prec.mm(h, embed.t())
-    return (torch.logsumexp(logits, -1)
-            - logits.gather(-1, targets[:, None]).squeeze(-1)).sum()
-
-
-def _loss_backward(p, tokens, targets, model, prec) -> float:
-    """Accumulate into each leaf's ``.grad`` the gradient of the mean token
-    cross-entropy over the batch, in blocks of rows; returns the loss."""
-    B, S = tokens.shape
-    rows = max(1, ROW_TOKENS // S)
-    D, V = model["d_model"], model["vocab"]
-    n = B * S
-    total = 0.0
-    for r0 in range(0, B, rows):
-        tok = tokens[r0:r0 + rows].to(p["embed"].device)
-        tgt = targets[r0:r0 + rows].to(p["embed"].device).reshape(-1)
-        x = p["embed"][tok]
-        for l in range(p["wqkv"].shape[0]):
-            x = checkpoint(_layer, x, p["wqkv"][l], p["wo"][l], p["w1"][l],
-                           p["w2"][l], p["ln1"][l], p["ln2"][l],
-                           model["n_heads"], prec, use_reentrant=False)
-        h = _ln(x, p["lnf"]).reshape(-1, D)
-        chunk = max(1, BLOCK_ELEMS // V)
-        loss = 0.0
-        for c0 in range(0, h.shape[0], chunk):
-            loss = loss + checkpoint(_ce_sum, h[c0:c0 + chunk], p["embed"],
-                                     tgt[c0:c0 + chunk], prec,
-                                     use_reentrant=False)
-        loss = loss / n
-        loss.backward()
-        total += float(loss.detach())
-    return total
-
-
 @contextlib.contextmanager
 def _no_tf32():
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -214,23 +141,24 @@ def _no_tf32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def readings(model: dict, seed: int, batches, steps: int, device,
+def readings(loss_backward, model: dict, leaves, batches, steps: int,
              precision: str = "f32") -> dict:
-    """Follow ``steps`` training steps from the weights of ``seed`` on
-    ``batches[0..steps-1]``; return what the comparison reads: the loss of
-    each step, the norm of each leaf's first gradient, and the norm of each
-    leaf's change after the last step."""
+    """Follow ``steps`` training steps of Adam from the weights ``leaves``
+    draws (``inputs.Leaves``) on ``batches[0..steps-1]``, each step's
+    gradients accumulated by ``loss_backward(p, tokens, targets, model,
+    prec)``, which returns the step's loss.  Returns what the comparison
+    reads: the loss of each step, the norm of each leaf's first gradient,
+    and the norm of each leaf's change after the last step."""
     prec = Precision(precision)
     with _no_tf32():
-        p = {n: inputs.make_leaf(n, model, seed, device).requires_grad_(True)
-             for n in inputs.LEAVES}
+        p = {n: leaves.draw(n).requires_grad_(True) for n in leaves.names}
         m = {n: torch.zeros_like(t) for n, t in p.items()}
         v = {n: torch.zeros_like(t) for n, t in p.items()}
         b1, b2, lr, eps = ADAM["b1"], ADAM["b2"], ADAM["lr"], ADAM["eps"]
         losses, grad_norms = [], {}
         for t in range(1, steps + 1):
             tokens, targets = batches[t - 1]
-            losses.append(_loss_backward(p, tokens, targets, model, prec))
+            losses.append(loss_backward(p, tokens, targets, model, prec))
             with torch.no_grad():
                 for n, w in p.items():
                     g = w.grad
@@ -244,8 +172,8 @@ def readings(model: dict, seed: int, batches, steps: int, device,
         del m, v
         with torch.no_grad():
             change = {}
-            for n in inputs.LEAVES:
-                w0 = inputs.make_leaf(n, model, seed, device)
+            for n in leaves.names:
+                w0 = leaves.draw(n)
                 change[n] = float((p[n] - w0).norm())
                 del w0
     return {"losses": losses, "grad_norms": grad_norms, "change_norms": change}

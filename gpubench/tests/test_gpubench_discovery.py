@@ -9,13 +9,16 @@ import pytest
 
 from gpubench import cells
 
+from .conftest import DATA
+
 REPO = cells.ROOT.parent
 
 
 def _copy(tmp_path):
     root = tmp_path / "bench"
-    for sub in ("configs", "traffic", "workloads", "metrics"):
-        shutil.copytree(cells.ROOT / sub, root / sub)
+    for sub in ("configs", "traffic", "workloads", "metrics", "arch", "reference"):
+        shutil.copytree(cells.ROOT / sub, root / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     return root
 
 
@@ -32,9 +35,21 @@ def test_new_files_are_found_without_edits(tmp_path):
     (root / "workloads" / "gpt2-xl-half.train-s512.json").write_text(json.dumps(wl))
     (root / "metrics" / "steps_seen.py").write_text(
         'UNIT = "steps"\n\n\ndef read(run):\n    return run.steps\n')
+    # an architecture: its module, its reference, a configuration naming it
+    # and a cell of that configuration
+    for sub, name in (("arch", "gpt_untied.py"), ("reference", "gpt_untied.py"),
+                      ("configs", "tiny-untied.json"), ("traffic", "tiny-s16.json"),
+                      ("workloads", "tiny-untied.tiny-s16.json")):
+        shutil.copy(DATA / sub / name, root / sub / name)
     cell = cells.load_cell("gpt2-xl-half.train-s512", root)
     assert cell.model["n_layers"] == 24 and cell.model["seq"] == 512
     assert cell.model["remat"] is True and cell.batch == 24
+    toy = cells.load_cell("tiny-untied.tiny-s16", root)
+    assert toy.arch.__file__ == str(root / "arch" / "gpt_untied.py")
+    assert toy.reference.__file__ == str(root / "reference" / "gpt_untied.py")
+    params = toy.leaves(5, "cpu").all()
+    assert set(params) == set(cell.arch.LEAVES) | {"head"}
+    assert toy.model_flops_per_step() == cells.load_cell("tiny.tiny-s16", DATA).model_flops_per_step()
     readers = cells.metric_readers(root)
     assert readers["steps_seen"].UNIT == "steps"
     assert set(cells.metric_readers()) < set(readers)

@@ -3,7 +3,7 @@ read them."""
 
 import pytest
 
-from gpubench import flops, harness, peaks, trace
+from gpubench import cells, flops, harness, peaks, trace
 from gpubench.cells import Cell
 
 
@@ -14,15 +14,17 @@ def test_matmul_params_gpt2_xl_and_mpt_stage():
     assert flops.matmul_params(50432, 4096, 16384, 8) == 8 * 201_326_592 + 206_569_472
 
 
-@pytest.mark.parametrize("B,S,h,hd", [(12, 1024, 25, 64), (1, 32768, 32, 128)])
-def test_flash_counts_by_hand(B, S, h, hd):
+@pytest.mark.parametrize("B,S,h,kv,hd", [(12, 1024, 25, 25, 64), (1, 32768, 32, 32, 128),
+                                         (2, 4096, 32, 8, 64)])
+def test_flash_counts_by_hand(B, S, h, kv, hd):
     pairs = S * (S + 1) // 2
-    fwd = flops.flash_fwd(B, S, h, hd)
+    fwd = flops.flash_fwd(B, S, h, kv, hd)
     assert fwd.flops == B * h * pairs * (2 * hd + 2 * hd)
-    assert fwd.bytes == B * S * h * hd * 2 * 4 + B * h * S * 4
-    bwd = flops.flash_bwd(B, S, h, hd)
+    # q and o at h heads, k and v at kv heads, lse per query row
+    assert fwd.bytes == B * S * (2 * h + 2 * kv) * hd * 2 + B * h * S * 4
+    bwd = flops.flash_bwd(B, S, h, kv, hd)
     assert bwd.flops == B * h * pairs * 5 * 2 * hd
-    assert bwd.bytes == B * S * h * hd * 2 * 8 + B * h * S * 4
+    assert bwd.bytes == B * S * (4 * h + 4 * kv) * hd * 2 + B * h * S * 4
     # the backward's five products are 2.5 forwards
     assert bwd.flops == 2.5 * fwd.flops
 
@@ -57,7 +59,8 @@ def test_card_peaks():
 def _record(times, profiled, kernels=None):
     cfg = {"as_run": {"vocab": 50257, "d_model": 1600, "n_heads": 25, "d_ff": 6400,
                       "n_layers": 48, "ce_chunk": 1733, "dtype": "bfloat16"}}
-    cell = Cell("c", {}, cfg, {"seq": 1024, "batch": 12, "remat": False})
+    cell = Cell("c", {}, cfg, {"seq": 1024, "batch": 12, "remat": False},
+                cells.load_code("arch", "gpt"))
     w = harness.Window(times=times, profiled=profiled)
     if kernels is not None:
         w.trace = trace.Trace(kernels=kernels, busy_s=0.9, window_s=1.0)
@@ -77,7 +80,7 @@ def test_roofline_and_idle_arithmetic():
     from gpubench.cells import metric_readers
 
     readers = metric_readers()
-    fwd = flops.flash_fwd(12, 1024, 25, 64).least_seconds(989e12, 3.35e12)
+    fwd = flops.flash_fwd(12, 1024, 25, 25, 64).least_seconds(989e12, 3.35e12)
     # 96 launches that took twice their least time each: 50%
     rec = _record([0.4] * 6, {2, 3}, {"void flash_fwd_kernel<64>(...)": [2 * 96 * fwd, 96]})
     assert readers["flash_fwd_roofline"].read(rec) == pytest.approx(50.0)
@@ -85,7 +88,7 @@ def test_roofline_and_idle_arithmetic():
     # a kernel that did not run reads nothing, never 0
     assert readers["flash_bwd_roofline"].read(rec) is None
     assert readers["ln_roofline"].read(rec) is None
-    bwd = flops.flash_bwd(12, 1024, 25, 64).least_seconds(989e12, 3.35e12)
+    bwd = flops.flash_bwd(12, 1024, 25, 25, 64).least_seconds(989e12, 3.35e12)
     rec = _record([0.4] * 6, {2, 3}, {"flash_bwd_dq_kernel<64>": [96 * bwd, 96],
                                       "flash_bwd_dkv_kernel<64>": [3 * 96 * bwd, 96]})
     assert readers["flash_bwd_roofline"].read(rec) == pytest.approx(25.0)

@@ -5,8 +5,9 @@ loss and gradients in float32, and one Adam step the same as the port's
 import pytest
 import torch
 
-from gpubench import inputs
-from gpubench.reference import model as reference
+from gpubench import cells, inputs
+from gpubench.reference import common
+from gpubench.reference import gpt as reference
 
 MODEL = {"vocab": 96, "d_model": 32, "n_heads": 2, "d_ff": 64, "n_layers": 2,
          "ce_chunk": 32, "dtype": "float32", "seq": 16, "remat": False}
@@ -16,6 +17,10 @@ def _port_cfg(**kw):
     from zhpe_ompi_tpu_torch.models import transformer as tfm
 
     return tfm.Config(**dict(MODEL, dtype=torch.float32, **kw))
+
+
+def _leaves(seed):
+    return inputs.Leaves(cells.load_code("arch", "gpt"), MODEL, seed, "cpu")
 
 
 def _batch(seed):
@@ -28,16 +33,15 @@ def test_loss_and_gradients_match_the_port_in_f32(seed, kernels):
     from zhpe_ompi_tpu_torch.models import transformer as tfm
 
     tokens, targets = _batch(seed)
-    p = {n: inputs.make_leaf(n, MODEL, seed, "cpu").requires_grad_(True)
-         for n in inputs.LEAVES}
-    loss = reference._loss_backward(p, tokens, targets, MODEL, reference.Precision("f32"))
-    q = {n: inputs.make_leaf(n, MODEL, seed, "cpu").requires_grad_(True)
-         for n in inputs.LEAVES}
+    leaves = _leaves(seed)
+    p = {n: t.requires_grad_(True) for n, t in leaves.all().items()}
+    loss = reference.loss_backward(p, tokens, targets, MODEL, common.Precision("f32"))
+    q = {n: t.requires_grad_(True) for n, t in leaves.all().items()}
     cfg = _port_cfg(flash=kernels, fused_ln=kernels)
     port_loss = tfm.loss_fn(q, tokens, targets, cfg)
     port_loss.backward()
     assert loss == pytest.approx(float(port_loss.detach()), rel=1e-6)
-    for n in inputs.LEAVES:
+    for n in leaves.names:
         torch.testing.assert_close(p[n].grad, q[n].grad, rtol=1e-4, atol=1e-6)
 
 
@@ -49,13 +53,14 @@ def test_adam_steps_match_the_port_in_f32():
 
     seed = 5
     batches = inputs.make_batches({"seq": 16, "batch": 3, "pool": 3}, 96, seed)
-    ref = reference.readings(MODEL, seed, batches, 3, "cpu")
+    leaves = _leaves(seed)
+    ref = reference.readings(MODEL, leaves, batches, 3)
     rt.init(device="cpu")
     try:
         mesh = mesh_mod.make_mesh({"dp": 1, "tp": 1})
         comms = [Communicator(mesh.get_group(a), name=f"t_{a}") for a in ("dp", "tp")]
         init, step, _ = tfm.make_train_step_optax(_port_cfg(), *comms)
-        params = inputs.make_params(MODEL, seed, "cpu")
+        params = leaves.all()
         opt = init(params)
         losses = []
         for tokens, targets in batches:
@@ -64,8 +69,8 @@ def test_adam_steps_match_the_port_in_f32():
     finally:
         rt.finalize()
     assert losses == pytest.approx(ref["losses"], rel=1e-6)
-    for n in inputs.LEAVES:
-        w0 = inputs.make_leaf(n, MODEL, seed, "cpu")
+    for n in leaves.names:
+        w0 = leaves.draw(n)
         assert float((params[n] - w0).norm()) == pytest.approx(
             ref["change_norms"][n], rel=1e-3)
 
@@ -74,10 +79,10 @@ def test_blocked_attention_matches_one_block():
     torch.manual_seed(0)
     q, k, v = (torch.randn(2, 3, 40, 8, dtype=torch.float64, requires_grad=True)
                for _ in range(3))
-    prec = reference.Precision("f32")
+    prec = common.Precision("f32")
     outs = []
     for block in (40, 7):
-        o = reference._Attention.apply(q, k, v, prec, block)
+        o = common.Attention.apply(q, k, v, prec, block)
         g = torch.autograd.grad(o.square().sum(), (q, k, v))
         outs.append((o.detach(), *g))
     for a, b in zip(*outs):
@@ -93,5 +98,5 @@ def test_float8_control_is_farther_than_bf16():
     a, b = torch.randn(64, 256), torch.randn(256, 64)
     exact = a @ b
     bf16 = (a.bfloat16() @ b.bfloat16()).float()
-    fp8 = reference.Precision("fp8").mm(a, b)
+    fp8 = common.Precision("fp8").mm(a, b)
     assert (fp8 - exact).norm() > 5 * (bf16 - exact).norm()
