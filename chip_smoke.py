@@ -1061,6 +1061,111 @@ def check_layernorm_bwd(torch, fused_norm):
     }
 
 
+#: the width-2048 RMSNorms of lfm2-8b-a1b.train-s8192: B*S rows of d_model
+LFM2_NORM_SHAPE = (16384, 2048)
+
+
+def _rms_cases(torch):
+    """Odd shapes (the register path's masked edge, the generic path,
+    float32), then LFM2's main-path shape."""
+    return (((1000, 1000), torch.bfloat16), ((77, 1001), torch.bfloat16),
+            ((333, 640), torch.float32), (LFM2_NORM_SHAPE, torch.bfloat16))
+
+
+def _one_launch(torch, fn, call):
+    """``call()`` once with ``fn``'s launch count set to 0 just before;
+    the count just after (1 for one kernel launch)."""
+    fn.launches = 0
+    out = call()
+    torch.cuda.synchronize()
+    return out, fn.launches
+
+
+def check_rmsnorm(torch, F, fused_norm):
+    """The RMS forward (``rms_fwd``, the layernorm kernel with its RMS flag)
+    against ``rms_fwd_plain``, then timed at LFM2's shape beside
+    ``F.rms_norm`` and a copy."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for shape, dtype in _rms_cases(torch):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        g = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+        (y, r), launches = _one_launch(torch, fused_norm.rms_fwd,
+                                       lambda: fused_norm.rms_fwd(x, g))
+        yp, rp = fused_norm.rms_fwd_plain(x, g)
+        err = _max_err(y, yp)
+        tol = LN_Y_REL_TOL * float(yp.float().abs().max())
+        rerr = _max_err(r, rp) / float(rp.abs().max())
+        print(f"rmsnorm {shape} {dtype}: max|y-plain| {err} (tol {tol}), "
+              f"rstd {rerr} (tol {LN_STAT_TOL}), launches {launches}")
+        if not (err <= tol and rerr <= LN_STAT_TOL and launches == 1):
+            raise SystemExit(f"rmsnorm kernel disagrees at {shape} {dtype}")
+    n, d = LFM2_NORM_SHAPE
+    xs = [x] + [x.clone() for _ in range(3)]  # 4 x 64 MB: more than the L2
+    ms = _time_ms(torch, lambda i: fused_norm.rms_fwd(xs[i], g), len(xs))
+    plain_ms = _time_ms(torch, lambda i: fused_norm.rms_fwd_plain(xs[i], g), len(xs))
+    g_lib = g.to(x.dtype)
+    lib_ms = _time_ms(torch, lambda i: F.rms_norm(xs[i], (d,), g_lib, 1e-5), len(xs))
+    ys = [torch.empty_like(t) for t in xs]
+    copy_ms = _time_ms(torch, lambda i: ys[i].copy_(xs[i]), len(xs))
+    nbytes = 2 * n * d * x.element_size() + d * 4 + n * 4
+    bound_ms, bound_by = _bound(nbytes, 5 * n * d, F32_FLOP_PER_S)  # square, sum, scale, gain
+    return {
+        "name": "rmsnorm_fwd", "route": "cuda",
+        "source": "zhpe_ompi_tpu_torch/csrc/fused_norm.cu",
+        "shape": [n, d], "dtype": "bfloat16", "launches_per_call": launches,
+        "max_abs_err": err, "tolerance": tol,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library": "torch.nn.functional.rms_norm", "copy_ms": copy_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def check_rmsnorm_bwd(torch, fused_norm):
+    """The RMS backward (``rms_bwd``) against ``rms_bwd_plain``, then timed
+    at LFM2's shape beside autograd's backward of ``F.rms_norm``."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for shape, dtype in _rms_cases(torch):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+        _, r = fused_norm.rms_fwd_plain(x, g)
+        (dx, dg), launches = _one_launch(torch, fused_norm.rms_bwd,
+                                         lambda: fused_norm.rms_bwd(x, g, dy, r))
+        dxp, dgp = fused_norm.rms_bwd_plain(x, g, dy, r)
+        err, gerr = _max_err(dx, dxp), _max_err(dg, dgp)
+        tol = LN_DX_REL_TOL[str(dtype).split(".")[-1]] * float(dxp.float().abs().max())
+        gtol = LN_DG_REL_TOL * float(dgp.abs().max())
+        print(f"rmsnorm bwd {shape} {dtype}: max|dx-plain| {err} (tol {tol}), "
+              f"max|dg-plain| {gerr} (tol {gtol}), launches {launches}")
+        if not (err <= tol and gerr <= gtol and launches == 1):
+            raise SystemExit(f"rmsnorm backward kernel disagrees at {shape} {dtype}")
+    n, d = LFM2_NORM_SHAPE
+    sets = [(x, dy)] + [(x.clone(), dy.clone()) for _ in range(2)]  # 3 x 128 MB
+    ms = _time_ms(torch, lambda i: fused_norm.rms_bwd(sets[i][0], g, sets[i][1], r),
+                  len(sets))
+    plain_ms = _time_ms(torch, lambda i: fused_norm.rms_bwd_plain(
+        sets[i][0], g, sets[i][1], r), len(sets))
+    graphs = []
+    for xi, dyi in sets:
+        xl = xi.detach().requires_grad_(True)
+        gl = g.to(x.dtype).requires_grad_(True)
+        graphs.append((F.rms_norm(xl, (d,), gl, 1e-5), (xl, gl), dyi))
+    lib_ms = _time_ms(torch, lambda i: torch.autograd.grad(
+        graphs[i][0], graphs[i][1], graphs[i][2], retain_graph=True), len(sets))
+    nbytes = 3 * n * d * x.element_size() + 2 * d * 4 + n * 4
+    bound_ms, bound_by = _bound(nbytes, 8 * n * d, F32_FLOP_PER_S)  # x^, dx^, dg, sum, dx
+    return {
+        "name": "rmsnorm_bwd", "route": "cuda",
+        "source": "zhpe_ompi_tpu_torch/csrc/fused_norm.cu",
+        "shape": [n, d], "dtype": "bfloat16", "launches_per_call": launches,
+        "max_abs_err": err, "tolerance": tol, "dg_max_abs_err": gerr,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library": "autograd backward of torch.nn.functional.rms_norm",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
 def check_flash_bwd(torch, F, fa):
     gen = torch.Generator(device="cuda").manual_seed(4)
     B, S, h = BATCH, HEADLINE["seq"], HEADLINE["n_heads"]
@@ -1312,6 +1417,64 @@ def _kernel_counters(fused_norm, fa):
             "flash_attention_fwd": fa.flash_fwd,
             "flash_attention_bwd_dq": fa.flash_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_bwd_dkv}
+
+
+#: the smoke's LFM2-MoE: lfm2-8b-a1b's widths, router and held experts
+#: (8 of 32, rank 0 of 4-way expert parallelism) with 4 of its 24 layers
+LFM2_SMOKE = dict(vocab=65536, d_model=2048, n_heads=32, n_kv_heads=8, head_dim=64,
+                  layer_types=["conv", "full_attention", "conv", "conv"], n_dense=1,
+                  d_ff=7168, d_expert=1792, n_experts=32, top_k=4, ep_size=4, ep_rank=0,
+                  conv_kernel=3, seq=2048, ce_chunk=8192)
+LFM2_BATCH = 2
+LFM2_STEPS = 3
+
+
+def _lfm2_counters(fused_norm, fa):
+    return dict(_kernel_counters(fused_norm, fa), rmsnorm_fwd=fused_norm.rms_fwd,
+                rmsnorm_bwd=fused_norm.rms_bwd)
+
+
+def drive_lfm2(torch, fused_norm, fa, dp_comm, card_line):
+    """LFM2_STEPS Adam steps of ``models/lfm2_moe.make_train_step_optax`` at
+    LFM2_SMOKE through a one-rank ``dp_comm``, each step's launches counted
+    from 0: the 2 L + 1 width-2048 RMSNorms forward and backward, one flash
+    forward, dq and dk/dv per attention layer, no layernorm; one host read
+    per MoE layer and step; the loss finite and falling."""
+    from gpubench.arch import lfm2_moe as lfm2_arch
+    from zhpe_ompi_tpu_torch.models import lfm2_moe as lm
+
+    model = dict(LFM2_SMOKE, remat=False, dtype="bfloat16")
+    cfg = lm.Config(**dict(LFM2_SMOKE, layer_types=tuple(LFM2_SMOKE["layer_types"]),
+                           dtype=torch.bfloat16))
+    timings = {}
+    init, step, _ = lm.make_train_step_optax(cfg, dp_comm, timings=timings)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = {}
+    for name in lm.LEAVES:
+        shape, scale = lfm2_arch.leaf_shape_scale(name, model)
+        params[name] = (torch.ones(shape, device="cuda") if scale is None else
+                        torch.randn(shape, generator=gen, device="cuda") * scale)
+    tokens, targets = (torch.randint(0, cfg.vocab, (LFM2_BATCH, cfg.seq), generator=gen,
+                                     device="cuda") for _ in range(2))
+    counts = cfg.counts()
+    L = len(cfg.layer_types)
+    want = {"layernorm_fwd": 0, "layernorm_bwd": 0,
+            "flash_attention_fwd": counts["attn"], "flash_attention_bwd_dq": counts["attn"],
+            "flash_attention_bwd_dkv": counts["attn"],
+            "rmsnorm_fwd": 2 * L + 1, "rmsnorm_bwd": 2 * L + 1}
+    opt = init(params)
+    losses, launches = _adam_steps(torch, step, params, opt, tokens, targets, LFM2_STEPS,
+                                   _lfm2_counters(fused_norm, fa), want, label="lfm2")
+    out = {"losses": losses, "launches_per_step": launches,
+           "moe_host_reads": timings["moe_host_reads"], "moe_rows": timings["moe_rows"],
+           "peak_bytes": torch.cuda.max_memory_allocated(), "card": card_line}
+    print(json.dumps({"lfm2": out}))
+    if timings["moe_host_reads"] != LFM2_STEPS * counts["moe"]:
+        raise SystemExit(f"lfm2: {timings['moe_host_reads']} host reads, "
+                         f"want one per MoE layer and step")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise SystemExit(f"lfm2: the loss did not fall with finite values: {losses}")
+    return out
 
 
 def train_steps(torch, step, params, tokens, targets, counted, want, label):
@@ -5544,6 +5707,35 @@ def main() -> int:
         drive_osu(torch, card_line)
         print(card_line)
         return 0
+    if args == ["--lfm2"]:
+        # the RMS kernels and the LFM2-MoE step alone, after the kernel build
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _take_widths()
+        import torch.distributed as dist
+        import torch.nn.functional as F
+
+        import zhpe_ompi_tpu_torch as zmpi
+        from zhpe_ompi_tpu_torch import _build
+        from zhpe_ompi_tpu_torch.ops import flash_attention as fa
+        from zhpe_ompi_tpu_torch.ops import fused_norm
+
+        card_line = _card_line()
+        print(f"card: {card_line}")
+        print(f"kernel build: per source {_build.build()}")
+        kernels = [check_rmsnorm(torch, F, fused_norm), check_rmsnorm_bwd(torch, fused_norm)]
+        with tempfile.TemporaryDirectory() as store_dir:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                rank=0, world_size=1)
+            try:
+                lfm2 = drive_lfm2(torch, fused_norm, fa, zmpi.Communicator(name="dp"),
+                                  card_line)
+            finally:
+                dist.destroy_process_group()
+        for k in kernels:
+            k["launches"] = lfm2["launches_per_step"][k["name"]]
+        print(json.dumps({"kernels": kernels, "card": card_line}))
+        return 0
     if args == ["--native"]:
         # phase 23 alone, after the kernel build
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5669,7 +5861,7 @@ def main() -> int:
               "| --hybrid-child | --serve | --serve-child kill|elastic "
               "| --osc-io | --osc-io-child | --tools "
               "| --tools-child traced|names|abort [DIR] | --native "
-              "| --native-child | --osu]",
+              "| --native-child | --osu | --lfm2]",
               file=sys.stderr)
         return 2
     if args:
@@ -5725,6 +5917,7 @@ def main() -> int:
 
     kernels = [check_layernorm(torch, F, fused_norm),
                check_layernorm_bwd(torch, fused_norm),
+               check_rmsnorm(torch, F, fused_norm), check_rmsnorm_bwd(torch, fused_norm),
                check_flash(torch, F, fa), *check_flash_bwd(torch, F, fa)]
     ring = check_ring_recurrence(torch, ra)
     host_us = wrapper_host_us(torch, fa)
@@ -5770,6 +5963,7 @@ def main() -> int:
                           flash_loss)
             adam_launches, adam_steady, ckpt, adam_cmp = drive_adam(
                 torch, np, tfm, fused_norm, fa, dp_comm, tp_comm, steady, card_line)
+            lfm2 = drive_lfm2(torch, fused_norm, fa, dp_comm, card_line)
             moe_pipe = check_moe_pipeline(torch, np, tp_comm, card_line)
             device_plane = check_device_plane(torch, np, dp_comm, card_line)
             late = (bench_after_profiling(torch, tfm, dp_comm, tp_comm, runtime,
@@ -5800,6 +5994,10 @@ def main() -> int:
                       "flash_attention_fwd":
                           serve["launches_per_step_and_rank"]["flash_fwd"]}
     for k in kernels:
+        if k["name"] not in launches:  # the RMS kernels: LFM2's step alone runs them
+            k["launches"] = lfm2["launches_per_step"][k["name"]]
+            k["launches_by_path"] = {"lfm2": k["launches"]}
+            continue
         # ``launches``: per training step; the other paths beside it
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {
@@ -5825,7 +6023,8 @@ def main() -> int:
                       "allreduce_host_us_per_call": allreduce_host,
                       "runtime": runtime, "bench_after_profiling": late,
                       "checkpoint": ckpt, "adam_vs_plain": adam_cmp,
-                      "moe_pipeline": moe_pipe, "device_plane": device_plane,
+                      "lfm2": lfm2, "moe_pipeline": moe_pipe,
+                      "device_plane": device_plane,
                       "host_plane": host_plane, "host_moe": host_moe,
                       "ft": ft, "ft_processes": ft_processes, "ft_dvm": ft_dvm,
                       "hybrid": hybrid, "serve": serve, "osc_io": osc_io,

@@ -59,6 +59,15 @@
 //   parallel (fold_dg): a block takes 32 columns, its warps split the rows,
 //   and their sums are added in warp order.  No atomics: the same bits on
 //   every run on a given card.
+//
+// RMS form.  Every kernel takes a compile-time flag RMS: with it the row
+// is not centred (m = 0, so c = x and x^ = x r), no mean is written or
+// read, and the backward drops the mean(dx^) term: y = x r g with
+// r = rsqrt(mean(x^2) + eps), dx = r (dx^ - x^ mean(dx^ x^)), and the same
+// dg.  It replaces no TPU kernel (the JAX package has no RMSNorm); it is
+// the norm of models that use RMSNorm (models/lfm2_moe.py), on the same
+// paths, launches and names as the layernorm.  The layernorm's
+// instantiations (RMS false) compute exactly what they computed before.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -91,7 +100,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Fast path: the row in registers.  VEC elements per 16-byte load; lane l
 // holds elements [(c * 32 + l) * VEC, +VEC) for c < CHUNKS.  Requires
 // d % VEC == 0 and 16-byte aligned x, y and g.
-template <typename T, int CHUNKS>
+template <typename T, int CHUNKS, bool RMS>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 ln_fwd_reg(const T* __restrict__ x, const float* __restrict__ g, T* __restrict__ y,
            float* __restrict__ mean, float* __restrict__ rstd, int64_t n, int d,
@@ -121,7 +130,7 @@ ln_fwd_reg(const T* __restrict__ x, const float* __restrict__ g, T* __restrict__
       for (int i = 0; i < VEC; ++i) v[c][i] = 0.f;
     }
   }
-  const float m = warp_sum(s) / (float)d;
+  const float m = RMS ? 0.f : warp_sum(s) / (float)d;
   float q = 0.f;
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
@@ -153,13 +162,13 @@ ln_fwd_reg(const T* __restrict__ x, const float* __restrict__ g, T* __restrict__
     }
   }
   if (lane == 0) {
-    mean[row] = m;
+    if (!RMS) mean[row] = m;
     rstd[row] = r;
   }
 }
 
 // Generic path: any d, any alignment; three scalar passes over the row.
-template <typename T>
+template <typename T, bool RMS>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 ln_fwd_generic(const T* __restrict__ x, const float* __restrict__ g, T* __restrict__ y,
                float* __restrict__ mean, float* __restrict__ rstd, int64_t n, int d,
@@ -170,8 +179,9 @@ ln_fwd_generic(const T* __restrict__ x, const float* __restrict__ g, T* __restri
   const T* xr = x + row * d;
   T* yr = y + row * d;
   float s = 0.f;
-  for (int j = lane; j < d; j += 32) s += to_f(xr[j]);
-  const float m = warp_sum(s) / (float)d;
+  if (!RMS)
+    for (int j = lane; j < d; j += 32) s += to_f(xr[j]);
+  const float m = RMS ? 0.f : warp_sum(s) / (float)d;
   float q = 0.f;
   for (int j = lane; j < d; j += 32) {
     const float c = to_f(xr[j]) - m;
@@ -180,32 +190,32 @@ ln_fwd_generic(const T* __restrict__ x, const float* __restrict__ g, T* __restri
   const float r = rsqrtf(warp_sum(q) / (float)d + eps);
   for (int j = lane; j < d; j += 32) yr[j] = from_f<T>((to_f(xr[j]) - m) * r * g[j]);
   if (lane == 0) {
-    mean[row] = m;
+    if (!RMS) mean[row] = m;
     rstd[row] = r;
   }
 }
 
-template <typename T, int CHUNKS>
+template <typename T, int CHUNKS, bool RMS>
 void launch_reg(const void* x, const float* g, void* y, float* m, float* r, int64_t n,
                 int d, float eps, cudaStream_t st) {
   const unsigned blocks = (unsigned)((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  ln_fwd_reg<T, CHUNKS><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
+  ln_fwd_reg<T, CHUNKS, RMS><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
       static_cast<const T*>(x), g, static_cast<T*>(y), m, r, n, d, eps);
 }
 
-template <typename T>
+template <typename T, bool RMS>
 void launch(const void* x, const float* g, void* y, float* m, float* r, int64_t n, int d,
             float eps, cudaStream_t st) {
   constexpr int VEC = 16 / sizeof(T);
   const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0) &&
                        ((uintptr_t)g % 16 == 0) && (d % VEC == 0);
   const int chunks = (d + 32 * VEC - 1) / (32 * VEC);
-  if (aligned && chunks <= 1) return launch_reg<T, 1>(x, g, y, m, r, n, d, eps, st);
-  if (aligned && chunks <= 2) return launch_reg<T, 2>(x, g, y, m, r, n, d, eps, st);
-  if (aligned && chunks <= 4) return launch_reg<T, 4>(x, g, y, m, r, n, d, eps, st);
-  if (aligned && chunks <= 8) return launch_reg<T, 8>(x, g, y, m, r, n, d, eps, st);
+  if (aligned && chunks <= 1) return launch_reg<T, 1, RMS>(x, g, y, m, r, n, d, eps, st);
+  if (aligned && chunks <= 2) return launch_reg<T, 2, RMS>(x, g, y, m, r, n, d, eps, st);
+  if (aligned && chunks <= 4) return launch_reg<T, 4, RMS>(x, g, y, m, r, n, d, eps, st);
+  if (aligned && chunks <= 8) return launch_reg<T, 8, RMS>(x, g, y, m, r, n, d, eps, st);
   const unsigned blocks = (unsigned)((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  ln_fwd_generic<T><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
+  ln_fwd_generic<T, RMS><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
       static_cast<const T*>(x), g, static_cast<T*>(y), m, r, n, d, eps);
 }
 
@@ -253,7 +263,7 @@ struct BwdReg {
 // c < CHUNKS, as in ln_fwd_reg.  Requires d % VEC == 0 and 16-byte aligned
 // x, dy, dx and g.  Writes partial[blockIdx.x][:d], the block's dg sum,
 // then folds the grid's partial rows into dg.
-template <typename T, int CHUNKS>
+template <typename T, int CHUNKS, bool RMS>
 __global__ void __launch_bounds__(BwdReg<T, CHUNKS>::kThreads, 1)
 ln_bwd_reg(const T* __restrict__ x, const float* __restrict__ g, const T* __restrict__ dy,
            const float* __restrict__ mean, const float* __restrict__ rstd, T* __restrict__ dx,
@@ -283,7 +293,7 @@ ln_bwd_reg(const T* __restrict__ x, const float* __restrict__ g, const T* __rest
   const int64_t stride = (int64_t)gridDim.x * W;
   int64_t row = (int64_t)blockIdx.x * W + warp;
   load(row, xv, dv);
-  float m = row < n ? mean[row] : 0.f, r = row < n ? rstd[row] : 0.f;
+  float m = (!RMS && row < n) ? mean[row] : 0.f, r = row < n ? rstd[row] : 0.f;
   // g, while the first rows load
   for (int j = threadIdx.x; j < d; j += P::kThreads) sg[j] = g[j];
   __syncthreads();
@@ -292,7 +302,8 @@ ln_bwd_reg(const T* __restrict__ x, const float* __restrict__ g, const T* __rest
     const int64_t next = row + stride;
     uint4 xn[CHUNKS], dn[CHUNKS];
     load(next, xn, dn);
-    const float m_next = next < n ? mean[next] : 0.f, r_next = next < n ? rstd[next] : 0.f;
+    const float m_next = (!RMS && next < n) ? mean[next] : 0.f;
+    const float r_next = next < n ? rstd[next] : 0.f;
 
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -317,7 +328,7 @@ ln_bwd_reg(const T* __restrict__ x, const float* __restrict__ g, const T* __rest
         }
       }
     }
-    const float mdh = warp_sum(s1) / (float)d;
+    const float mdh = RMS ? 0.f : warp_sum(s1) / (float)d;
     const float mdx = warp_sum(s2) / (float)d;
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
@@ -370,7 +381,7 @@ ln_bwd_reg(const T* __restrict__ x, const float* __restrict__ g, const T* __rest
 // Generic path: any d, any alignment; scalar passes over the row, each
 // warp's dg sum in its own row of partial, (gridDim.x * kRowsPerBlock, d),
 // then the grid's fold into dg.
-template <typename T>
+template <typename T, bool RMS>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 ln_bwd_generic(const T* __restrict__ x, const float* __restrict__ g, const T* __restrict__ dy,
                const float* __restrict__ mean, const float* __restrict__ rstd,
@@ -382,7 +393,7 @@ ln_bwd_generic(const T* __restrict__ x, const float* __restrict__ g, const T* __
   for (int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + warp; row < n; row += stride) {
     const T* xr = x + row * d;
     const T* dyr = dy + row * d;
-    const float m = mean[row], r = rstd[row];
+    const float m = RMS ? 0.f : mean[row], r = rstd[row];
     float s1 = 0.f, s2 = 0.f;
     for (int j = lane; j < d; j += 32) {
       const float xh = (to_f(xr[j]) - m) * r;
@@ -392,7 +403,7 @@ ln_bwd_generic(const T* __restrict__ x, const float* __restrict__ g, const T* __
       s1 += dh;
       s2 += dh * xh;
     }
-    const float mdh = warp_sum(s1) / (float)d;
+    const float mdh = RMS ? 0.f : warp_sum(s1) / (float)d;
     const float mdx = warp_sum(s2) / (float)d;
     for (int j = lane; j < d; j += 32) {
       const float xh = (to_f(xr[j]) - m) * r;
@@ -416,14 +427,14 @@ struct BwdPlan {
 
 // The register path's kernel, block size and shared memory, its dynamic
 // shared-memory limit raised once per device.
-template <typename T, int CHUNKS>
+template <typename T, int CHUNKS, bool RMS>
 cudaError_t reg_plan(BwdPlan<T>* plan) {
   using P = BwdReg<T, CHUNKS>;
   static unsigned long long smem_set = 0;
-  plan->kernel = ln_bwd_reg<T, CHUNKS>;
+  plan->kernel = ln_bwd_reg<T, CHUNKS, RMS>;
   plan->threads = P::kThreads;
   plan->smem = P::kSmem;
-  return sm90::allow_smem(ln_bwd_reg<T, CHUNKS>, P::kSmem, &smem_set);
+  return sm90::allow_smem(ln_bwd_reg<T, CHUNKS, RMS>, P::kSmem, &smem_set);
 }
 
 // Which kernel, how many blocks of how many threads, how many dg partial
@@ -431,7 +442,7 @@ cudaError_t reg_plan(BwdPlan<T>* plan) {
 // wrapper can size the partials before the launch and the summation order
 // is fixed.  The grid is at most what the card holds at once, as a
 // cooperative launch needs.
-template <typename T>
+template <typename T, bool RMS>
 cudaError_t bwd_plan(const void* x, const void* g, const void* dy, const void* dx, int64_t n,
                      int d, BwdPlan<T>* plan) {
   constexpr int VEC = 16 / sizeof(T);
@@ -440,11 +451,11 @@ cudaError_t bwd_plan(const void* x, const void* g, const void* dy, const void* d
   const int chunks = (d + 32 * VEC - 1) / (32 * VEC);
   cudaError_t err = cudaSuccess;
   bool reg = aligned && chunks <= 8;
-  if (aligned && chunks <= 1) err = reg_plan<T, 1>(plan);
-  else if (aligned && chunks <= 2) err = reg_plan<T, 2>(plan);
-  else if (aligned && chunks <= 4) err = reg_plan<T, 4>(plan);
-  else if (aligned && chunks <= 8) err = reg_plan<T, 8>(plan);
-  else *plan = {ln_bwd_generic<T>, 0, 32 * kRowsPerBlock, 0, 0};
+  if (aligned && chunks <= 1) err = reg_plan<T, 1, RMS>(plan);
+  else if (aligned && chunks <= 2) err = reg_plan<T, 2, RMS>(plan);
+  else if (aligned && chunks <= 4) err = reg_plan<T, 4, RMS>(plan);
+  else if (aligned && chunks <= 8) err = reg_plan<T, 8, RMS>(plan);
+  else *plan = {ln_bwd_generic<T, RMS>, 0, 32 * kRowsPerBlock, 0, 0};
   if (err != cudaSuccess) return err;
   int per_sm = 1, sms = 0;
   if (reg) {
@@ -462,12 +473,12 @@ cudaError_t bwd_plan(const void* x, const void* g, const void* dy, const void* d
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, bool RMS>
 int launch_bwd(const void* x, const float* g, const void* dy, const float* m, const float* r,
                void* dx, float* dg, float* partial, long long partial_rows, int64_t n, int d,
                cudaStream_t st) {
   BwdPlan<T> plan;
-  cudaError_t err = bwd_plan<T>(x, g, dy, dx, n, d, &plan);
+  cudaError_t err = bwd_plan<T, RMS>(x, g, dy, dx, n, d, &plan);
   if (err != cudaSuccess) return (int)err;
   if (plan.partial_rows != partial_rows) return (int)cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
@@ -481,42 +492,80 @@ int launch_bwd(const void* x, const float* g, const void* dy, const float* m, co
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x and y are (n, d)
-// row-major; g is (d,) float32; mean and rstd are (n,) float32.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int zt_ln_fwd(const void* x, const void* g, void* y, void* mean, void* rstd,
-                         long long n, int d, int dtype, float eps, void* stream) {
+namespace {
+
+template <bool RMS>
+int fwd_entry(const void* x, const void* g, void* y, void* mean, void* rstd, long long n, int d,
+              int dtype, float eps, void* stream) {
   if (n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
   float* m = static_cast<float*>(mean);
   float* r = static_cast<float*>(rstd);
   switch (dtype) {
-    case 0: launch<float>(x, gf, y, m, r, n, d, eps, st); break;
-    case 1: launch<__nv_bfloat16>(x, gf, y, m, r, n, d, eps, st); break;
+    case 0: launch<float, RMS>(x, gf, y, m, r, n, d, eps, st); break;
+    case 1: launch<__nv_bfloat16, RMS>(x, gf, y, m, r, n, d, eps, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <bool RMS>
+long long bwd_partials_entry(const void* x, const void* g, const void* dy, const void* dx,
+                             long long n, int d, int dtype) {
+  if (n <= 0 || d <= 0) return -1;
+  switch (dtype) {
+    case 0: {
+      BwdPlan<float> plan;
+      return bwd_plan<float, RMS>(x, g, dy, dx, n, d, &plan) == cudaSuccess ? plan.partial_rows
+                                                                            : -1;
+    }
+    case 1: {
+      BwdPlan<__nv_bfloat16> plan;
+      return bwd_plan<__nv_bfloat16, RMS>(x, g, dy, dx, n, d, &plan) == cudaSuccess
+                 ? plan.partial_rows
+                 : -1;
+    }
+    default: return -1;
+  }
+}
+
+template <bool RMS>
+int bwd_entry(const void* x, const void* g, const void* dy, const void* mean, const void* rstd,
+              void* dx, void* dg, void* partial, long long partial_rows, long long n, int d,
+              int dtype, void* stream) {
+  if (n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  float* dgf = static_cast<float*>(dg);
+  float* pf = static_cast<float*>(partial);
+  switch (dtype) {
+    case 0:
+      return launch_bwd<float, RMS>(x, gf, dy, m, r, dx, dgf, pf, partial_rows, n, d, st);
+    case 1:
+      return launch_bwd<__nv_bfloat16, RMS>(x, gf, dy, m, r, dx, dgf, pf, partial_rows, n, d,
+                                            st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  x and y are (n, d)
+// row-major; g is (d,) float32; mean and rstd are (n,) float32.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int zt_ln_fwd(const void* x, const void* g, void* y, void* mean, void* rstd,
+                         long long n, int d, int dtype, float eps, void* stream) {
+  return fwd_entry<false>(x, g, y, mean, rstd, n, d, dtype, eps, stream);
 }
 
 // The number of (d,) float32 dg partial rows zt_ln_bwd needs for these
 // tensors on the current device, or -1 for arguments it does not take.
 extern "C" long long zt_ln_bwd_partials(const void* x, const void* g, const void* dy,
                                         const void* dx, long long n, int d, int dtype) {
-  if (n <= 0 || d <= 0) return -1;
-  switch (dtype) {
-    case 0: {
-      BwdPlan<float> plan;
-      return bwd_plan<float>(x, g, dy, dx, n, d, &plan) == cudaSuccess ? plan.partial_rows : -1;
-    }
-    case 1: {
-      BwdPlan<__nv_bfloat16> plan;
-      return bwd_plan<__nv_bfloat16>(x, g, dy, dx, n, d, &plan) == cudaSuccess
-                 ? plan.partial_rows
-                 : -1;
-    }
-    default: return -1;
-  }
+  return bwd_partials_entry<false>(x, g, dy, dx, n, d, dtype);
 }
 
 // Layernorm backward.  x, dy and dx are (n, d) row-major in `dtype`
@@ -528,17 +577,25 @@ extern "C" long long zt_ln_bwd_partials(const void* x, const void* g, const void
 extern "C" int zt_ln_bwd(const void* x, const void* g, const void* dy, const void* mean,
                          const void* rstd, void* dx, void* dg, void* partial,
                          long long partial_rows, long long n, int d, int dtype, void* stream) {
-  if (n <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* gf = static_cast<const float*>(g);
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  float* dgf = static_cast<float*>(dg);
-  float* pf = static_cast<float*>(partial);
-  switch (dtype) {
-    case 0: return launch_bwd<float>(x, gf, dy, m, r, dx, dgf, pf, partial_rows, n, d, st);
-    case 1:
-      return launch_bwd<__nv_bfloat16>(x, gf, dy, m, r, dx, dgf, pf, partial_rows, n, d, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bwd_entry<false>(x, g, dy, mean, rstd, dx, dg, partial, partial_rows, n, d, dtype,
+                          stream);
+}
+
+// The RMS form of the three entry points above, with the same arguments;
+// the mean pointers are neither read nor written (pass null).
+extern "C" int zt_rms_fwd(const void* x, const void* g, void* y, void* mean, void* rstd,
+                          long long n, int d, int dtype, float eps, void* stream) {
+  return fwd_entry<true>(x, g, y, mean, rstd, n, d, dtype, eps, stream);
+}
+
+extern "C" long long zt_rms_bwd_partials(const void* x, const void* g, const void* dy,
+                                         const void* dx, long long n, int d, int dtype) {
+  return bwd_partials_entry<true>(x, g, dy, dx, n, d, dtype);
+}
+
+extern "C" int zt_rms_bwd(const void* x, const void* g, const void* dy, const void* mean,
+                          const void* rstd, void* dx, void* dg, void* partial,
+                          long long partial_rows, long long n, int d, int dtype, void* stream) {
+  return bwd_entry<true>(x, g, dy, mean, rstd, dx, dg, partial, partial_rows, n, d, dtype,
+                         stream);
 }

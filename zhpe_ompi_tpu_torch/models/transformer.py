@@ -249,7 +249,8 @@ _NO_LAPS = hybrid.Laps(None)
 _TP_REPLICATED = frozenset({"embed", "lnf", "ln1", "ln2"})
 
 
-def _sync_grads(grads, loss, dp_comm, tp_comm, sp_comm, dp, tp, sp):
+def _sync_grads(grads, loss, dp_comm, tp_comm, sp_comm, dp, tp, sp,
+                replicated=_TP_REPLICATED):
     """The gradient synchronization semantics of the JAX package's
     ``_sync_grads``, in its order (dp, then sp, then tp), every sync
     through the framework's allreduce:
@@ -261,13 +262,15 @@ def _sync_grads(grads, loss, dp_comm, tp_comm, sp_comm, dp, tp, sp):
       - sp: every rank sees only its sequence block, so every param's grad
         is partial over sp: sp-mean them all (dp-mean x sp-mean composes
         to the global token mean).
-      - the loss is averaged over dp, sp and tp."""
+      - the loss is averaged over dp, sp and tp.
+    ``replicated`` names the replicated-over-tp parameters (GPT's by
+    default)."""
     synced = {}
     for name, g in grads.items():
         g = dp_comm.allreduce(g, zops.SUM) / dp
         if sp_comm is not None:
             g = sp_comm.allreduce(g, zops.SUM) / sp
-        if name in _TP_REPLICATED and tp_comm is not None:
+        if name in replicated and tp_comm is not None:
             g = tp_comm.allreduce(g, zops.SUM) / tp
         synced[name] = g
     loss = dp_comm.allreduce(loss, zops.SUM) / dp
@@ -385,12 +388,36 @@ def make_train_step_optax(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
     With ``timings`` each phase runs in a profiler range
     ``zmpi.step.<phase>``, and while ``runtime/ztrace`` is armed it is
     recorded as a ``PHASE`` span ``step.<phase>``."""
+    param_specs = {name: _TP_AXIS.get(name) for name in
+                   ("embed", "wqkv", "wo", "w1", "w2", "ln1", "ln2", "lnf")}
+
+    def loss(leaves, tokens, targets, laps):
+        return loss_fn(leaves, tokens, targets, cfg, tp_comm, sp_comm, laps=laps)
+
+    init_opt_state, step = optax_train_step(
+        loss, dp_comm, tp_comm, sp_comm, optimizer=optimizer,
+        dcn_proc=dcn_proc, dcn_weight=dcn_weight, dcn_sharded=dcn_sharded,
+        timings=timings)
+    return init_opt_state, step, param_specs
+
+
+def optax_train_step(loss, dp_comm, tp_comm=None, sp_comm=None, *,
+                     optimizer=None, dcn_proc=None,
+                     dcn_weight: float | None = None,
+                     dcn_sharded: bool = False,
+                     timings: dict | None = None,
+                     tp_replicated=_TP_REPLICATED):
+    """The body of :func:`make_train_step_optax`, shared by the port's
+    models: ``loss(leaves, tokens, targets, laps)`` is the model's loss
+    (its ``loss_fn`` timing the ``"forward"`` and ``"loss"`` phases on
+    ``laps``), and ``tp_replicated`` names its replicated-over-tp leaves
+    for :func:`_sync_grads`.  Returns ``(init_opt_state, step)``, with the
+    arguments, phases, counts and in-place semantics that
+    :func:`make_train_step_optax` documents."""
     factory = _adam if optimizer is None else optimizer
     dp = dp_comm.size
     tp = tp_comm.size if tp_comm is not None else 1
     sp = sp_comm.size if sp_comm is not None else 1
-    param_specs = {name: _TP_AXIS.get(name) for name in
-                   ("embed", "wqkv", "wo", "w1", "w2", "ln1", "ln2", "lnf")}
 
     # the rank the step's ztrace spans carry
     world_rank = (dp_comm.group.global_of_rank(dp_comm.rank)
@@ -426,20 +453,20 @@ def make_train_step_optax(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
     def _step(params, opt_state, tokens, targets, names, laps):
         leaves = {n: params[n].detach().requires_grad_(True) for n in names}
         with torch.enable_grad():
-            loss = loss_fn(leaves, tokens, targets, cfg, tp_comm, sp_comm,
-                           laps=laps)
+            loss_value = loss(leaves, tokens, targets, laps)
             with laps.phase("backward"):
-                grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+                grads = torch.autograd.grad(loss_value, [leaves[n] for n in names])
         with laps.phase("sync"):
-            synced, loss = _sync_grads(dict(zip(names, grads)), loss.detach(),
-                                       dp_comm, tp_comm, sp_comm, dp, tp, sp)
+            synced, loss_value = _sync_grads(
+                dict(zip(names, grads)), loss_value.detach(), dp_comm, tp_comm,
+                sp_comm, dp, tp, sp, tp_replicated)
         if dcn_proc is not None and dcn_proc.size > 1:
             # the loss rides the gradients' float32 bucket: no extra round
             sync = (hybrid.dcn_grad_sync_sharded if dcn_sharded
                     else hybrid.dcn_grad_sync)
-            bundle = sync(dcn_proc, {"grads": synced, "loss": loss.float()},
+            bundle = sync(dcn_proc, {"grads": synced, "loss": loss_value.float()},
                           weight=dcn_weight, timings=timings)
-            synced, loss = bundle["grads"], bundle["loss"]
+            synced, loss_value = bundle["grads"], bundle["loss"]
             laps.restart()
         with laps.phase("optimizer"):
             for n in names:
@@ -448,6 +475,6 @@ def make_train_step_optax(cfg: Config, dp_comm, tp_comm=None, sp_comm=None,
                 opt_state.step()
             for n in names:
                 params[n].grad = None
-        return params, opt_state, loss
+        return params, opt_state, loss_value
 
-    return init_opt_state, step, param_specs
+    return init_opt_state, step
